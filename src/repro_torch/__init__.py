@@ -1,0 +1,28 @@
+"""PyTorch/CUDA port of `repro`, for one NVIDIA H100.
+
+Laid out module for module like `repro` (the JAX reference, which stays
+unchanged): `repro_torch.core.locality` is the counterpart of
+`repro.core.locality`, and so on.  The port imports neither `jax` nor
+`repro`; only its tests import both.  The first slice covers the
+fleet-scale Balanced-PANDAS simulator (`core.simulator.simulate` ->
+`sharding.sim.fleet_simulate` -> the hand-written CUDA `fleet_route`
+kernel); see ROADMAP.md for what is still to port.
+
+Entry points take ``device=None``, which means the card (``"cuda"``), and
+raise when none is present; pass ``device="cpu"`` to run the kernels'
+plain PyTorch versions on the CPU, as the tests do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; a CUDA device with no card present raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev

@@ -1,0 +1,305 @@
+"""Tier-generic locality model of a data center (paper §2, System Model).
+
+Port of `repro.core.locality`.  The structural parts are numpy and are
+copied as they are: `Topology` (a K-level hierarchy server -> rack ->
+pod -> ... whose normalized form is the ``(depth, M)`` ancestor table),
+`Rates` (strictly decreasing ``(K,)`` tier rates), `Traffic`, and the
+hot-rack fluid capacity `capacity_hot_rack` with its `hot_rack_tiers`.
+The tensor helpers (`as_ancestors`, `per_server_rates`) are torch.
+
+Capacity (hot-rack traffic).  With a fraction ``p_hot`` of arrivals drawn
+with all three local servers inside one rack ("hot" types) and the rest
+uniform over all servers, the K-tier fluid capacity is the greedy
+water-filling over tier pools: the hot rack serves hot tasks at
+``rates[0]``, overflow hot traffic spills to the tier-2 pool at
+``rates[2]``, then tier-3, ...; uniform tasks are served locally at
+``rates[0]`` anywhere.  For the regime in which pools ``i < j`` are
+hot-saturated,
+
+    Lambda_j = (M - sum_{i<j} n_i + sum_{i<j} n_i r_i / r_j)
+               / (p_hot / r_j + (1 - p_hot) / rates[0])
+
+and the capacity is the unique consistent regime.
+
+The dense-path samplers (`sample_arrivals_at`, `server_tiers`,
+`random_argmin`, ...) come with the dense slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import numbers
+from functools import lru_cache
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+NUM_REPLICAS = 3  # Hadoop default: each chunk lives on 3 servers
+
+# One hierarchy level: a uniform group size (int, in servers) or explicit
+# per-group sizes (heterogeneous, must tile the fleet).
+LevelSpec = Union[int, Sequence[int]]
+
+
+def _normalize_levels(num_servers: int, spec) -> Tuple[Tuple[int, ...], ...]:
+    """Canonical per-level group-size tuples for a `Topology` spec.
+
+    `spec` is the legacy rack size (int), or a sequence of `LevelSpec`s
+    ordered from the finest grouping (racks) outward (pods, cores, ...).
+    Every level must tile ``num_servers`` exactly and nest inside the next
+    (each pod is a union of whole racks).
+    """
+    if isinstance(spec, numbers.Integral):
+        spec = (int(spec),)
+    levels = []
+    for li, level in enumerate(spec):
+        if isinstance(level, numbers.Integral):
+            size = int(level)
+            if size < 1 or num_servers % size != 0:
+                raise ValueError(
+                    f"level {li}: group size {size} does not tile "
+                    f"num_servers={num_servers}")
+            sizes = (size,) * (num_servers // size)
+        else:
+            sizes = tuple(int(s) for s in level)
+            if any(s < 1 for s in sizes):
+                raise ValueError(f"level {li}: group sizes must be >= 1, "
+                                 f"got {sizes}")
+            if sum(sizes) != num_servers:
+                raise ValueError(
+                    f"level {li}: group sizes {sizes} sum to {sum(sizes)}, "
+                    f"do not tile num_servers={num_servers}")
+        levels.append(sizes)
+    # nesting: every group boundary at level l+1 must align with level l
+    for li in range(1, len(levels)):
+        inner = np.cumsum(levels[li - 1])
+        outer = np.cumsum(levels[li])
+        if not set(outer).issubset(set(inner)):
+            raise ValueError(
+                f"level {li} groups {levels[li]} do not nest on level "
+                f"{li - 1} boundaries {levels[li - 1]}")
+        if len(levels[li]) >= len(levels[li - 1]):
+            raise ValueError(
+                f"level {li} must coarsen level {li - 1}: "
+                f"{len(levels[li])} groups vs {len(levels[li - 1])}")
+    return tuple(levels)
+
+
+@lru_cache(maxsize=64)
+def _ancestor_table(num_servers: int,
+                    levels: Tuple[Tuple[int, ...], ...]) -> np.ndarray:
+    """(depth, M) int32 ancestor-group id per server per level."""
+    table = np.empty((len(levels), num_servers), np.int32)
+    for li, sizes in enumerate(levels):
+        table[li] = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+    table.setflags(write=False)
+    return table
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Static K-level hierarchy of ``num_servers`` servers.
+
+    ``group_sizes`` orders the levels from finest (racks) outward; each
+    entry is a uniform size in servers or explicit per-group sizes.  The
+    number of locality tiers is ``depth + 2`` (local, one per level,
+    remote): ``Topology(M, g)`` is the classic 3-tier rack model,
+    ``Topology(M, ())`` a flat 2-tier fleet, ``Topology(M, (g, p))`` a
+    4-tier fat-tree pod topology.
+    """
+
+    num_servers: int
+    group_sizes: Union[int, Sequence[LevelSpec]] = ()
+
+    def __post_init__(self):
+        if self.num_servers < 1:
+            raise ValueError(f"need num_servers >= 1, got {self.num_servers}")
+        levels = _normalize_levels(self.num_servers, self.group_sizes)
+        object.__setattr__(self, "group_sizes", levels)
+
+    @property
+    def depth(self) -> int:
+        """Hierarchy levels above the server (1 for the flat-rack model)."""
+        return len(self.group_sizes)
+
+    @property
+    def num_tiers(self) -> int:
+        """K: local + one tier per level + remote."""
+        return self.depth + 2
+
+    @property
+    def ancestors(self) -> np.ndarray:
+        """(depth, M) int32 ancestor-group id of each server at each level
+        (level 0 = rack)."""
+        return _ancestor_table(self.num_servers, self.group_sizes)
+
+    @property
+    def num_racks(self) -> int:
+        return len(self.group_sizes[0]) if self.depth else 1
+
+    @property
+    def rack_of(self) -> np.ndarray:
+        """(M,) rack id of each server (all zero for a depth-0 fleet)."""
+        if self.depth:
+            return self.ancestors[0]
+        return np.zeros(self.num_servers, np.int32)
+
+    @property
+    def min_rack_size(self) -> int:
+        return min(self.group_sizes[0]) if self.depth else self.num_servers
+
+
+class Rates:
+    """Strictly-decreasing service rates per locality tier
+    (completion prob/slot): ``Rates(alpha, beta, gamma)`` or
+    ``Rates((r0, r1, ..., r_{K-1}))``."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, *values):
+        if not values:
+            values = (0.5, 0.45, 0.25)  # the paper's defaults
+        elif len(values) == 1 and not isinstance(values[0], numbers.Real):
+            values = tuple(values[0])
+        values = tuple(float(v) for v in values)
+        if len(values) < 2:
+            raise ValueError(f"need >= 2 tier rates, got {values}")
+        ok = all(0.0 < v <= 1.0 for v in values) and \
+            all(a > b for a, b in zip(values, values[1:]))
+        if not ok:
+            raise ValueError(f"need 1 >= r0 > r1 > ... > r_K-1 > 0, "
+                             f"got {self.__class__.__name__}{values}")
+        object.__setattr__(self, "values", values)
+
+    def __setattr__(self, name, value):  # frozen, like a dataclass
+        raise dataclasses.FrozenInstanceError(f"cannot assign to {name!r}")
+
+    @property
+    def num_tiers(self) -> int:
+        return len(self.values)
+
+    @property
+    def alpha(self) -> float:
+        return self.values[0]
+
+    @property
+    def beta(self) -> float:
+        return self.values[1]
+
+    @property
+    def gamma(self) -> float:
+        return self.values[-1]
+
+    def as_array(self, device=None) -> torch.Tensor:
+        """(K,) float32 tensor of the rates (on `device`, CPU by default)."""
+        return torch.tensor(self.values, dtype=torch.float32, device=device)
+
+    def __repr__(self) -> str:
+        return f"Rates{self.values}"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Rates) and self.values == other.values
+
+    def __hash__(self) -> int:
+        return hash(("Rates", self.values))
+
+
+@dataclasses.dataclass(frozen=True)
+class Traffic:
+    """Arrival process: truncated-Poisson(lam_total) arrivals/slot, each task's
+    type = 3 distinct servers sampled from a hot-rack mixture."""
+
+    lam_total: float  # mean arrivals per slot (all types)
+    p_hot: float = 0.5  # fraction of tasks whose locals all live in rack 0
+    max_arrivals: int = 24  # C_A bound of the paper's model
+
+    def __post_init__(self):
+        if not 0.0 <= float(self.p_hot) <= 1.0:
+            raise ValueError(f"p_hot must be in [0, 1], got {self.p_hot}")
+        if self.max_arrivals < 1:
+            raise ValueError(
+                f"max_arrivals must be >= 1, got {self.max_arrivals}")
+        if float(self.lam_total) < 0.0:
+            raise ValueError(f"lam_total must be >= 0, got {self.lam_total}")
+
+
+# ---------------------------------------------------------------------------
+# K-tier fluid capacity (hot-rack traffic)
+# ---------------------------------------------------------------------------
+
+
+def hot_rack_tiers(topo: Topology, hot_rack: int = 0) -> np.ndarray:
+    """(M,) tier of each server w.r.t. a task local to rack ``hot_rack``.
+
+    Rack members come out as tier <= 1 (they serve hot tasks at
+    ``rates[0]`` under the balanced-scheduler argument in the module
+    docstring); everyone else at the tier of their deepest shared group.
+    """
+    anc = topo.ancestors
+    reps = np.flatnonzero(topo.rack_of == hot_rack)
+    if reps.size == 0:
+        raise ValueError(f"hot_rack={hot_rack} is empty "
+                         f"(topology has {topo.num_racks} racks)")
+    tier = np.full(topo.num_servers, topo.num_tiers - 1, np.int64)
+    for lvl in range(topo.depth - 1, -1, -1):
+        tier[np.isin(anc[lvl], np.unique(anc[lvl][reps]))] = lvl + 1
+    return tier
+
+
+def capacity_hot_rack(topo: Topology, rates: Union[Rates, Sequence[float]],
+                      p_hot: float, hot_rack: int = 0) -> float:
+    """K-tier fluid capacity Lambda* (tasks/slot) for the hot-rack pattern:
+    greedy water-filling over tier pools (see module docstring)."""
+    r = np.asarray(rates.values if isinstance(rates, Rates) else rates,
+                   np.float64)
+    k = r.size
+    if k != topo.num_tiers:
+        raise ValueError(f"rates have {k} tiers but topology has "
+                         f"{topo.num_tiers}")
+    m = topo.num_servers
+    if p_hot <= 0.0:
+        return float(m * r[0])
+    tier = hot_rack_tiers(topo, hot_rack)
+    pools = [(float(r[0]), int(np.sum(tier <= 1)))]
+    pools += [(float(r[lvl]), int(np.sum(tier == lvl)))
+              for lvl in range(2, k) if np.sum(tier == lvl) > 0]
+    used_n = 0.0   # servers in hot-saturated pools
+    used_c = 0.0   # hot service capacity of those pools
+    for rate_j, n_j in pools:
+        lam = (m - used_n + used_c / rate_j) \
+            / (p_hot / rate_j + (1.0 - p_hot) / r[0])
+        x_j = p_hot * lam - used_c  # hot traffic landing in pool j
+        if -1e-9 <= x_j <= n_j * rate_j + 1e-9:
+            return float(lam)
+        used_n += n_j
+        used_c += n_j * rate_j
+    raise AssertionError("no consistent fluid regime found")  # unreachable
+
+
+# ---------------------------------------------------------------------------
+# Tensor helpers
+# ---------------------------------------------------------------------------
+
+
+def _tensor(x) -> torch.Tensor:
+    """A tensor keeps its device; an array is copied to the CPU."""
+    return x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
+
+
+def as_ancestors(x) -> torch.Tensor:
+    """Normalize a legacy (M,) rack map to a (depth, M) int32 ancestor
+    table."""
+    a = _tensor(x).to(torch.int32)
+    return a[None, :] if a.ndim == 1 else a
+
+
+def per_server_rates(rates, num_servers: int) -> torch.Tensor:
+    """Broadcast true service rates to per-server form: (M, K) float32.
+
+    Accepts the shared ``(K,)`` vector or an ``(M, K)`` matrix; K is
+    inferred from the input.
+    """
+    r = _tensor(rates).to(torch.float32)
+    r = r[None, :] if r.ndim == 1 else r
+    return r.expand(num_servers, r.shape[-1])

@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
+first use into ``kernels/_build/<name>-<digest>.so`` (the digest covers
+the source and the flags, so an edited source is rebuilt and a stale
+library is never loaded).  No PyTorch header is included, which keeps a
+build to seconds; pointers and the stream cross as ``ctypes.c_void_p``.
+Nothing is built or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # exactness: no contraction into FMA, IEEE division (no fast math)
+    "--fmad=false",
+    # print registers / shared memory / spills of every kernel
+    "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then $PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's "
+                           "CUDA kernels are built from source on first use")
+    return found
+
+
+def sources() -> Iterable[str]:
+    """Names of every kernel source under csrc/."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when its library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    BUILD_LOGS[name] = log
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_all(names: Iterable[str] = ()) -> None:
+    """Build the given sources (default: all of csrc/), one nvcc per
+    source, all started together."""
+    names = list(names) or list(sources())
+    started = {n: _start(n) for n in names}
+    try:
+        for n, s in started.items():
+            if s is not None:
+                _finish(n, s)
+    finally:
+        for s in started.values():
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, building it if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib

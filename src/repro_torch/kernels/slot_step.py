@@ -1,0 +1,105 @@
+"""Hopper kernel: fused fleet slot-step routing (workload + private argmin).
+
+Port of the Pallas TPU kernel `repro/kernels/slot_step.py` (see
+``csrc/fleet_route.cu`` for the design and its bound).  The fleet backend
+(`sharding/sim.py`) splits Balanced-PANDAS routing of a B-task arrival
+batch into a *private* phase (each task scores the servers at a tier
+better than remote) and a shared *pool* phase (the remote tier is
+water-filled outside this kernel).  The kernel fuses the private phase
+with the workload it consumes:
+
+    W_m     = sum_k q[m, k] / est[m, k]  (+ in-service residual)
+    score   = W_m / est[m, tier(m, task)] - est[...] * 1e-6
+    out_b   = argmin over servers with tier(m, task) < K-1
+
+Semantics contract: `ref.fleet_route`.  `fleet_route_cuda` takes CUDA
+tensors only and raises on anything else; `ops.fleet_route` is the
+dispatching entry point.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_DEPTH = 4  # template instantiations in csrc/fleet_route.cu
+
+# Launch counts per kernel: incremented where a kernel is launched and
+# nowhere else, so a run can show that its main path went through it.
+LAUNCHES: Dict[str, int] = {"fleet_route": 0}
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load("fleet_route").fleet_route_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"fleet_route_cuda: {name} must be a CUDA tensor, "
+                         f"got device {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"fleet_route_cuda: {name} must be {dtype}, "
+                        f"got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"fleet_route_cuda: {name} must have shape "
+                         f"{tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"fleet_route_cuda: {name} must be contiguous")
+
+
+def fleet_route_cuda(q: torch.Tensor, serving: torch.Tensor,
+                     est: torch.Tensor, anc: torch.Tensor,
+                     locs: torch.Tensor):
+    """Launch the CUDA kernel on PyTorch's current stream.
+
+    q (M, K) int32, serving (M,) int32, est (M, K) float32, anc (D, M)
+    int32 with K = D + 2, locs (B, 3) int32, all contiguous on one card.
+    Returns (server (B,) int32, tier (B,) int32, score (B,) float32).
+    """
+    m, k = q.shape
+    depth = anc.shape[0]
+    b = locs.shape[0]
+    if k != depth + 2 or not 0 <= depth <= MAX_DEPTH:
+        raise ValueError(f"fleet_route_cuda: need K = depth + 2 with depth "
+                         f"in 0..{MAX_DEPTH}, got K={k}, depth={depth}")
+    if m < 1 or b < 1:
+        raise ValueError(f"fleet_route_cuda: need M, B >= 1, got {m}, {b}")
+    _check("q", q, torch.int32, (m, k))
+    _check("serving", serving, torch.int32, (m,))
+    _check("est", est, torch.float32, (m, k))
+    _check("anc", anc, torch.int32, (depth, m))
+    _check("locs", locs, torch.int32, (b, 3))
+    dev = q.device
+    for name, x in (("serving", serving), ("est", est), ("anc", anc),
+                    ("locs", locs)):
+        if x.device != dev:
+            raise ValueError(f"fleet_route_cuda: {name} is on {x.device}, "
+                             f"q on {dev}")
+    server = torch.empty((b,), dtype=torch.int32, device=dev)
+    tier = torch.empty((b,), dtype=torch.int32, device=dev)
+    score = torch.empty((b,), dtype=torch.float32, device=dev)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), serving.data_ptr(), est.data_ptr(),
+                 anc.data_ptr(), locs.data_ptr(), m, depth, b,
+                 server.data_ptr(), tier.data_ptr(), score.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"fleet_route kernel launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES["fleet_route"] += 1
+    return server, tier, score

@@ -1,0 +1,53 @@
+"""The port stands alone: no module of `repro_torch`, and not
+`chip_smoke.py`, imports `jax` or the `repro` reference package; entry
+points run on the card unless the caller asks for the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import locality as loc, simulator as sim
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_port_imports_neither_jax_nor_reference():
+    mods = _port_modules()
+    assert "repro_torch.kernels.slot_step" in mods
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}]\n"
+        f"for name in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.resolve_device()
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    topo, rates = loc.Topology(24, 6), loc.Rates()
+    cfg = sim.SimConfig(topo, rates, horizon=20, warmup=5, max_arrivals=16)
+    est = sim.make_estimates(cfg, "network", 0.0, -1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=True)
