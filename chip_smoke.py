@@ -8,16 +8,32 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each fatal on failure:
 1. device: the card's name and power limit, as nvidia-smi reports them;
 2. build: every kernel source under src/repro_torch/kernels/csrc/ with
    nvcc, one process per source, all started together;
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (M = 10008 servers, B = 5474 tasks, depths 0,
-   1 and 2, fuzzed tie-heavy states): outputs must be equal exactly;
-   kernel and plain times by CUDA events, and the bound;
-4. the slice: `simulate("balanced_pandas", ...)` at M = 10008, rho = 0.8
-   (auto-engages the fleet path), with every launch count set to 0 just
-   before and read just after; then 128 slots with the kernel on and off
-   must leave an identical carry;
-5. profile: steady-state slots/s, and the device's busy share and time by
-   kernel over a window of slots under `torch.profiler`.
+3. kernels: each kernel against its plain PyTorch version on the card,
+   outputs equal bit for bit, kernel and plain times by CUDA events, and
+   the bound: `fleet_route`, `wwl_route` and `maxweight_claim` at the
+   fleet shapes (M = 10008, B = 5474, depths 0, 1 and 2, tie-heavy
+   inputs);
+4. the fleet slice: `simulate("balanced_pandas", ...)` at M = 10008,
+   rho = 0.8 (auto-engages the fleet path), with every launch count set
+   to 0 just before and read just after; then 128 slots with the kernel
+   on and off must leave an identical carry;
+5. fleet profile: steady-state slots/s, and the device's busy share and
+   time by kernel over a window of slots under `torch.profiler`;
+6. the quickstart path (examples/quickstart.py, layers 1 and 2), counts
+   set to 0 before and read after: the paper's robustness study through
+   `run_study` for all five policies on the dense path (Topology(24, 6),
+   horizon 2500, loads 0.6/0.8/0.95, eps 0.1/0.3 both signs, 8 seeds),
+   with its fatal checks (finite delays, throughput within 2% of lam at
+   loads 0.6 and 0.8 for all but FIFO, Balanced-PANDAS at or below
+   JSQ-MaxWeight at 0.95 with exact rates), then `ops.wwl_route` at
+   M = 1024, B = 128 against its plain version;
+7. the kernel bench path (benchmarks/bench_kernels.py at full width),
+   counts set to 0 before and read after: `ops.wwl_route` and
+   `ops.maxweight_claim` at M = N = 65536, B = 8192 with the legacy rack
+   map, against their plain versions, then timed;
+8. dense loop: every policy's slot loop under
+   `torch.cuda.set_sync_debug_mode("error")` (no host sync), and a
+   profiled window of the Balanced-PANDAS dense step.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -39,7 +55,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 M_FLEET, B_FLEET = 10008, 5474
+M_BENCH, B_BENCH = 65536, 8192      # benchmarks/bench_kernels.py, full width
+M_QUICK, B_QUICK = 1024, 128        # examples/quickstart.py, layer 2
 KERNEL_REPS, PLAIN_REPS = 50, 5
+FLEET_TOPOS = ((M_FLEET, (), (0.5, 0.25)), (M_FLEET, 6, (0.5, 0.45, 0.25)),
+               (M_FLEET, (6, 72), (0.5, 0.45, 0.35, 0.25)))
 
 
 def _device_line() -> str:
@@ -244,6 +264,391 @@ def phase_profile(dev, cfg, lam, est_t, slots: int = 32):
     print(f"profile M={M_FLEET}: {json.dumps(out)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# wwl_route and maxweight_claim
+# ---------------------------------------------------------------------------
+
+
+def _top_groups(anc, ids):
+    """Coarsest-level group of each id, or the ids themselves at depth 0."""
+    return anc[-1][ids] if anc.shape[0] else ids
+
+
+def _wwl_bound(anc, locs, k):
+    """(bound_ms, bound_by, bytes, ops) of wwl_route on these inputs:
+    W, est and the table read once, the locals read and 12 bytes a task
+    written, against the operations they need — M remote-tier scores
+    with their shared argmin (2 per server) plus a division and a
+    comparison for each non-remote (task, server) pair, i.e. the union
+    of the locals' coarsest groups (the locals alone at depth 0)."""
+    d, m = anc.shape
+    b = locs.shape[0]
+    nbytes = 4 * m * (1 + k + d) + 12 * b + 12 * b
+    g = np.sort(_top_groups(anc, locs), axis=1)
+    size = (np.bincount(anc[-1], minlength=m) if d else np.ones(m, np.int64))
+    private = int((size[g[:, 0]] + size[g[:, 1]] * (g[:, 1] != g[:, 0])
+                   + size[g[:, 2]] * (g[:, 2] != g[:, 1])).sum())
+    ops = 2 * m + 2 * private
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def _maxweight_bound(qanc, ids, k):
+    """(bound_ms, bound_by, bytes, ops) of maxweight_claim: Q and the
+    queue table read once, the idle ids, their table and rates read once,
+    8 bytes an idle server written, against one shared max of Q (the
+    remote tier, N comparisons) plus a product and a comparison for each
+    non-remote (idle server, queue) pair: the queues of the idle
+    server's coarsest group (its own queue alone at depth 0)."""
+    d, n = qanc.shape
+    b = ids.shape[0]
+    nbytes = 4 * n * (1 + d) + 4 * b * (1 + d + k) + 8 * b
+    size = (np.bincount(qanc[-1], minlength=n) if d else np.ones(n, np.int64))
+    ops = n + 2 * int(size[_top_groups(qanc, ids)].sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def _compare(kernel_out, plain_out):
+    """(mismatches, max_abs_err) of two output tuples: an element differs
+    unless every output agrees bit for bit; the error is over finite
+    float pairs."""
+    torch.cuda.synchronize()
+    bad = torch.zeros_like(kernel_out[0], dtype=torch.bool)
+    err = 0.0
+    for a, b in zip(kernel_out, plain_out):
+        bad |= a.view(torch.int32) != b.view(torch.int32)
+        if a.dtype == torch.float32:
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if bool(both.any()):
+                err = max(err, float((a - b).abs()[both].max()))
+    return int(bad.sum()), err
+
+
+def _wwl_inputs(rng, m, b, anc, rates, ties):
+    """Fleet-shape wwl_route inputs; `ties`: small-integer workloads and
+    shared rates, so many servers score exactly alike."""
+    k = len(rates)
+    wl = rng.integers(0, 4, m) if ties else rng.uniform(0, 50, m)
+    er = np.tile(rates, (m, 1))
+    if not ties:
+        er = er * rng.uniform(0.8, 1.2, (m, k))
+    hot = [sorted(rng.choice(6, 3, replace=False)) for _ in range(b // 2)]
+    cold = [sorted(rng.choice(m, 3, replace=False))
+            for _ in range(b - b // 2)]
+    return (wl.astype(np.float32), er.astype(np.float32),
+            np.asarray(anc, np.int32), np.asarray(hot + cold, np.int32))
+
+
+def _mw_inputs(rng, n, b, anc, rates, ties):
+    """Fleet-shape maxweight_claim inputs; `ties`: shared rates, so equal
+    small queues score exactly alike."""
+    k = len(rates)
+    q = rng.integers(0, 5, n).astype(np.float32)
+    ids = rng.choice(n, b, replace=False).astype(np.int32)
+    er = np.tile(rates, (b, 1))
+    if not ties:
+        er = er * rng.uniform(0.8, 1.2, (b, k))
+    anc = np.asarray(anc, np.int32)
+    return q, anc, ids, anc[:, ids], er.astype(np.float32)
+
+
+def phase_sched_kernels(dev):
+    """wwl_route and maxweight_claim against their plain versions at the
+    fleet shapes, depths 0, 1 and 2, with and without exact ties."""
+    from repro_torch.core import locality as loc
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(1)
+    rows = {}
+    for m, groups, rates in FLEET_TOPOS:
+        anc = np.array(loc.Topology(m, groups).ancestors)
+        d, k = anc.shape[0], len(rates)
+        for name, make, kernel, plain, bound in (
+                ("wwl_route", _wwl_inputs, ops.wwl_route, ref.wwl_route,
+                 lambda a: _wwl_bound(a[2], a[3], k)),
+                ("maxweight_claim", _mw_inputs, ops.maxweight_claim,
+                 ref.maxweight_claim, lambda a: _maxweight_bound(a[1], a[2],
+                                                                 k))):
+            mismatches, max_err = 0, 0.0
+            for ties in (True, False, True):
+                host = make(rng, m, B_FLEET, anc, rates, ties)
+                args = [torch.as_tensor(x, device=dev) for x in host]
+                bad, err = _compare(kernel(*args), plain(*args))
+                mismatches += bad
+                max_err = max(max_err, err)
+            ms = _time_ms(lambda: kernel(*args), KERNEL_REPS)
+            plain_ms = _time_ms(lambda: plain(*args), PLAIN_REPS)
+            bound_ms, bound_by, nbytes, nops = bound(host)
+            row = dict(depth=d, mismatches=mismatches, max_abs_err=max_err,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes, ops=nops)
+            rows[(name, d)] = row
+            print(f"{name} M={m} B={B_FLEET} D={d}: {json.dumps(row)}",
+                  flush=True)
+            if mismatches:
+                raise AssertionError(f"{name} kernel disagrees with its "
+                                     f"plain version at depth {d}: "
+                                     f"{mismatches} rows")
+    return rows
+
+
+def _zero_counts():
+    from repro_torch.kernels import ops
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+
+
+def _check_counts(path: str, want: dict) -> dict:
+    from repro_torch.kernels import ops
+    got = dict(ops.LAUNCHES)
+    print(f"launches on the {path} path: {json.dumps(got)}", flush=True)
+    if got != want:
+        raise AssertionError(f"{path} path launched {got}, want {want}")
+    return got
+
+
+# ---------------------------------------------------------------------------
+# The dense study (the paper's experiment) and the quickstart path
+# ---------------------------------------------------------------------------
+
+STUDY_LOADS = (0.6, 0.8, 0.95)
+STUDY_EPS = (0.1, 0.3)
+STUDY_SEEDS = tuple(range(8))
+# examples/quickstart.py --fast: a 4000/1000 run took the whole script
+# to 369 s on an H100, past the 6 minutes this script aims for
+STUDY_HORIZON, STUDY_WARMUP = 2500, 600
+
+
+def _study_cfg():
+    from repro_torch.core import robustness as rb, simulator as sim
+    return rb.StudyConfig(sim=sim.default_config(horizon=STUDY_HORIZON,
+                                                 warmup=STUDY_WARMUP),
+                          loads=STUDY_LOADS, eps_grid=STUDY_EPS,
+                          seeds=STUDY_SEEDS)
+
+
+def headline_claims(study) -> dict:
+    """The paper's headline claims on the study, computed as
+    benchmarks/figures.py computes them: (1) figs 1/2, BP's delay at most
+    JSQ-MW's (the larger over loads, exact rates); (2) figs 3-6 at the
+    figures' high loads (rho >= 0.9), BP at or below JSQ-MW at every
+    (load, eps) of one error sign, and BP's band (max - min over those
+    settings) the narrower."""
+    bp, mw = (study["delay"][a].mean(-1)
+              for a in ("balanced_pandas", "jsq_maxweight"))   # (L, E)
+    out = {"fig1_2_pandas_beats_jsq_mw": bool(bp[:, 0].max()
+                                              <= mw[:, 0].max())}
+    high = np.asarray(study["loads"]) >= 0.9
+    for fig, sign in (("fig3_4", -1), ("fig5_6", 1)):
+        cols = [0] + [e for e, (_, _, sg) in enumerate(study["est_settings"])
+                      if sg == sign]
+        b, w = bp[high][:, cols], mw[high][:, cols]
+        out[f"{fig}_pandas_dominates_jsq_mw"] = bool((b <= w).all())
+        out[f"{fig}_pandas_narrower_band"] = bool(b.max() - b.min()
+                                                  <= w.max() - w.min())
+    return out
+
+
+def phase_quickstart(dev):
+    """examples/quickstart.py's two layers on the card, counts set to 0
+    before and read after: the robustness study through `run_study`
+    (every policy on the dense path) and `ops.wwl_route` at M = 1024,
+    B = 128 against its plain version."""
+    from repro_torch.core import robustness as rb, simulator as sim
+    from repro_torch.kernels import ops, ref
+
+    cfg = _study_cfg()
+    _zero_counts()
+    study = {"delay": {}, "throughput": {}, "final_n": {}}
+    rates = {}
+    for algo in rb.RATE_AWARE + rb.RATE_OBLIVIOUS:
+        t0 = time.perf_counter()
+        part = rb.run_study(cfg, algos=(algo,), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for key in ("delay", "throughput", "final_n"):
+            study[key][algo] = part[key][algo]
+        for key in ("capacity", "loads", "lam", "est_settings"):
+            study[key] = part[key]
+        cells = int(np.prod(part["delay"][algo].shape))
+        rates[algo] = dict(cells=cells, wall_s=wall,
+                           slots_per_s=cfg.sim.horizon / wall,
+                           cell_slots_per_s=cells * cfg.sim.horizon / wall)
+        print(f"study {algo}: {json.dumps(rates[algo])}", flush=True)
+    print(rb.summarize(study), flush=True)
+
+    # layer 2: the routing kernel against its plain version
+    rng = np.random.default_rng(0)
+    m, b = M_QUICK, B_QUICK
+    wl = torch.as_tensor(rng.uniform(0, 50, m), dtype=torch.float32,
+                         device=dev)
+    er = torch.as_tensor(np.tile([0.5, 0.45, 0.25], (m, 1)),
+                         dtype=torch.float32, device=dev)
+    sr = torch.as_tensor(np.arange(m) // 32, dtype=torch.int32, device=dev)
+    tl = torch.sort(torch.as_tensor(rng.integers(0, m, (b, 3)),
+                                    dtype=torch.int32, device=dev),
+                    dim=1).values
+    out = ops.wwl_route(wl, er, sr, tl)
+    launches = _check_counts("quickstart", {"fleet_route": 0, "wwl_route": 1,
+                                            "maxweight_claim": 0})
+    bad, err = _compare(out, ref.wwl_route(wl, er, sr, tl))
+    mix = np.bincount(out[1].cpu().numpy(), minlength=3).tolist()
+    print(f"quickstart layer 2: wwl_route({b} tasks x {m} servers) "
+          f"mismatches={bad} locality mix {mix}", flush=True)
+    if bad:
+        raise AssertionError(f"quickstart wwl_route: {bad} mismatches")
+
+    lam = study["lam"]
+    for algo, d in study["delay"].items():
+        if not np.isfinite(d).all():
+            raise AssertionError(f"{algo}: mean_delay not finite: {d}")
+        if algo == "fifo":
+            continue  # FIFO may diverge inside the others' region (Fig. 1)
+        for li, load in enumerate(STUDY_LOADS):
+            if load > 0.8:
+                continue
+            thru = float(study["throughput"][algo][li, 0].mean())
+            if abs(thru - lam[li]) > 0.02 * lam[li]:
+                raise AssertionError(f"{algo} at rho {load}: throughput "
+                                     f"{thru} not within 2% of {lam[li]}")
+    li = STUDY_LOADS.index(0.95)
+    bp = float(study["delay"]["balanced_pandas"][li, 0].mean())
+    mw = float(study["delay"]["jsq_maxweight"][li, 0].mean())
+    print(f"rho 0.95, exact rates: balanced_pandas {bp:.4f} vs "
+          f"jsq_maxweight {mw:.4f} slots", flush=True)
+    if not bp <= mw:
+        raise AssertionError(f"Balanced-PANDAS {bp} above JSQ-MaxWeight "
+                             f"{mw} at rho 0.95 with exact rates")
+    claims = headline_claims(study)
+    print(f"headline claims: {json.dumps(claims)}", flush=True)
+    return launches, rates, bad, err
+
+
+def phase_bench(dev):
+    """benchmarks/bench_kernels.py's scheduler rows at full width, counts
+    set to 0 before and read after, then each kernel against its plain
+    version and timed."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(0)
+    m, b = M_BENCH, B_BENCH
+    rates = np.asarray([0.5, 0.45, 0.25], np.float32)
+    wl = rng.uniform(0, 50, m).astype(np.float32)
+    sr = (np.arange(m) // 64).astype(np.int32)
+    tl = np.sort(rng.integers(0, m, (b, 3)), axis=1).astype(np.int32)
+    q = rng.integers(0, 5, m).astype(np.float32)
+    ids = rng.choice(m, b, replace=False).astype(np.int32)
+    g = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    wwl_args = (g(wl), g(np.tile(rates, (m, 1))), g(sr), g(tl))
+    mw_args = (g(q), g(sr), g(ids), g(sr[ids]), g(np.tile(rates, (b, 1))))
+
+    _zero_counts()
+    wwl_out = ops.wwl_route(*wwl_args)
+    mw_out = ops.maxweight_claim(*mw_args)
+    launches = _check_counts("bench", {"fleet_route": 0, "wwl_route": 1,
+                                       "maxweight_claim": 1})
+    rows = {}
+    for name, out, kernel, plain, args, bound in (
+            ("wwl_route", wwl_out, ops.wwl_route, ref.wwl_route, wwl_args,
+             _wwl_bound(sr[None], tl, 3)),
+            ("maxweight_claim", mw_out, ops.maxweight_claim,
+             ref.maxweight_claim, mw_args, _maxweight_bound(sr[None], ids,
+                                                            3))):
+        bad, err = _compare(out, plain(*args))
+        rows[name] = dict(mismatches=bad, max_abs_err=err,
+                          ms=_time_ms(lambda: kernel(*args), KERNEL_REPS),
+                          plain_ms=_time_ms(lambda: plain(*args), PLAIN_REPS),
+                          bound_ms=bound[0], bound_by=bound[1],
+                          bytes=bound[2], ops=bound[3])
+        print(f"{name} bench M={m} B={b}: {json.dumps(rows[name])}",
+              flush=True)
+        if bad:
+            raise AssertionError(f"{name} at bench width: {bad} mismatches")
+        torch.cuda.empty_cache()
+    return launches, rows
+
+
+def phase_dense_loop(dev, slots: int = 32):
+    """No host sync in any policy's slot loop (sync debug mode "error"),
+    then the Balanced-PANDAS dense step at the study's 120 cells:
+    steady slots/s and a profiled window (launches a slot, busy share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import locality as loc, robustness as rb
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.policy import make_policy
+    from repro_torch.core.rng import DenseDeviceSource
+
+    cfg = _study_cfg().sim
+    m = cfg.topo.num_servers
+    cap = loc.capacity_hot_rack(cfg.topo, cfg.true_rates, cfg.p_hot)
+    ests = [sim.make_estimates(cfg, "network", 0.0, -1)]
+    ests += [sim.make_estimates(cfg, "per_server", e, s)
+             for s in (-1, 1) for e in STUDY_EPS]
+    cells = [(seed, np.float32(load * cap), e)
+             for load in STUDY_LOADS for e in range(len(ests))
+             for seed in STUDY_SEEDS]
+
+    def build(name):
+        est = torch.as_tensor(np.stack([ests[e] for _, _, e in cells]),
+                              device=dev)
+        pol, init, step = sim._build_dense_step(name, cfg, est, dev)
+        src = DenseDeviceSource([(s, lam) for s, lam, _ in cells],
+                                make_policy(name).draw_plan(m),
+                                cfg.max_arrivals, m, dev)
+        return init(), step, src
+
+    for name in rb.RATE_AWARE + rb.RATE_OBLIVIOUS:
+        carry, step, src = build(name)
+        carry = step(carry, 0, src.slot(0))   # first use outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(1, 24):
+                carry = step(carry, t, src.slot(t))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    print("dense slot loop: no host sync in 23 slots of every policy",
+          flush=True)
+
+    carry, step, src = build("balanced_pandas")
+    t = 0
+
+    def run(n):
+        nonlocal carry, t
+        for _ in range(n):
+            carry = step(carry, t, src.slot(t))
+            t += 1
+        torch.cuda.synchronize()
+
+    run(16)
+    t0 = time.perf_counter()
+    run(slots)
+    steady = slots / (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(slots)
+        window_us = (time.perf_counter() - t0) * 1e6
+    kern = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(k[0] for k in kern)
+    out = {"cells": len(cells), "slots_per_s_steady": steady,
+           "window_slots": slots,
+           "window_ms_per_slot": window_us / slots / 1e3,
+           "device_busy_share": busy_us / window_us if kern else None,
+           "device_launches_per_slot": sum(k[1] for k in kern) / slots,
+           "top_kernels_us_per_slot": [[k[2][:60], k[0] / slots]
+                                       for k in kern[:6]]}
+    print(f"profile dense balanced_pandas: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -265,11 +670,15 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     rows = phase_kernels(dev)
+    sched_rows = phase_sched_kernels(dev)
     launches, _, (cfg, lam, est_t) = phase_slice(dev)
     phase_profile(dev, cfg, lam, est_t)
+    quick_launches, _, quick_bad, quick_err = phase_quickstart(dev)
+    bench_launches, bench_rows = phase_bench(dev)
+    phase_dense_loop(dev)
 
     main_row = rows[1]  # the slice's Topology(10008, 6)
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "fleet_route", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fleet_route.cu",
         "replaces": "src/repro/kernels/slot_step.py:46",
@@ -278,7 +687,27 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}]
+    for name, source, replaces in (
+            ("wwl_route", "src/repro_torch/kernels/csrc/wwl_route.cu",
+             "src/repro/kernels/wwl_route.py:41"),
+            ("maxweight_claim", "src/repro_torch/kernels/csrc/maxweight.cu",
+             "src/repro/kernels/maxweight.py:24")):
+        fleet_rows = [r for (n, _), r in sched_rows.items() if n == name]
+        bench = bench_rows[name]  # the bench path's full width
+        extra = (quick_bad, quick_err) if name == "wwl_route" else (0, 0.0)
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": quick_launches[name] + bench_launches[name],
+            "mismatches": (sum(r["mismatches"] for r in fleet_rows)
+                           + bench["mismatches"] + extra[0]),
+            "max_abs_err": max([r["max_abs_err"] for r in fleet_rows]
+                               + [bench["max_abs_err"], extra[1]]),
+            "ms": bench["ms"], "plain_ms": bench["plain_ms"],
+            "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
+            "library_ms": None})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,2 +1,3 @@
-"""Scheduling core of the port: the locality model, the policy registry,
-Balanced-PANDAS and the simulator entry point (fleet path only so far)."""
+"""Scheduling core of the port: the locality model, the draw seam, the
+policy registry and the five dense policies, the simulator entry points
+(dense and fleet paths) and the robustness study."""

@@ -21,8 +21,12 @@ hot-saturated,
 
 and the capacity is the unique consistent regime.
 
-The dense-path samplers (`sample_arrivals_at`, `server_tiers`,
-`random_argmin`, ...) come with the dense slice.
+The tier seam of the dense path (`server_tiers`, `tier_masks`,
+`pair_tiers`, `pair_rate`, `class_of`) broadcasts over leading batch
+dimensions: the dense simulator carries one row per (load, error, seed)
+cell.  The samplers take their random numbers as arguments from the draw
+seam (`core.rng`): uniforms for Bernoullis (``u < p``) and Gumbels for
+the top-k type draw and the random tie-breaks.
 """
 
 from __future__ import annotations
@@ -303,3 +307,132 @@ def per_server_rates(rates, num_servers: int) -> torch.Tensor:
     r = _tensor(rates).to(torch.float32)
     r = r[None, :] if r.ndim == 1 else r
     return r.expand(num_servers, r.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Tier seam (batched over leading dimensions)
+# ---------------------------------------------------------------------------
+
+
+def server_tiers(task_locals: torch.Tensor,
+                 ancestors: torch.Tensor) -> torch.Tensor:
+    """(..., M) int32 tier 0..K-1 of every server for each task.
+
+    task_locals: (..., 3) server ids (the task's replicas)
+    ancestors:   (depth, M) table (or a legacy (M,) rack map)
+    Deepest level first, so the finest shared group wins; a local
+    overrides.
+    """
+    anc = as_ancestors(ancestors).long()
+    d, m = anc.shape
+    locs = task_locals.long()
+    tier = torch.full(locs.shape[:-1] + (m,), d + 1, dtype=torch.int32,
+                      device=locs.device)
+    for lvl in range(d - 1, -1, -1):
+        row = anc[lvl]
+        share = (row[:, None] == row[locs][..., None, :]).any(dim=-1)
+        tier = torch.where(share, lvl + 1, tier)
+    sid = torch.arange(m, device=locs.device)
+    local = (sid[:, None] == locs[..., None, :]).any(dim=-1)
+    return torch.where(local, 0, tier)
+
+
+def tier_masks(task_locals: torch.Tensor,
+               ancestors: torch.Tensor) -> torch.Tensor:
+    """(..., K, M) bool one-hot tier masks (row k: servers at tier k)."""
+    anc = as_ancestors(ancestors)
+    tiers = server_tiers(task_locals, anc)
+    k = torch.arange(anc.shape[0] + 2, dtype=torch.int32,
+                     device=tiers.device)
+    return tiers[..., None, :] == k[:, None]
+
+
+def class_of(task_locals: torch.Tensor, ancestors: torch.Tensor,
+             server: torch.Tensor) -> torch.Tensor:
+    """Service class 1..K of `server` for the task `task_locals`:
+    task_locals (..., 3) and server (...) broadcast elementwise."""
+    anc = as_ancestors(ancestors).long()
+    d = anc.shape[0]
+    locs, srv = task_locals.long(), server.long()
+    tier = torch.full(torch.broadcast_shapes(locs.shape[:-1], srv.shape),
+                      d + 1, dtype=torch.int32, device=locs.device)
+    for lvl in range(d - 1, -1, -1):
+        row = anc[lvl]
+        share = (row[srv][..., None] == row[locs]).any(dim=-1)
+        tier = torch.where(share, lvl + 1, tier)
+    local = (srv[..., None] == locs).any(dim=-1)
+    return torch.where(local, 0, tier) + 1
+
+
+def pair_tiers(m: torch.Tensor, n: torch.Tensor,
+               ancestors: torch.Tensor) -> torch.Tensor:
+    """(m,n)-relation tier 0..K-1: 0 if m == n, else 1 + the finest shared
+    level, else K-1.  Broadcasts over m and n."""
+    anc = as_ancestors(ancestors).long()
+    d = anc.shape[0]
+    m, n = _tensor(m).long(), _tensor(n).long()
+    tier = torch.full(torch.broadcast_shapes(m.shape, n.shape), d + 1,
+                      dtype=torch.int32, device=anc.device)
+    for lvl in range(d - 1, -1, -1):
+        tier = torch.where(anc[lvl][m] == anc[lvl][n], lvl + 1, tier)
+    return torch.where(m == n, 0, tier)
+
+
+def pair_rate(m: torch.Tensor, n: torch.Tensor, ancestors: torch.Tensor,
+              rates_k: torch.Tensor) -> torch.Tensor:
+    """(m,n)-relation rate: server m pulling from server n's queue at the
+    rate of their pair tier.  `rates_k` is a (K,) vector, or (..., K)
+    rows whose leading dimensions match the broadcast of m and n."""
+    tiers = pair_tiers(m, n, ancestors).long()
+    if rates_k.ndim == 1:
+        return rates_k[tiers]
+    return torch.gather(rates_k, -1, tiers)
+
+
+# ---------------------------------------------------------------------------
+# Arrivals and random tie-breaks, from the draw seam's numbers
+# ---------------------------------------------------------------------------
+
+
+def sample_task_types_at(u_hot: torch.Tensor, gumbel: torch.Tensor,
+                         rack_of: torch.Tensor, p_hot,
+                         hot_rack: int = 0) -> torch.Tensor:
+    """(..., B, 3) int32 task types, 3 distinct servers each, sorted.
+
+    u_hot (..., B) uniforms: task b is hot iff ``u_hot < p_hot``; a hot
+    task draws its replicas from rack `hot_rack`, the rest from all
+    servers.  gumbel (..., B, M): Gumbel top-3 over the allowed servers
+    (sampling without replacement), as the reference does.
+    """
+    hot = u_hot < p_hot
+    in_hot_rack = rack_of == hot_rack                         # (M,)
+    inside = torch.where(in_hot_rack, 0.0, float("-inf"))
+    logits = torch.where(hot[..., None], inside, 0.0)         # (..., B, M)
+    idx = torch.topk(logits + gumbel, NUM_REPLICAS, dim=-1).indices
+    return torch.sort(idx, dim=-1).values.to(torch.int32)
+
+
+def sample_arrivals_at(n: torch.Tensor, u_hot: torch.Tensor,
+                       gumbel: torch.Tensor, rack_of: torch.Tensor, p_hot,
+                       hot_rack: int = 0):
+    """One slot of static arrivals: (types (..., B, 3) int32, active
+    (..., B) bool).  `n` (...) is the truncated-Poisson count of the
+    slot, drawn by the seam; lanes ``b < n`` are active."""
+    batch = u_hot.shape[-1]
+    active = torch.arange(batch, device=u_hot.device) < n[..., None]
+    return sample_task_types_at(u_hot, gumbel, rack_of, p_hot,
+                                hot_rack), active
+
+
+def random_argmin(gumbel: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+    """(...,) int64 argmin over the last dimension with a uniformly random
+    tie-break among exact minima: the largest Gumbel among them (paper:
+    ties are broken randomly)."""
+    is_min = score == score.amin(dim=-1, keepdim=True)
+    return torch.argmax(torch.where(is_min, gumbel, float("-inf")), dim=-1)
+
+
+def random_argmax(gumbel: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+    """argmax over the last dimension, random tie-break as `random_argmin`."""
+    is_max = score == score.amax(dim=-1, keepdim=True)
+    return torch.argmax(torch.where(is_max, gumbel, float("-inf")), dim=-1)

@@ -4,8 +4,10 @@
 fixed-shape tensor state and advances it one slot at a time.  Policies
 register themselves with `@register_policy` at their definition site;
 `make_policy` resolves a name, a `PolicyConfig` (name + constructor
-options) or an instance.  The host-side `Router` half of the reference
-module comes with the host-fleet slice.
+options) or an instance.  Per-policy constructor options (FIFO's `cap`,
+power-of-d's `d`) travel in a `PolicyConfig`; per-policy outputs (FIFO's
+drop counter) come back through `extra_metrics`.  The host-side `Router`
+half of the reference module comes with the host-fleet slice.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import importlib
 from typing import Any, Dict, Mapping, Tuple, Type, Union
 
 import torch
+
+from repro_torch.core.rng import DrawPlan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,25 +39,44 @@ class SlotPolicy(abc.ABC):
 
     Implementations are stateless objects over an immutable options set;
     all mutable simulation state lives in the tensors returned by
-    `init_state` and threaded through `slot_step` by the simulator.
+    `init_state` and threaded through `slot_step` by the simulator.  The
+    state carries a leading cell dimension N: one row per (load, error,
+    seed) cell of a sweep.
     """
 
     name: str = ""
 
     @abc.abstractmethod
-    def init_state(self, topo, device=None, **opts):
-        """Fresh fixed-shape state for `topo` on `device`."""
+    def draw_plan(self, num_servers: int) -> DrawPlan:
+        """The per-slot random draws `slot_step` consumes (`core.rng`)."""
+
+    @abc.abstractmethod
+    def init_state(self, topo, device=None, batch=(), **opts):
+        """Fresh fixed-shape state for `topo` on `device`, with leading
+        dimensions `batch`."""
 
     @abc.abstractmethod
     def slot_step(self, state, draws, types: torch.Tensor,
                   active: torch.Tensor, est: torch.Tensor,
                   true_rates: torch.Tensor, ancestors: torch.Tensor):
-        """One time slot of the dense simulator: arrivals -> completions ->
-        scheduling.  Returns (state, completions)."""
+        """One time slot of the dense simulator for N cells: arrivals ->
+        completions -> scheduling.
+
+        draws: the slot's `core.rng.DenseDraws`; types/active: the
+        (N, B, 3)/(N, B) arrival batch; est: (N, M, K) estimated rates the
+        scheduler decides with; true_rates: the (K,) rates of the service
+        dynamics; ancestors: the (depth, M) table.  Returns (state,
+        completions (N,) int32).
+        """
 
     @abc.abstractmethod
     def num_in_system(self, state) -> torch.Tensor:
-        """Total tasks present (queued + in service), integer scalar."""
+        """Tasks present (queued + in service) per cell, integer (N,)."""
+
+    def extra_metrics(self, state) -> Dict[str, torch.Tensor]:
+        """Per-policy end-of-run values per cell (e.g. FIFO's drop count);
+        merged into the simulator's metrics."""
+        return {}
 
 
 _POLICIES: Dict[str, Type[SlotPolicy]] = {}
@@ -63,6 +86,10 @@ _POLICIES: Dict[str, Type[SlotPolicy]] = {}
 # at import time (no cycles).
 _BUILTIN_MODULES = (
     "repro_torch.core.balanced_pandas",
+    "repro_torch.core.jsq_maxweight",
+    "repro_torch.core.priority",
+    "repro_torch.core.fifo",
+    "repro_torch.core.pandas_po2",
 )
 _builtins_loaded = False
 

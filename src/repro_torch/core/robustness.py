@@ -1,0 +1,127 @@
+"""Robustness study driver (paper §4), port of `repro.core.robustness`.
+
+Sweeps load x estimation error for every registered algorithm and returns
+the data behind Figures 1-6:
+
+  fig1: all algorithms, exact parameters, load sweep;
+  fig2: PANDAS vs JSQ-MW, exact parameters, high load;
+  fig3/fig4: parameters LOWER than real by eps (delay, sensitivity);
+  fig5/fig6: the same with parameters HIGHER than real.
+
+Priority and FIFO never consult the rate estimates, so they run the exact
+column only.  The drift, placement, replication, tail-latency and control
+studies of the reference come with later slices of the port and raise
+until then.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.core import locality as loc, simulator as sim
+
+EPS_GRID = (0.05, 0.10, 0.15, 0.20, 0.25, 0.30)
+RATE_AWARE = ("balanced_pandas", "pandas_po2", "jsq_maxweight")
+RATE_OBLIVIOUS = ("priority", "fifo")
+
+
+@dataclasses.dataclass(frozen=True)
+class StudyConfig:
+    sim: sim.SimConfig
+    loads: Sequence[float] = (0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
+    high_loads: Sequence[float] = (0.90, 0.93, 0.95, 0.97)
+    eps_grid: Sequence[float] = EPS_GRID
+    error_mode: str = "per_server"
+    seeds: Sequence[int] = (0, 1)
+
+
+def default_study(fast: bool = False) -> StudyConfig:
+    if fast:
+        return StudyConfig(
+            sim=sim.default_config(horizon=4_000, warmup=1_000),
+            loads=(0.6, 0.8, 0.9), high_loads=(0.9, 0.95),
+            eps_grid=(0.1, 0.3), seeds=(0,),
+        )
+    return StudyConfig(sim=sim.default_config(horizon=30_000, warmup=8_000))
+
+
+def run_study(cfg: StudyConfig, algos: Optional[Sequence[str]] = None,
+              signs: Sequence[int] = (-1, 1), scenario=None, placement=None,
+              telemetry=None, fleet=None, device=None) -> Dict:
+    """Returns nested results: delay[algo], throughput[algo] and
+    final_n[algo] of shape (L, E, S) with E = 1 (exact) +
+    len(eps_grid) * len(signs) for rate-aware algorithms and E = 1 for
+    oblivious ones, plus the grids needed to plot.  ``device=None`` runs
+    on the card."""
+    algos = list(algos or (RATE_AWARE + RATE_OBLIVIOUS))
+    cap = loc.capacity_hot_rack(cfg.sim.topo, cfg.sim.true_rates,
+                                cfg.sim.p_hot)
+    lam = np.asarray(cfg.loads, np.float32) * cap
+    seeds = np.asarray(cfg.seeds)
+
+    est_settings = [("exact", 0.0, 0)]
+    ests = [sim.make_estimates(cfg.sim, "network", 0.0, -1)]
+    for sign in signs:
+        for eps in cfg.eps_grid:
+            est_settings.append((cfg.error_mode, eps, sign))
+            ests.append(sim.make_estimates(cfg.sim, cfg.error_mode, eps,
+                                           sign))
+    est_stack = np.stack(ests)
+
+    out: Dict = {"capacity": cap, "loads": np.asarray(cfg.loads),
+                 "lam": lam, "est_settings": est_settings,
+                 "delay": {}, "throughput": {}, "final_n": {}}
+    for algo in algos:
+        stack = est_stack if algo in RATE_AWARE else est_stack[:1]
+        res = sim.sweep(algo, cfg.sim, lam, stack, seeds, scenario=scenario,
+                        placement=placement, telemetry=telemetry,
+                        fleet=fleet, device=device)
+        out["delay"][algo] = res["mean_delay"]
+        out["throughput"][algo] = res["throughput"]
+        out["final_n"][algo] = res["final_n"]
+    return out
+
+
+def sensitivity(delay_les: np.ndarray) -> np.ndarray:
+    """Paper figs 4/6 metric: relative delay deviation from the
+    exact-parameter run, per error setting.  delay_les: (L, E, S) ->
+    (L, E-1), mean over seeds."""
+    d = delay_les.mean(-1)
+    return (d[:, 1:] - d[:, :1]) / d[:, :1]
+
+
+def summarize(study: Dict) -> str:
+    """Human-readable table of the study results."""
+    lines = []
+    settings = study["est_settings"]
+    for algo, d in study["delay"].items():
+        dm = d.mean(-1)  # (L, E)
+        for li, load in enumerate(study["loads"]):
+            cols = "  ".join(f"{dm[li, ei]:8.2f}"
+                             for ei in range(dm.shape[1]))
+            lines.append(f"{algo:16s} rho={load:4.2f}  {cols}")
+        lines.append("")
+    lines.append("columns: " + ", ".join(
+        f"{m}{'' if s == 0 else ('-' if s < 0 else '+')}{e:.0%}"
+        for (m, e, s) in settings))
+    return "\n".join(lines)
+
+
+def _later(study: str, slice_name: str):
+    def run(*args, **kwargs):
+        raise NotImplementedError(f"the {study} study comes with the "
+                                  f"{slice_name} slice of the port")
+    run.__name__ = f"{study}_study"
+    run.__doc__ = (f"The reference's {study} study; comes with the "
+                   f"{slice_name} slice of the port.")
+    return run
+
+
+drift_study = _later("drift", "workloads")
+placement_study = _later("placement", "placement")
+replication_study = _later("replication", "replication")
+tail_study = _later("tail", "telemetry")
+control_study = _later("control", "control")

@@ -1,12 +1,20 @@
 """Discrete-time simulator entry point (port of `repro.core.simulator`).
 
-`simulate` keeps the reference's signature and its ``fleet=`` engage
-rule: configurations the fleet path supports run there when the topology
-has at least `sharding.sim.FLEET_AUTO_THRESHOLD` servers (or when
-``fleet=True``/a `FleetConfig` forces it).  This slice ports only the
-fleet path: where the reference would take its dense `lax.scan`, and for
-any non-default scenario/placement/replication/telemetry/control seam,
-`simulate` raises `NotImplementedError` naming the slice that adds it.
+`simulate` and `sweep` keep the reference's signatures and its
+``fleet=`` engage rule: configurations the fleet path supports run there
+when the topology has at least `sharding.sim.FLEET_AUTO_THRESHOLD`
+servers (or when ``fleet=True``/a `FleetConfig` forces it); everything
+else runs the dense path.
+
+Dense path.  The reference is one `lax.scan` over slots per
+configuration, vmapped over the (load x error x seed) grid.  Here the
+grid is one leading cell dimension N = L*E*S on every state tensor, and
+the slot loop runs on the host, one slot per iteration, with no read of a
+device value inside it.  Each cell's draws depend only on its seed, the
+slot and its load (`core.rng.DenseDeviceSource`), so ``sweep(...)[l, e,
+s]`` equals ``simulate(..., seed=seeds[s])`` exactly.  For any
+non-default scenario/placement/replication/telemetry/control seam, both
+raise `NotImplementedError` naming the slice that adds it.
 
 Mean task completion time is measured via Little's law:
 ``W = mean(N_in_system over measurement window) / lambda_total`` (slots).
@@ -23,14 +31,15 @@ Error models for the estimated rates (`make_estimates`):
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import locality as loc
-
-_DENSE = ("the dense simulator path comes with the dense slice of the port "
-          "(only the fleet path runs now)")
+from repro_torch.core.policy import PolicyLike, make_policy
+from repro_torch.core.rng import DenseDeviceSource, DenseSource
 # non-default seams and the slice of the port that adds each
 _SEAMS = (("scenario", (None, "static"), "workloads"),
           ("placement", (None, "uniform"), "placement"),
@@ -95,6 +104,114 @@ def make_estimates(cfg: SimConfig, mode: str, eps: float, sign: int,
     return np.clip(est, 1e-3, 1.0)
 
 
+def _merge_metrics(out: Dict[str, Any], extra: Dict[str, Any],
+                   source: str) -> None:
+    """Merge `extra` into the metrics dict, refusing to overwrite a key
+    another layer already produced."""
+    for k in extra:
+        if k in out:
+            raise ValueError(
+                f"{source} metric key {k!r} collides with an existing "
+                f"metrics key; rename it (existing keys: {sorted(out)})")
+    out.update(extra)
+
+
+def _check_seams(scenario, placement, replication, telemetry,
+                 control) -> None:
+    given = dict(scenario=scenario, placement=placement,
+                 replication=replication, telemetry=telemetry,
+                 control=control)
+    for arg, defaults, slice_name in _SEAMS:
+        if given[arg] not in defaults:
+            raise NotImplementedError(
+                f"{arg}={given[arg]!r} comes with the {slice_name} slice of "
+                f"the port")
+
+
+# dense carry: (policy state, mean_n (N,) f32, n_meas (N,) f32,
+#               completions (N,) int32)
+DenseCarry = Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
+                      est: torch.Tensor, device):
+    """Returns (policy, init() -> carry, step(carry, t, draws) -> carry)
+    for the N cells whose (N, M, K) estimated rates are `est`: the
+    counterpart of the reference's scan body, one slot per call."""
+    pol = make_policy(policy_like)
+    dev = torch.device(device)
+    topo = cfg.topo
+    n_cells = est.shape[0]
+    anc = torch.as_tensor(np.array(topo.ancestors), device=dev)
+    rack_of = torch.as_tensor(np.array(topo.rack_of), device=dev)
+    true_k = cfg.true_rates.as_array(dev)
+    p_hot = torch.tensor(cfg.p_hot, dtype=torch.float32, device=dev)
+    warmup = cfg.warmup
+
+    def init() -> DenseCarry:
+        f32 = dict(dtype=torch.float32, device=dev)
+        return (pol.init_state(topo, device=dev, batch=(n_cells,)),
+                torch.zeros((n_cells,), **f32), torch.zeros((n_cells,), **f32),
+                torch.zeros((n_cells,), dtype=torch.int32, device=dev))
+
+    @torch.inference_mode()  # no autograd bookkeeping: less host time a op
+    def step(carry: DenseCarry, t: int, draws) -> DenseCarry:
+        state, mean_n, n_meas, compl = carry
+        types, active = loc.sample_arrivals_at(draws.n, draws.u_hot,
+                                               draws.g_type, rack_of, p_hot)
+        state, compl_t = pol.slot_step(state, draws, types, active, est,
+                                       true_k, anc)
+        n = pol.num_in_system(state).to(torch.float32)
+        in_w = float(t >= warmup)
+        n_meas = n_meas + in_w
+        mean_n = mean_n + in_w * (n - mean_n) / torch.clamp(n_meas, min=1.0)
+        compl = compl + compl_t * int(t >= warmup)
+        return (state, mean_n, n_meas, compl)
+
+    return pol, init, step
+
+
+def _dense_metrics(pol, carry: DenseCarry,
+                   lam: torch.Tensor) -> Dict[str, np.ndarray]:
+    """(N,) metrics per cell from a final carry: Little's law over the
+    measurement window, as the reference computes it in float32."""
+    state, mean_n, n_meas, compl = carry
+    out = {
+        "mean_n": mean_n,
+        "mean_delay": torch.where(lam > 0, mean_n / lam,
+                                  torch.full_like(mean_n, float("nan"))),
+        "throughput": compl.to(torch.float32) / torch.clamp(n_meas, min=1.0),
+        "final_n": pol.num_in_system(state).to(torch.float32),
+    }
+    _merge_metrics(out, pol.extra_metrics(state), "SlotPolicy.extra_metrics")
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _as_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _dense_run(policy, cfg: SimConfig, cells: Sequence[Tuple[int, float]],
+               est_cells: np.ndarray, device,
+               rng: DenseSource = None) -> Dict[str, np.ndarray]:
+    """Runs the cells ``[(seed, lam), ...]`` with (N, M, K) estimates as
+    one batch; returns (N,) metric arrays."""
+    dev = resolve_device(device)
+    est = torch.as_tensor(est_cells, device=dev).contiguous()
+    pol, init, step = _build_dense_step(policy, cfg, est, dev)
+    if rng is None:
+        rng = DenseDeviceSource(cells, pol.draw_plan(cfg.topo.num_servers),
+                                cfg.max_arrivals, cfg.topo.num_servers, dev)
+    carry = init()
+    for t in range(cfg.horizon):
+        carry = step(carry, t, rng.slot(t))
+    lam = torch.tensor([lam for _, lam in cells], dtype=torch.float32,
+                       device=dev)
+    return _dense_metrics(pol, carry, lam)
+
+
 def _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
                    telemetry, control=None) -> bool:
     """The reference's ``fleet=`` rule.  ``False`` -> dense.  ``True`` / a
@@ -127,21 +244,47 @@ def simulate(policy, cfg: SimConfig, lam_total: float, est, seed: int = 0,
 
     ``lam_total == 0`` yields ``mean_delay = NaN``; negative loads raise.
     ``device=None`` runs on the card (raising when there is none);
-    ``rng`` overrides the default `core.rng.DeviceSource(seed, ...)`.
+    ``rng`` overrides the default draw source: a `core.rng.DrawSource` on
+    the fleet path, a `core.rng.DenseSource` on the dense path.
     """
     if lam_total < 0:
         raise ValueError(f"lam_total must be >= 0, got {lam_total}")
-    given = dict(scenario=scenario, placement=placement,
-                 replication=replication, telemetry=telemetry,
-                 control=control)
-    for arg, defaults, slice_name in _SEAMS:
-        if given[arg] not in defaults:
-            raise NotImplementedError(
-                f"{arg}={given[arg]!r} comes with the {slice_name} slice of "
-                f"the port")
-    if not _fleet_engaged(fleet, policy, cfg, scenario, placement,
-                          replication, telemetry, control):
-        raise NotImplementedError(_DENSE)
-    from repro_torch.sharding import sim as fleet_sim
-    return fleet_sim.fleet_simulate(policy, cfg, lam_total, est, seed,
-                                    fleet, device=device, rng=rng)
+    _check_seams(scenario, placement, replication, telemetry, control)
+    if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
+                      telemetry, control):
+        from repro_torch.sharding import sim as fleet_sim
+        return fleet_sim.fleet_simulate(policy, cfg, lam_total, est, seed,
+                                        fleet, device=device, rng=rng)
+    out = _dense_run(policy, cfg, [(int(seed), np.float32(lam_total))],
+                     _as_numpy(est)[None], device, rng)
+    return {k: float(v[0]) for k, v in out.items()}
+
+
+def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
+          scenario=None, placement=None, replication=None, telemetry=None,
+          control=None, fleet=None, device=None,
+          rng=None) -> Dict[str, np.ndarray]:
+    """Full cartesian sweep: results have shape (L, E, S).
+
+    lam_grid: (L,) loads; est_stack: (E, M, K); seeds: (S,).  The grid
+    runs as one batch of N = L*E*S cells, cell (l, e, s) at flat index
+    ``(l*E + e)*S + s``; a cell's result equals `simulate` at its load,
+    estimates and seed.
+    """
+    lam_grid = np.asarray(lam_grid, np.float32).reshape(-1)
+    if np.any(lam_grid < 0):
+        raise ValueError(f"lam_grid must be >= 0, got {lam_grid}")
+    _check_seams(scenario, placement, replication, telemetry, control)
+    if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
+                      telemetry, control):
+        from repro_torch.sharding import sim as fleet_sim
+        return fleet_sim.fleet_sweep(policy, cfg, lam_grid, est_stack,
+                                     seeds, fleet, device=device)
+    est_stack = _as_numpy(est_stack)
+    seeds = [int(s) for s in np.asarray(seeds).reshape(-1)]
+    shape = (len(lam_grid), len(est_stack), len(seeds))
+    grid = [(lam, e, s) for lam in lam_grid
+            for e in range(shape[1]) for s in seeds]
+    out = _dense_run(policy, cfg, [(s, lam) for lam, _, s in grid],
+                     est_stack[[e for _, e, _ in grid]], device, rng)
+    return {k: v.reshape(shape) for k, v in out.items()}

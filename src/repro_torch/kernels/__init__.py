@@ -2,7 +2,11 @@
 
   slot_step  — fused fleet slot-step (workload + private-route argmin),
                CUDA C++ in csrc/fleet_route.cu
+  wwl_route  — batched Balanced-PANDAS routing (weighted-workload argmin),
+               CUDA C++ in csrc/wwl_route.cu
+  maxweight  — batched JSQ-MaxWeight claim scoring (weighted argmax),
+               CUDA C++ in csrc/maxweight.cu
 
 Public API lives in ops.py (CPU -> plain version, CUDA -> kernel); plain
-versions in ref.py; the nvcc build in _build.py.
+versions in ref.py; the nvcc build and the launch counts in _build.py.
 """

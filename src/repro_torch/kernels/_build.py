@@ -6,6 +6,11 @@ the source and the flags, so an edited source is rebuilt and a stale
 library is never loaded).  No PyTorch header is included, which keeps a
 build to seconds; pointers and the stream cross as ``ctypes.c_void_p``.
 Nothing is built or loaded when this module is imported.
+
+`LAUNCHES` counts launches per kernel: each wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main
+path went through the kernel.  `check_arg` is the wrappers' shared
+argument check.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -31,6 +38,26 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
+LAUNCHES: Dict[str, int] = {"fleet_route": 0, "wwl_route": 0,
+                            "maxweight_claim": 0}
+
+
+def check_arg(kernel: str, name: str, x: torch.Tensor, dtype: torch.dtype,
+              shape, device=None) -> None:
+    """Raise unless `x` is a contiguous CUDA tensor of `dtype` and `shape`
+    (and on `device`, when given)."""
+    if not x.is_cuda:
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor, "
+                         f"got device {x.device}")
+    if device is not None and x.device != device:
+        raise ValueError(f"{kernel}: {name} is on {x.device}, want {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} must have shape "
+                         f"{tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def nvcc() -> str:

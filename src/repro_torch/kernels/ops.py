@@ -3,7 +3,9 @@
 
 A CPU tensor goes to the kernel's plain PyTorch version (`ref`); a CUDA
 tensor launches the hand-written kernel or raises — there is no fallback
-from the card to the plain version.  `LAUNCHES` counts kernel launches.
+from the card to the plain version.  `LAUNCHES` counts kernel launches,
+one key per kernel.  Depth 0 (K = 2) runs natively in every kernel: no
+padding and no dilated ancestor table.
 """
 
 from __future__ import annotations
@@ -11,7 +13,32 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.slot_step import LAUNCHES, fleet_route_cuda  # noqa: F401
+from repro_torch.kernels._build import LAUNCHES  # noqa: F401
+from repro_torch.kernels.maxweight import maxweight_claim_cuda
+from repro_torch.kernels.slot_step import fleet_route_cuda
+from repro_torch.kernels.wwl_route import wwl_route_cuda
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).contiguous()
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def wwl_route(workload: torch.Tensor, est_rates: torch.Tensor,
+              server_anc: torch.Tensor, task_locals: torch.Tensor):
+    """Batched Balanced-PANDAS routing.  See `ref.wwl_route`.
+
+    `server_anc` is the (depth, M) ancestor table (a legacy (M,) rack map
+    is accepted).  Returns (server (B,) int32, tier (B,) int32, score (B,)
+    float32)."""
+    anc = ref._as_anc(server_anc)
+    if not workload.is_cuda:
+        return ref.wwl_route(workload, est_rates, anc, task_locals)
+    return wwl_route_cuda(_f32(workload), _f32(est_rates), _i32(anc),
+                          _i32(task_locals))
 
 
 def fleet_route(q: torch.Tensor, serving: torch.Tensor, est: torch.Tensor,
@@ -27,5 +54,19 @@ def fleet_route(q: torch.Tensor, serving: torch.Tensor, est: torch.Tensor,
     anc = ref._as_anc(server_anc)
     if not q.is_cuda:
         return ref.fleet_route(q, serving, est, anc, task_locals)
-    return fleet_route_cuda(q, serving, est, anc.to(torch.int32).contiguous(),
-                            task_locals.to(torch.int32).contiguous())
+    return fleet_route_cuda(q, serving, est, _i32(anc), _i32(task_locals))
+
+
+def maxweight_claim(queues: torch.Tensor, queue_anc: torch.Tensor,
+                    idle_servers: torch.Tensor, idle_anc: torch.Tensor,
+                    est_rates: torch.Tensor):
+    """Batched JSQ-MaxWeight claims.  See `ref.maxweight_claim`.
+
+    Ancestor tables are (depth, N) / (depth, B) (legacy rack maps
+    accepted).  Returns (queue (B,) int32, score (B,) float32); a row
+    whose queues are all empty gives queue 0 and score -inf."""
+    qa, ia = ref._as_anc(queue_anc), ref._as_anc(idle_anc)
+    if not queues.is_cuda:
+        return ref.maxweight_claim(queues, qa, idle_servers, ia, est_rates)
+    return maxweight_claim_cuda(_f32(queues), _i32(qa), _i32(idle_servers),
+                                _i32(ia), _f32(est_rates))

@@ -14,7 +14,7 @@ LARGE = 3.0e38  # +inf surrogate of the masked (remote) tier
 
 
 def _as_anc(x: torch.Tensor) -> torch.Tensor:
-    """Normalize a legacy (M,) rack map to a (depth, M) table."""
+    """Normalize a legacy (M,)/(B,) rack map to a (depth, ...) table."""
     return x[None] if x.ndim == 1 else x
 
 
@@ -67,3 +67,78 @@ def fleet_route(q: torch.Tensor, serving: torch.Tensor,
     rows = torch.arange(locs.shape[0], device=q.device)
     return (server.to(torch.int32), tier[rows, server],
             score[rows, server])
+
+
+def _tier_table(locs: torch.Tensor, anc: torch.Tensor, m: int):
+    """(B, M) tier of every server for every task (local 0 .. remote
+    D + 1), deepest level first with the local override."""
+    d = anc.shape[0]
+    sid = torch.arange(m, device=locs.device)
+    tier = torch.full((locs.shape[0], m), d + 1, dtype=torch.int32,
+                      device=locs.device)
+    for lvl in range(d - 1, -1, -1):
+        row = anc[lvl]
+        share = (row[None, :, None] == row[locs][:, None, :]).any(dim=-1)
+        tier = torch.where(share, lvl + 1, tier)
+    local = (sid[None, :, None] == locs[:, None, :]).any(dim=-1)
+    return torch.where(local, 0, tier)
+
+
+def wwl_route(workload: torch.Tensor, est_rates: torch.Tensor,
+              server_anc: torch.Tensor, task_locals: torch.Tensor):
+    """Batched Balanced-PANDAS routing against a workload snapshot.
+
+    workload:    (M,)   f32  estimated weighted workload per server
+    est_rates:   (M,K)  f32  per-server estimated tier rates (K = D + 2)
+    server_anc:  (D,M)  int  ancestor table (legacy (M,) rack map ok)
+    task_locals: (B,3)  int  local servers per task
+
+    Each task argmins W_m / est[m, tier(m, task)] (one IEEE division)
+    over all M servers; ties go to the lowest server index.  Returns
+    (server (B,) int32, tier (B,) int32 in 0..K-1, score (B,) f32).
+    """
+    anc = _as_anc(server_anc).long()
+    est = est_rates.to(torch.float32)
+    m = est.shape[0]
+    locs = task_locals.long()
+    tier = _tier_table(locs, anc, m)
+    rate = torch.gather(est[None].expand(locs.shape[0], m, est.shape[1]),
+                        -1, tier.long()[..., None])[..., 0]
+    score = workload.to(torch.float32)[None, :] / rate       # (B, M)
+    server = torch.argmin(score, dim=1)                 # first minimum wins
+    rows = torch.arange(locs.shape[0], device=locs.device)
+    return server.to(torch.int32), tier[rows, server], score[rows, server]
+
+
+def maxweight_claim(queues: torch.Tensor, queue_anc: torch.Tensor,
+                    idle_servers: torch.Tensor, idle_anc: torch.Tensor,
+                    est_rates: torch.Tensor):
+    """Batched JSQ-MaxWeight claim scoring against a queue snapshot.
+
+    queues:       (N,)   f32/int queue lengths
+    queue_anc:    (D,N)  int     ancestor table of each queue's owner
+    idle_servers: (B,)   int     ids of the idle servers
+    idle_anc:     (D,B)  int     ancestor table of each idle server
+    est_rates:    (B,K)  f32     estimated tier rates per idle server
+
+    Each idle server b argmaxes est[b, pair_tier(b, n)] * Q_n over the N
+    queues (one product), empty queues masked to -inf; ties go to the
+    lowest queue index.  A row whose queues are all empty gives queue 0
+    and score -inf.  Returns (queue (B,) int32, score (B,) f32).
+    """
+    q_anc, i_anc = _as_anc(queue_anc).long(), _as_anc(idle_anc).long()
+    d, n = q_anc.shape
+    est = est_rates.to(torch.float32)
+    qf = queues.to(torch.float32)
+    qid = torch.arange(n, device=qf.device)
+    is_self = idle_servers.long()[:, None] == qid[None, :]
+    w = est[:, d + 1:d + 2].expand(is_self.shape)
+    for lvl in range(d - 1, -1, -1):
+        share = i_anc[lvl][:, None] == q_anc[lvl][None, :]
+        w = torch.where(share, est[:, lvl + 1:lvl + 2], w)
+    w = torch.where(is_self, est[:, 0:1], w)
+    score = torch.where(qf[None, :] > 0, w * qf[None, :],
+                        torch.full_like(w, float("-inf")))
+    queue = torch.argmax(score, dim=1)                  # first maximum wins
+    rows = torch.arange(score.shape[0], device=qf.device)
+    return queue.to(torch.int32), score[rows, queue]

@@ -20,17 +20,13 @@ dispatching entry point.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import LAUNCHES
 
 MAX_DEPTH = 4  # template instantiations in csrc/fleet_route.cu
-
-# Launch counts per kernel: incremented where a kernel is launched and
-# nowhere else, so a run can show that its main path went through it.
-LAUNCHES: Dict[str, int] = {"fleet_route": 0}
 
 _fn = None
 
@@ -44,20 +40,6 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"fleet_route_cuda: {name} must be a CUDA tensor, "
-                         f"got device {x.device}")
-    if x.dtype != dtype:
-        raise TypeError(f"fleet_route_cuda: {name} must be {dtype}, "
-                        f"got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"fleet_route_cuda: {name} must have shape "
-                         f"{tuple(shape)}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"fleet_route_cuda: {name} must be contiguous")
 
 
 def fleet_route_cuda(q: torch.Tensor, serving: torch.Tensor,
@@ -77,17 +59,13 @@ def fleet_route_cuda(q: torch.Tensor, serving: torch.Tensor,
                          f"in 0..{MAX_DEPTH}, got K={k}, depth={depth}")
     if m < 1 or b < 1:
         raise ValueError(f"fleet_route_cuda: need M, B >= 1, got {m}, {b}")
-    _check("q", q, torch.int32, (m, k))
-    _check("serving", serving, torch.int32, (m,))
-    _check("est", est, torch.float32, (m, k))
-    _check("anc", anc, torch.int32, (depth, m))
-    _check("locs", locs, torch.int32, (b, 3))
     dev = q.device
-    for name, x in (("serving", serving), ("est", est), ("anc", anc),
-                    ("locs", locs)):
-        if x.device != dev:
-            raise ValueError(f"fleet_route_cuda: {name} is on {x.device}, "
-                             f"q on {dev}")
+    for name, x, dtype, shape in (("q", q, torch.int32, (m, k)),
+                                  ("serving", serving, torch.int32, (m,)),
+                                  ("est", est, torch.float32, (m, k)),
+                                  ("anc", anc, torch.int32, (depth, m)),
+                                  ("locs", locs, torch.int32, (b, 3))):
+        _build.check_arg("fleet_route_cuda", name, x, dtype, shape, dev)
     server = torch.empty((b,), dtype=torch.int32, device=dev)
     tier = torch.empty((b,), dtype=torch.int32, device=dev)
     score = torch.empty((b,), dtype=torch.float32, device=dev)

@@ -1,5 +1,8 @@
-"""Shared by the port's tests: the replay of the reference's draws, and
-a fixture that keeps torch to one intra-op thread."""
+"""Shared by the port's tests: the replays of the reference's draws (fleet
+and dense paths), and a fixture that keeps torch to one intra-op
+thread."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -7,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.rng import DrawSource, SlotDraws
+from repro_torch.core.rng import DenseDraws, DenseSource, DrawSource, SlotDraws
 
 
 class JaxReplay(DrawSource):
@@ -37,6 +40,97 @@ class JaxReplay(DrawSource):
                                 for x in self._draws(jnp.int32(t)))
         return SlotDraws(torch.tensor(int(n)), torch.tensor(u_hot),
                          torch.tensor(r), torch.tensor(u_serve))
+
+
+# how each dense policy splits its per-slot key k_algo (reference modules)
+_FAMILY = {"balanced_pandas": "pandas", "pandas_po2": "po2",
+           "jsq_maxweight": "claim", "priority": "claim", "fifo": "fifo"}
+
+
+def _slot_keys(seed, t):
+    """k_arr, k_algo of slot t: split(fold_in(PRNGKey(seed), t))."""
+    return jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), t))
+
+
+def _lane_gumbels(key, n, shape):
+    """gumbel(fold_in(key, i), shape) for i < n, stacked."""
+    return jax.vmap(lambda i: jax.random.gumbel(
+        jax.random.fold_in(key, i), shape))(jnp.arange(n))
+
+
+@functools.partial(jax.jit, static_argnames=("b", "m"))
+def _arrival_draws(seeds, lams, ts, b, m):
+    """(T, N) arrival draws of the reference's `sample_arrivals_at`."""
+    def one(seed, lam, t):
+        k_n, k_t = jax.random.split(_slot_keys(seed, t)[0])
+        k_hot, k_gum = jax.random.split(k_t)
+        return dict(n=jnp.minimum(jax.random.poisson(k_n, lam), b),
+                    u_hot=jax.random.uniform(k_hot, (b,)),
+                    g_type=jax.random.gumbel(k_gum, (b, m)))
+    return jax.vmap(jax.vmap(one, (0, 0, None)), (None, None, 0))(
+        seeds, lams, ts)
+
+
+@functools.partial(jax.jit, static_argnames=("family", "b", "m", "d"))
+def _policy_draws(seeds, ts, family, b, m, d):
+    """(T, N) draws of one policy family, from k_algo as it splits it."""
+    def one(seed, t):
+        k_algo = _slot_keys(seed, t)[1]
+        out = {}
+        if family in ("pandas", "po2"):
+            k_route, k_serve = jax.random.split(k_algo)
+            if family == "pandas":
+                out["route"] = _lane_gumbels(k_route, b, (m,))
+            else:
+                def lane(i):
+                    k_cand, k_tie = jax.random.split(
+                        jax.random.fold_in(k_route, i))
+                    return (jax.random.choice(k_cand, m, (min(d, m),),
+                                              replace=False),
+                            jax.random.gumbel(k_tie, (m,)))
+                out["cand"], out["route"] = jax.vmap(lane)(jnp.arange(b))
+        elif family == "claim":
+            k_route, k_serve, k_claim = jax.random.split(k_algo, 3)
+            out["route"] = _lane_gumbels(k_route, b, (3,))
+            k_perm, k_tie = jax.random.split(k_claim)
+            out["perm"] = jax.random.permutation(k_perm, m)
+            out["claim"] = _lane_gumbels(k_tie, m, (m,))
+        else:
+            k_serve, k_perm = jax.random.split(k_algo)
+            out["perm"] = jax.random.permutation(k_perm, m)
+        out["u_serve"] = jax.random.uniform(k_serve, (m,))
+        return out
+    return jax.vmap(jax.vmap(one, (0, None)), (None, 0))(seeds, ts)
+
+
+class JaxDenseReplay(DenseSource):
+    """The reference dense scan's draws (`repro.core.simulator`), per slot
+    and cell ``(seed, lam)``: key_t = fold_in(PRNGKey(seed), t);
+    k_arr, k_algo = split(key_t); k_n, k_t = split(k_arr);
+    k_hot, k_gum = split(k_t); then k_algo split as the policy splits it.
+    Bernoullis come back as their uniforms (``bernoulli`` is ``u < p``),
+    random tie-breaks as their Gumbels, choices and permutations as
+    indices.  Every slot up to `horizon` is drawn at construction; build
+    it inside ``jax.threefry_partitionable(False)`` to get the key layout
+    the older pins were recorded with."""
+
+    def __init__(self, policy: str, cells, batch: int, num_servers: int,
+                 horizon: int, d: int = 2):
+        seeds = jnp.asarray([s for s, _ in cells], jnp.uint32)
+        lams = jnp.asarray([lam for _, lam in cells], jnp.float32)
+        ts = jnp.arange(horizon, dtype=jnp.int32)
+        out = dict(_arrival_draws(seeds, lams, ts, b=batch, m=num_servers))
+        out.update(_policy_draws(seeds, ts, family=_FAMILY[policy],
+                                 b=batch, m=num_servers, d=d))
+        self._all = {k: torch.from_numpy(np.array(v)) for k, v in
+                     out.items()}
+        for k in ("n", "cand", "perm"):
+            if k in self._all:
+                self._all[k] = self._all[k].long()
+
+    def slot(self, t):
+        return DenseDraws(**{f: self._all[f][t] if f in self._all else None
+                             for f in DenseDraws._fields})
 
 
 @pytest.fixture(autouse=True, scope="module")

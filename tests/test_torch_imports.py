@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import locality as loc, simulator as sim
+from repro_torch.core import locality as loc, robustness as rb
+from repro_torch.core import simulator as sim
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,7 +24,10 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_reference():
     mods = _port_modules()
-    assert "repro_torch.kernels.slot_step" in mods
+    for name in ("kernels.slot_step", "kernels.wwl_route", "kernels.maxweight",
+                 "core.jsq_maxweight", "core.priority", "core.fifo",
+                 "core.pandas_po2", "core.robustness", "core.claiming"):
+        assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}]\n"
@@ -51,3 +55,10 @@ def test_default_device_is_the_card():
     est = sim.make_estimates(cfg, "network", 0.0, -1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.simulate("jsq_maxweight", cfg, 5.0, est)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.sweep("fifo", cfg, [5.0], est[None], [0])
+    study = rb.StudyConfig(sim=cfg, loads=(0.5,), eps_grid=(), seeds=(0,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rb.run_study(study, algos=("priority",))

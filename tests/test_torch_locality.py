@@ -77,3 +77,48 @@ def test_validation_matches_reference():
         sim.SimConfig(loc.Topology(24, 2), loc.Rates())
     assert loc.Rates() == loc.Rates(0.5, 0.45, 0.25)
     assert loc.Rates().as_array().dtype == torch.float32
+
+
+@pytest.mark.parametrize("m,groups,rates", CASES, ids=IDS)
+def test_tier_seam_matches_reference(m, groups, rates):
+    """server_tiers / tier_masks / class_of / pair_tiers / pair_rate on a
+    batch of tasks, against the reference's per-task functions."""
+    import jax
+    import jax.numpy as jnp
+    rng = np.random.default_rng(m)
+    rtopo, topo = rloc.Topology(m, groups), loc.Topology(m, groups)
+    r_anc = jnp.asarray(rtopo.ancestors)
+    anc = torch.as_tensor(np.array(topo.ancestors))
+    tasks = np.sort(np.stack([rng.choice(m, 3, replace=False)
+                              for _ in range(12)]), axis=1).astype(np.int32)
+    batch = torch.as_tensor(tasks).view(3, 4, 3)        # two lead dims
+    tiers = loc.server_tiers(batch, anc).view(12, m)
+    masks = loc.tier_masks(batch, anc).view(12, len(rates), m)
+    srv = torch.as_tensor(rng.integers(0, m, 12))
+    cls = loc.class_of(torch.as_tensor(tasks), anc, srv)
+    for i, task in enumerate(tasks):
+        np.testing.assert_array_equal(
+            tiers[i].numpy(), np.asarray(rloc.server_tiers(task, r_anc)))
+        np.testing.assert_array_equal(
+            masks[i].numpy(), np.asarray(rloc.tier_masks(task, r_anc)))
+        assert int(cls[i]) == int(rloc.class_of(task, r_anc, int(srv[i])))
+    a, b = rng.integers(0, m, 40), rng.integers(0, m, 40)
+    np.testing.assert_array_equal(
+        loc.pair_tiers(torch.as_tensor(a), torch.as_tensor(b), anc).numpy(),
+        np.asarray(rloc.pair_tiers(jnp.asarray(a), jnp.asarray(b), r_anc)))
+    est = rng.uniform(0.1, 1.0, (40, len(rates))).astype(np.float32)
+    got = loc.pair_rate(torch.as_tensor(a)[:, None], torch.arange(m), anc,
+                        torch.as_tensor(est))
+    for i in range(40):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(
+            rloc.pair_rate(int(a[i]), jnp.arange(m), r_anc,
+                           jnp.asarray(est[i]))))
+    # random tie-breaks: the reference's Gumbels, handed over, decide alike
+    score = rng.integers(0, 3, (40, m)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(m), 40)
+    g = np.stack([np.asarray(jax.random.gumbel(k, (m,))) for k in keys])
+    lo = loc.random_argmin(torch.as_tensor(g), torch.as_tensor(score))
+    hi = loc.random_argmax(torch.as_tensor(g), torch.as_tensor(score))
+    for i in range(40):
+        assert int(lo[i]) == int(rloc.random_argmin(keys[i], score[i]))
+        assert int(hi[i]) == int(rloc.random_argmax(keys[i], score[i]))

@@ -10,7 +10,8 @@ import pytest
 from repro.core import locality as rloc, simulator as rsim
 from repro.sharding import sim as rfs
 from repro_torch.core import locality as loc, simulator as sim
-from repro_torch.core.policy import available_policies, make_policy
+from repro_torch.core.policy import (PolicyConfig, available_policies,
+                                     make_policy)
 from repro_torch.sharding import sim as fs
 from _torch_port import JaxReplay, single_torch_thread  # noqa: F401
 
@@ -124,33 +125,45 @@ def test_engage_rule_matches_reference():
 def test_unported_paths_raise_naming_their_slice():
     _, cfg = _small()
     est = sim.make_estimates(cfg, "network", 0.0, -1)
-    with pytest.raises(NotImplementedError, match="dense slice"):
-        sim.simulate("balanced_pandas", cfg, 5.0, est, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense slice"):
-        sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=False,
-                     device="cpu")
     for kw, slice_name in (({"scenario": "server_loss"}, "workloads"),
                            ({"placement": "hdfs"}, "placement"),
                            ({"replication": "repair"}, "replication"),
                            ({"telemetry": True}, "telemetry"),
                            ({"control": "admission"}, "control")):
+        for fleet in (True, False):
+            with pytest.raises(NotImplementedError, match=slice_name):
+                sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=fleet,
+                             device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=slice_name):
-            sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=True,
-                         device="cpu", **kw)
+            sim.sweep("balanced_pandas", cfg, [5.0], est[None], [0],
+                      device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="later slice"):
         sim.simulate("pandas_po2", cfg, 5.0, est, fleet=True, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         fs.fleet_sweep("balanced_pandas", cfg, [5.0], est[None], [0])
+    with pytest.raises(NotImplementedError, match="later slice"):
+        sim.sweep("balanced_pandas", cfg, [5.0], est[None], [0], fleet=True,
+                  device="cpu")
     with pytest.raises(ValueError, match="unsupported"):
         sim.simulate("fifo", cfg, 5.0, est, fleet=True, device="cpu")
     with pytest.raises(ValueError, match="lam_total"):
         sim.simulate("balanced_pandas", cfg, -1.0, est, fleet=True,
                      device="cpu")
-    policy = make_policy("balanced_pandas")
-    assert available_policies() == ("balanced_pandas",)
-    with pytest.raises(NotImplementedError, match="dense slice"):
-        policy.slot_step(policy.init_state(cfg.topo), None, None, None, est,
-                         None, None)
+    with pytest.raises(ValueError, match="lam_grid"):
+        sim.sweep("balanced_pandas", cfg, [-0.5], est[None], [0],
+                  device="cpu")
+    # the dense path, which raised before this slice, now runs every
+    # registered policy
+    assert available_policies() == ("balanced_pandas", "fifo",
+                                    "jsq_maxweight", "pandas_po2",
+                                    "priority")
+    for name in available_policies():
+        out = sim.simulate(name, cfg, 5.0, est, fleet=False, device="cpu")
+        assert np.isfinite(out["mean_delay"]) and out["throughput"] > 0
+    zero = sim.simulate("balanced_pandas", cfg, 0.0, est, device="cpu")
+    assert np.isnan(zero["mean_delay"]) and zero["mean_n"] == 0.0
+    with pytest.raises(ValueError, match="d >= 1"):
+        make_policy(PolicyConfig("pandas_po2", {"d": 0}))
     for bad in ({"rounds": 0}, {"fill_iters": 4}):
         with pytest.raises(ValueError):
             fs.FleetConfig(**bad)
