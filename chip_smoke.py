@@ -33,7 +33,29 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each fatal on failure:
    map, against their plain versions, then timed;
 8. dense loop: every policy's slot loop under
    `torch.cuda.set_sync_debug_mode("error")` (no host sync), and a
-   profiled window of the Balanced-PANDAS dense step.
+   profiled window of the Balanced-PANDAS dense step;
+3b. (run after 8) flash_attention: the CUDA kernel against its plain
+   version `ref.mha` at the 8 cases of tests/test_kernels_attention.py
+   in float32 (atol/rtol 2e-5) and bf16 (2e-2, and every row within 1%
+   of its largest value), then in bf16 at the serving slice's prefill
+   shape of every bucket (B 1, Hq 32, Hkv 2, T 32/64/128, D 128, causal)
+   and at T = 8192, each timed beside its plain version, one
+   `scaled_dot_product_attention` call (the library yardstick, used
+   nowhere in the port) and its bound;
+9. the serving slice: chatglm3-6b at full width (28 layers, d_model
+   4096, bf16, random weights from a seed) through
+   `ServingEngine.run_until_drained` with the `EngineConfig()` defaults
+   (4 replicas in 2 pods, 4 slots each, buckets 32/64/128,
+   Balanced-PANDAS): 16 requests of 24-120 prompt tokens and 16 new
+   tokens, counts set to 0 before and read after (flash_attention = 28
+   x prefills), every logits tensor finite; one prefill through
+   impl="pallas" against impl="xla" (last real row within 3.5% of its
+   largest logit), each forward free of host syncs (sync debug mode
+   "error"); prefill ms, decode tokens/s and the
+   device's busy share over a profiled window of decode steps;
+10. the launcher: `python -m repro_torch.launch.serve` with its
+   defaults (the smoke config, on the card), counts set to 0 before and
+   read after.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -54,6 +76,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 dense, tensor cores
 M_FLEET, B_FLEET = 10008, 5474
 M_BENCH, B_BENCH = 65536, 8192      # benchmarks/bench_kernels.py, full width
 M_QUICK, B_QUICK = 1024, 128        # examples/quickstart.py, layer 2
@@ -402,8 +425,10 @@ def _zero_counts():
 
 
 def _check_counts(path: str, want: dict) -> dict:
+    """The launch counts must equal `want`, every kernel it omits 0."""
     from repro_torch.kernels import ops
     got = dict(ops.LAUNCHES)
+    want = {name: want.get(name, 0) for name in got}
     print(f"launches on the {path} path: {json.dumps(got)}", flush=True)
     if got != want:
         raise AssertionError(f"{path} path launched {got}, want {want}")
@@ -492,8 +517,7 @@ def phase_quickstart(dev):
                                     dtype=torch.int32, device=dev),
                     dim=1).values
     out = ops.wwl_route(wl, er, sr, tl)
-    launches = _check_counts("quickstart", {"fleet_route": 0, "wwl_route": 1,
-                                            "maxweight_claim": 0})
+    launches = _check_counts("quickstart", {"wwl_route": 1})
     bad, err = _compare(out, ref.wwl_route(wl, er, sr, tl))
     mix = np.bincount(out[1].cpu().numpy(), minlength=3).tolist()
     print(f"quickstart layer 2: wwl_route({b} tasks x {m} servers) "
@@ -548,7 +572,7 @@ def phase_bench(dev):
     _zero_counts()
     wwl_out = ops.wwl_route(*wwl_args)
     mw_out = ops.maxweight_claim(*mw_args)
-    launches = _check_counts("bench", {"fleet_route": 0, "wwl_route": 1,
+    launches = _check_counts("bench", {"wwl_route": 1,
                                        "maxweight_claim": 1})
     rows = {}
     for name, out, kernel, plain, args, bound in (
@@ -649,6 +673,358 @@ def phase_dense_loop(dev, slots: int = 32):
     return out
 
 
+# ---------------------------------------------------------------------------
+# flash_attention and the serving slice (chatglm3-6b at full width)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels_attention.py::CASES:
+# b, hq, hkv, tq, tk, d, causal, window, softcap
+ATTN_CASES = (
+    (2, 4, 2, 128, 128, 64, True, 0, 0.0),
+    (1, 8, 1, 200, 200, 64, True, 0, 0.0),
+    (1, 4, 4, 64, 192, 64, True, 0, 0.0),
+    (1, 4, 2, 1, 256, 64, True, 0, 0.0),
+    (2, 4, 2, 256, 256, 64, True, 128, 0.0),
+    (1, 2, 2, 128, 128, 64, True, 0, 50.0),
+    (1, 2, 2, 96, 96, 32, False, 0, 0.0),
+    (1, 2, 1, 256, 256, 128, True, 64, 30.0),
+)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 is also held row by row: max |kernel - plain| over the row's max
+# |plain|.  Both compute in float32 from the same bf16 inputs and round
+# once to bf16, so a sound kernel is off by one bf16 ulp at most (2^-7 of
+# the value, 0.0078) plus float32 summation order.  An absolute 2e-2
+# alone is as large as a late row's output at T = 8192 (about
+# sqrt(e / T)), so it could not see a fault there.
+BF16_ROW_REL = 1e-2
+SERVE_ARCH, SERVE_REQUESTS, SERVE_NEW = "chatglm3_6b", 16, 16
+LONG_T = 8192     # a long prefill, timed beside the serving buckets
+# kernel route vs plain route prefill: max |logit difference| over the
+# last real row, against this share of the row's max |logit|.  Sound
+# runs read 0.017 (0.086 of 5.06); the limit is about twice that.  A
+# kernel that lets each row see one key past the causal edge reads 0.57.
+SERVE_LOGIT_TOL = 0.035
+
+
+def _attn_bound(shape, causal, window, dtype):
+    """(bound_ms, bound_by, bytes, flops) of attention on these inputs:
+    q, k, v read once and o written once over the HBM rate, against
+    4 D flops for every kept (query, key) pair of every (batch, head)
+    over the peak rate of the dtype (bf16 tensor cores, float32 CUDA
+    cores)."""
+    b, hq, hkv, tq, tk, d = shape
+    qpos = np.arange(tq) + (tk - tq)
+    hi = np.minimum(tk, qpos + 1) if causal else np.full(tq, tk)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(tq)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    flops = 4 * d * pairs * b * hq
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esize * (2 * b * hq * tq * d + 2 * b * hkv * tk * d)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def _attn_check(name, out, plain, dtype):
+    """(max |kernel - plain|, the worst row's share of its max |plain|);
+    raises beyond the dtype's tolerance, and for bf16 beyond
+    `BF16_ROW_REL` in any row."""
+    torch.cuda.synchronize()
+    diff = (out.float() - plain.float()).abs()
+    err = float(diff.max())
+    row_rel = float((diff.amax(-1) / plain.float().abs().amax(-1)
+                     .clamp_min(1e-30)).max())
+    tol = ATTN_TOL[dtype]
+    try:
+        torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                                   rtol=tol)
+    except AssertionError as exc:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {name}: {exc}") from None
+    if dtype == torch.bfloat16 and not row_rel <= BF16_ROW_REL:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {name}: a row is off by {row_rel}"
+                             f" of its largest value, beyond {BF16_ROW_REL}")
+    return err, row_rel
+
+
+def _sdpa_fn(q, k, v, scale):
+    """A call of one PyTorch function computing the same (Tq = Tk,
+    causal, no window or softcap): the library yardstick, used nowhere
+    in the port."""
+    import torch.nn.functional as F
+
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True, scale=scale)
+
+
+def attn_shapes():
+    """(name, (B, Hq, Hkv, Tq, Tk, D), reps, plain reps) of the timed
+    bf16 causal shapes: chatglm3-6b's prefill at every bucket of
+    `EngineConfig()` (the shapes the serving path gives the kernel; the
+    largest is the kernels line's row), then a long prefill."""
+    from repro_torch.configs import registry
+    from repro_torch.serve.engine import EngineConfig
+
+    cfg = registry.get_config(SERVE_ARCH)
+    heads = (1, cfg.num_heads, cfg.num_kv_heads)
+    return ([(f"prefill_{t}", heads + (t, t, cfg.head_dim), 50, 20)
+             for t in EngineConfig().prefill_buckets]
+            + [("long", heads + (LONG_T, LONG_T, cfg.head_dim), 3, 1)])
+
+
+def phase_attention(dev):
+    """flash_attention against its plain version at the attention test
+    cases (float32 and bf16), then in bf16 at the slice's prefill shape
+    of every bucket and at T = 8192, timed beside the plain version and
+    SDPA."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(0)
+    max_err = max_rel = 0.0
+    for case in ATTN_CASES:
+        b, hq, hkv, tq, tk, d, causal, window, cap = case
+        host = [rng.normal(size=s).astype(np.float32)
+                for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
+        for dtype in ATTN_TOL:
+            q, k, v = (torch.as_tensor(x, device=dev).to(dtype) for x in host)
+            opts = dict(causal=causal, window=window, softcap=cap)
+            err, rel = _attn_check(
+                f"{case} {dtype}", ops.flash_attention(q, k, v, **opts),
+                ref.mha(q, k, v, **opts), dtype)
+            max_err = max(max_err, err)
+            if dtype == torch.bfloat16:
+                max_rel = max(max_rel, rel)
+    print(f"flash_attention: {len(ATTN_CASES)} test cases x (float32, bf16) "
+          f"within tolerance, max_abs_err {max_err:.3g}, bf16 worst row "
+          f"{max_rel:.3g} of its max (limit {BF16_ROW_REL})", flush=True)
+    rows = {}
+    gen = torch.Generator(dev).manual_seed(0)
+    for name, shape, reps, plain_reps in attn_shapes():
+        b, hq, hkv, tq, tk, d = shape
+        q = torch.randn((b, hq, tq, d), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((b, hkv, tk, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        scale = d ** -0.5
+        err, rel = _attn_check(name, ops.flash_attention(q, k, v,
+                                                         scale=scale),
+                               ref.mha(q, k, v, scale=scale), torch.bfloat16)
+        lib_fn = _sdpa_fn(q, k, v, scale)
+        bound = _attn_bound(shape, True, 0, torch.bfloat16)
+        row = dict(shape=list(shape), dtype="bf16", max_abs_err=err,
+                   row_rel_err=rel,
+                   ms=_time_ms(lambda: ops.flash_attention(q, k, v,
+                                                           scale=scale),
+                               reps),
+                   plain_ms=_time_ms(lambda: ref.mha(q, k, v, scale=scale),
+                                     plain_reps),
+                   library_ms=_time_ms(lib_fn, reps),
+                   bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
+                   flops=bound[3])
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        rows[name] = row
+        print(f"flash_attention {name}: {json.dumps(row)}", flush=True)
+        del q, k, v, lib_fn
+        torch.cuda.empty_cache()
+    return rows, max([max_err] + [r["max_abs_err"] for r in rows.values()])
+
+
+def _profile_window(dev, fn, steps: int) -> dict:
+    """The device's busy share over `steps` calls of `fn` under
+    torch.profiler: kernel time over wall time, and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    kern = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(k[0] for k in kern)
+    return {"window_steps": steps,
+            "window_ms_per_step": window_us / steps / 1e3,
+            "device_busy_share": busy_us / window_us if kern else None,
+            "device_launches_per_step": sum(k[1] for k in kern) / steps,
+            "top_kernels_us_per_step": [[k[2][:60], k[0] / steps]
+                                        for k in kern[:6]]}
+
+
+def phase_serving(dev):
+    """chatglm3-6b at full width through the engine's entry points."""
+    from repro_torch.configs import registry
+    from repro_torch.models import config as mconfig
+    from repro_torch.models import params as P, transformer as T
+    from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
+
+    cfg = registry.get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = P.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = P.count_params(params)
+    if n_params != mconfig.param_count(cfg):
+        raise AssertionError(f"{n_params} parameters, want "
+                             f"{mconfig.param_count(cfg)}")
+    weight_gb = n_params * params["embed"].element_size() / 1e9
+    print(f"serving {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters, {weight_gb:.2f} GB "
+          f"{cfg.dtype}, drawn in {init_s:.1f} s", flush=True)
+
+    ecfg = EngineConfig()
+    eng = ServingEngine(cfg, params, ecfg, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, int(rng.integers(24, 121))
+            ).astype(np.int32), max_new_tokens=SERVE_NEW, prefix_id=i % 5)
+            for i in range(SERVE_REQUESTS)]
+
+    # every logits tensor of the run is checked on the card (no host
+    # read), and the prefills (impl="pallas" forwards) are counted
+    forward = T.forward
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    prefills = 0
+
+    def checked(*args, **kwargs):
+        nonlocal prefills
+        prefills += kwargs.get("impl") == "pallas"
+        out = forward(*args, **kwargs)
+        finite.logical_and_(torch.isfinite(out[0]).all())
+        return out
+
+    T.forward = checked
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        out = eng.run_until_drained(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        T.forward = forward
+    launches = _check_counts("serving", {
+        "flash_attention": cfg.num_layers * prefills})
+    if prefills != SERVE_REQUESTS:
+        raise AssertionError(f"{prefills} prefills for {SERVE_REQUESTS} "
+                             f"requests")
+    short = [r.rid for r in out
+             if r.finish_time <= 0 or len(r.generated) != SERVE_NEW + 1]
+    if short:
+        raise AssertionError(f"requests {short} did not drain with "
+                             f"{SERVE_NEW + 1} tokens")
+    if not bool(finite):
+        raise AssertionError("non-finite logits in the serving run")
+    tokens = sum(len(r.generated) for r in out)
+    run = dict(requests=len(out), prefills=prefills, steps=eng.steps,
+               wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+               tier_mix=eng.assign_tiers,
+               sojourn_p50_p95_p99_steps=eng.sojourn_percentiles().tolist(),
+               launches=launches)
+    print(f"serving run: {json.dumps(run)}", flush=True)
+
+    compare = prefill_compare(dev, cfg, params, ecfg, reqs[0].prompt)
+    if not compare["share"] <= SERVE_LOGIT_TOL:
+        raise AssertionError(f"kernel and plain prefill logits differ by "
+                             f"{compare['max_abs_diff']}, beyond "
+                             f"{SERVE_LOGIT_TOL} x {compare['max_abs_logit']}")
+    return launches, run, compare, decode_window(dev, eng, ecfg, reqs)
+
+
+def prefill_compare(dev, cfg, params, ecfg, prompt) -> dict:
+    """One right-padded prefill of `prompt` through the kernel route
+    (impl="pallas") and the plain route (impl="xla"), each forward free
+    of host syncs: the last real row's max |logit difference| and its
+    share of the row's max |logit| (`share`), printed."""
+    from repro_torch.models import transformer as T
+
+    t = len(prompt)
+    bucket = next(b for b in ecfg.prefill_buckets if b >= t)
+    tok = np.zeros((1, bucket), np.int32)
+    tok[0, :t] = prompt
+    pos = np.where(np.arange(bucket) < t, np.arange(bucket),
+                   -(np.arange(bucket) - t + 1)).astype(np.int32)[None]
+    tok, pos = torch.as_tensor(tok, device=dev), torch.as_tensor(pos,
+                                                                 device=dev)
+    last, prefill_ms = {}, {}
+    for impl in ("pallas", "xla", "pallas", "xla"):
+        caches = T.init_caches(cfg, 1, ecfg.max_len, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")  # no host sync inside
+        try:
+            logits, _, _ = T.forward(params, cfg, tok, positions=pos,
+                                     caches=caches, impl=impl)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        prefill_ms[impl] = (time.perf_counter() - t0) * 1e3  # second run
+        last[impl] = logits[0, t - 1]
+    diff = float((last["pallas"] - last["xla"]).abs().max())
+    scale = float(last["xla"].abs().max())
+    compare = dict(prompt_tokens=t, bucket=bucket, max_abs_diff=diff,
+                   max_abs_logit=scale, share=diff / scale,
+                   tolerance=SERVE_LOGIT_TOL * scale,
+                   margin=SERVE_LOGIT_TOL * scale - diff,
+                   same_argmax=bool(last["pallas"].argmax()
+                                    == last["xla"].argmax()),
+                   prefill_ms=prefill_ms)
+    print(f"prefill kernel route vs plain route: {json.dumps(compare)}",
+          flush=True)
+    return compare
+
+
+def decode_window(dev, eng, ecfg, reqs) -> dict:
+    """A decode window on one replica with all its slots busy: admit
+    times, decode tokens/s and a profiled window of decode steps."""
+    from repro_torch.serve.engine import Request
+
+    rep = eng.replicas[0]
+    admit_ms = []
+    for i in range(ecfg.slots_per_replica):
+        r = Request(rid=100 + i, prompt=reqs[i].prompt, max_new_tokens=100,
+                    prefix_id=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep.admit(r)        # one prefill, ending in a host read
+        admit_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(4):
+        rep.decode_once()   # warm up
+    torch.cuda.synchronize()
+    steps = 16
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        rep.decode_once()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    decode = dict(batch=ecfg.slots_per_replica, ms_per_step=step_s * 1e3,
+                  tokens_per_s=ecfg.slots_per_replica / step_s,
+                  admit_ms=admit_ms,
+                  prompt_tokens=[len(reqs[i].prompt)
+                                 for i in range(ecfg.slots_per_replica)])
+    decode.update(_profile_window(dev, rep.decode_once, 8))
+    print(f"decode window: {json.dumps(decode)}", flush=True)
+    return decode
+
+
+def phase_launcher(dev):
+    """`python -m repro_torch.launch.serve` with its defaults: the smoke
+    config on the card, counts set to 0 before and read after."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+
+    _zero_counts()
+    serve.main([])
+    layers = registry.get_smoke_config("chatglm3_6b").num_layers
+    return _check_counts("launcher", {"flash_attention": layers * 16})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -676,6 +1052,9 @@ def main() -> int:
     quick_launches, _, quick_bad, quick_err = phase_quickstart(dev)
     bench_launches, bench_rows = phase_bench(dev)
     phase_dense_loop(dev)
+    attn_rows, attn_err = phase_attention(dev)
+    serve_launches, _, _, _ = phase_serving(dev)
+    phase_launcher(dev)
 
     main_row = rows[1]  # the slice's Topology(10008, 6)
     entries = [{
@@ -707,6 +1086,20 @@ def main() -> int:
             "ms": bench["ms"], "plain_ms": bench["plain_ms"],
             "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
             "library_ms": None})
+    main_attn = attn_rows[max((k for k in attn_rows if k != "long"),
+                              key=lambda k: attn_rows[k]["shape"][3])]
+    entries.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "launches": serve_launches["flash_attention"],
+        "max_abs_err": attn_err,
+        "ms": main_attn["ms"], "plain_ms": main_attn["plain_ms"],
+        "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],
+        "library_ms": main_attn["library_ms"],
+        "long": {k: attn_rows["long"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

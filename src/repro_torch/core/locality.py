@@ -153,6 +153,11 @@ class Topology:
     def min_rack_size(self) -> int:
         return min(self.group_sizes[0]) if self.depth else self.num_servers
 
+    @property
+    def num_workers(self) -> int:
+        """The host-side routers' name for ``num_servers``."""
+        return self.num_servers
+
 
 class Rates:
     """Strictly-decreasing service rates per locality tier

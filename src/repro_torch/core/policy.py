@@ -1,4 +1,5 @@
-"""SlotPolicy registry of the port (counterpart of `repro.core.policy`).
+"""The two scheduler registries of the port (counterpart of
+`repro.core.policy`).
 
 `SlotPolicy` is the discrete-time simulator contract: a policy owns a
 fixed-shape tensor state and advances it one slot at a time.  Policies
@@ -6,8 +7,12 @@ register themselves with `@register_policy` at their definition site;
 `make_policy` resolves a name, a `PolicyConfig` (name + constructor
 options) or an instance.  Per-policy constructor options (FIFO's `cap`,
 power-of-d's `d`) travel in a `PolicyConfig`; per-policy outputs (FIFO's
-drop counter) come back through `extra_metrics`.  The host-side `Router`
-half of the reference module comes with the host-fleet slice.
+drop counter) come back through `extra_metrics`.
+
+`Router` is the host-side (numpy, incremental) contract of the serving
+engine: ``route(locals_) -> Decision`` and ``claim(worker) -> Claim``.
+Routers register with `@register_router` (`core.cluster` holds the
+built-in four); `make_router` builds one by name.
 """
 
 from __future__ import annotations
@@ -15,11 +20,45 @@ from __future__ import annotations
 import abc
 import dataclasses
 import importlib
-from typing import Any, Dict, Mapping, Tuple, Type, Union
+from typing import (Any, Dict, Mapping, Optional, Sequence, Tuple, Type,
+                    Union)
 
+import numpy as np
 import torch
 
 from repro_torch.core.rng import DrawPlan
+
+
+@dataclasses.dataclass(frozen=True)
+class Decision:
+    """Outcome of `Router.route`: where an arriving task went.
+
+    worker   -- assigned worker id, or -1 when assignment is deferred
+    tier     -- locality tier (0 local .. K-1 remote) at the assigned
+                worker, or -1 when deferred / unknown at routing time
+    deferred -- True when the router queues globally and picks the worker
+                only at claim time (e.g. FIFO)
+    """
+
+    worker: int
+    tier: int = -1
+    deferred: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Claim:
+    """Outcome of `Router.claim`: what an idle worker just pulled.
+
+    source -- index of the queue the task came from: a worker id for
+              per-worker-queue routers (the claimer's own queue, or another
+              worker's under MaxWeight work stealing), or -1 for a global
+              queue (FIFO)
+    tier   -- the router's belief of the service tier for this claim, or -1
+              when it cannot know (global queue: depends on the task)
+    """
+
+    source: int
+    tier: int = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,17 +118,74 @@ class SlotPolicy(abc.ABC):
         return {}
 
 
-_POLICIES: Dict[str, Type[SlotPolicy]] = {}
+class Router(abc.ABC):
+    """Incremental host-side scheduler over an abstract worker fleet.
 
-# Modules that register the built-in policies as an import side effect,
-# loaded on first lookup so `policy.py` never imports an algorithm module
-# at import time (no cycles).
+    Uniform constructor: (spec, rates, estimator=None, seed=0).  `spec` is
+    the same `locality.Topology` the simulator uses; `rates` is the (K,)
+    tier-rate prior, K matching ``spec.num_tiers``.  When an
+    `EwmaRateEstimator` is given
+    its live (M, K) estimates are used instead (blind mode).  Every
+    router accepts and stores the estimator, even rate-oblivious ones —
+    observations still flow through `on_complete`, so switching a fleet
+    from FIFO to a rate-aware policy needs no re-warming.
+    """
+
+    name: str = ""
+
+    def __init__(self, spec, rates: Sequence[float], estimator=None,
+                 seed: int = 0):
+        self.spec = spec
+        self.ancestors = np.asarray(spec.ancestors)  # (depth, M)
+        self.num_tiers = spec.num_tiers
+        self.prior = np.asarray(rates, np.float32)   # (K,) fastest first
+        if self.prior.shape != (self.num_tiers,):
+            raise ValueError(
+                f"router prior has {self.prior.shape[0]} tier rates but the "
+                f"fleet topology has {self.num_tiers} tiers")
+        self.estimator = estimator
+        self.rng = np.random.default_rng(seed)
+
+    # -- estimated rates ----------------------------------------------------
+    def _est(self) -> np.ndarray:
+        """(M, K) estimated rates (the estimator's if present, else the
+        prior's)."""
+        if self.estimator is not None:
+            return self.estimator.rates
+        return np.tile(self.prior, (self.spec.num_workers, 1))
+
+    # -- the uniform surface ------------------------------------------------
+    @abc.abstractmethod
+    def route(self, locals_: Sequence[int]) -> Decision:
+        """Admit one task whose data lives on `locals_`."""
+
+    @abc.abstractmethod
+    def claim(self, worker: int) -> Optional[Claim]:
+        """Idle `worker` asks for its next task; None when nothing to do."""
+
+    def on_complete(self, worker: int, tier: int, service_time: float) -> None:
+        """Feed one observed (worker, tier, service_time) to the estimator."""
+        if self.estimator is not None:
+            self.estimator.observe(worker, tier, service_time)
+
+    def queue_depths(self) -> np.ndarray:
+        """(M,) tasks queued per worker (0s for global-queue routers)."""
+        return np.zeros(self.spec.num_workers)
+
+
+_POLICIES: Dict[str, Type[SlotPolicy]] = {}
+_ROUTERS: Dict[str, Type[Router]] = {}
+
+# Modules that register the built-in policies and routers as an import
+# side effect, loaded on first lookup so `policy.py` never imports an
+# algorithm module at import time (no cycles).
 _BUILTIN_MODULES = (
     "repro_torch.core.balanced_pandas",
     "repro_torch.core.jsq_maxweight",
     "repro_torch.core.priority",
     "repro_torch.core.fifo",
     "repro_torch.core.pandas_po2",
+    "repro_torch.core.cluster",
 )
 _builtins_loaded = False
 
@@ -114,9 +210,25 @@ def register_policy(cls: Type[SlotPolicy]) -> Type[SlotPolicy]:
     return cls
 
 
+def register_router(cls: Type[Router]) -> Type[Router]:
+    """Class decorator: add a Router to the registry under `cls.name`."""
+    name = getattr(cls, "name", "")
+    if not name:
+        raise ValueError(f"router class {cls.__name__} has no `name`")
+    if name in _ROUTERS:
+        raise ValueError(f"duplicate router registration: {name!r}")
+    _ROUTERS[name] = cls
+    return cls
+
+
 def available_policies() -> Tuple[str, ...]:
     _load_builtins()
     return tuple(sorted(_POLICIES))
+
+
+def available_routers() -> Tuple[str, ...]:
+    _load_builtins()
+    return tuple(sorted(_ROUTERS))
 
 
 def get_policy_cls(name: str) -> Type[SlotPolicy]:
@@ -126,6 +238,15 @@ def get_policy_cls(name: str) -> Type[SlotPolicy]:
     except KeyError:
         raise ValueError(f"unknown policy {name!r}; "
                          f"registered: {available_policies()}") from None
+
+
+def get_router_cls(name: str) -> Type[Router]:
+    _load_builtins()
+    try:
+        return _ROUTERS[name]
+    except KeyError:
+        raise ValueError(f"unknown router {name!r}; "
+                         f"registered: {available_routers()}") from None
 
 
 def policy_name(spec: PolicyLike) -> str:
@@ -143,3 +264,10 @@ def make_policy(spec: PolicyLike) -> SlotPolicy:
     if isinstance(spec, str):
         spec = PolicyConfig(spec)
     return get_policy_cls(spec.name)(**dict(spec.options))
+
+
+def make_router(name: str, spec, rates: Sequence[float], estimator=None,
+                seed: int = 0, **options) -> Router:
+    """Instantiate a registered router with the uniform constructor."""
+    return get_router_cls(name)(spec, rates, estimator=estimator, seed=seed,
+                                **options)

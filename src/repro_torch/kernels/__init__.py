@@ -6,6 +6,8 @@
                CUDA C++ in csrc/wwl_route.cu
   maxweight  — batched JSQ-MaxWeight claim scoring (weighted argmax),
                CUDA C++ in csrc/maxweight.cu
+  flash_attention — online-softmax GQA attention (causal, window,
+               softcap), CUDA C++ in csrc/flash_attention.cu
 
 Public API lives in ops.py (CPU -> plain version, CUDA -> kernel); plain
 versions in ref.py; the nvcc build and the launch counts in _build.py.

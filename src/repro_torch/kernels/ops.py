@@ -4,8 +4,9 @@
 A CPU tensor goes to the kernel's plain PyTorch version (`ref`); a CUDA
 tensor launches the hand-written kernel or raises — there is no fallback
 from the card to the plain version.  `LAUNCHES` counts kernel launches,
-one key per kernel.  Depth 0 (K = 2) runs natively in every kernel: no
-padding and no dilated ancestor table.
+one key per kernel.  Depth 0 (K = 2) runs natively in every scheduling
+kernel: no padding and no dilated ancestor table.  `flash_attention`
+needs no padding either: the kernel masks its ragged tiles itself.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.maxweight import maxweight_claim_cuda
 from repro_torch.kernels.slot_step import fleet_route_cuda
 from repro_torch.kernels.wwl_route import wwl_route_cuda
@@ -70,3 +72,21 @@ def maxweight_claim(queues: torch.Tensor, queue_anc: torch.Tensor,
         return ref.maxweight_claim(queues, qa, idle_servers, ia, est_rates)
     return maxweight_claim_cuda(_f32(queues), _i32(qa), _i32(idle_servers),
                                 _i32(ia), _f32(est_rates))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None):
+    """Block-wise online-softmax attention (GQA/SWA/softcap).
+
+    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D).  See `ref.mha` for the
+    semantics.  The reference's `block_q`/`block_k`/`interpret` options
+    have no counterpart: the CUDA kernel's tiling is fixed.
+    """
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if not q.is_cuda:
+        return ref.mha(q, k, v, causal=causal, window=window,
+                       softcap=softcap, scale=scale)
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal, window=window,
+                                softcap=softcap, scale=scale)

@@ -142,3 +142,42 @@ def maxweight_claim(queues: torch.Tensor, queue_anc: torch.Tensor,
     queue = torch.argmax(score, dim=1)                  # first maximum wins
     rows = torch.arange(score.shape[0], device=qf.device)
     return queue.to(torch.int32), score[rows, queue]
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: int = 0, softcap: float = 0.0,
+        scale: float | None = None) -> torch.Tensor:
+    """Multi-head attention with GQA, sliding window and softcap.
+
+    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D) with Hq % Hkv == 0; query
+    head h reads kv head h // (Hq / Hkv).  Query rows are offset by
+    Tk - Tq (the last query sees the last key).  window > 0 keeps keys
+    with kpos > qpos - window; softcap > 0 maps logits to
+    softcap * tanh(logits / softcap); logits are (q . k) * scale in
+    float32, and the output is in q's dtype.
+
+    One departure from `repro.kernels.ref.mha`: a row whose keys are all
+    masked gives 0, as the Pallas kernel (and the CUDA kernel) do, where
+    the JAX oracle gives NaN.  Only Tq > Tk with causal makes such a row,
+    and no caller does that.
+    """
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qr = q.reshape(b, hkv, group, tq, d).to(torch.float32)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qr,
+                          k.to(torch.float32)) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    p = torch.where(mask, p, 0.0)          # all-masked rows: NaN -> 0
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    return out.reshape(b, hq, tq, d).to(q.dtype)

@@ -1,0 +1,188 @@
+"""Parameter trees of the port (counterpart of `repro.models.params`).
+
+Every parameter is declared once as a `ParamDef` (shape + init rule), with
+the reference's keys and its stacked per-stage layout: a stage's block
+parameters carry a leading ``repeats`` axis.  A tree is a nested ``dict``
+of tensors.  Two views:
+
+  * `init_params`    — random tensors on the device, drawn with the
+                       reference's rules (fan-in normal, embed x 0.02,
+                       ones, zeros); the generator differs from JAX's, so
+                       the values do too;
+  * `from_reference` — the JAX package's tree, handed over as numpy
+                       arrays, as the port's tree (the tests use it so the
+                       two models compute the same function).
+
+Only the dense attention layers are declared: MoE, Mamba, cross-attention
+and learned positions wait for their layers (ROADMAP Queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.config import LayerSpec, ModelConfig, Stage
+from repro_torch.models.layers import torch_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"       # normal | zeros | ones | embed
+    fan_in_dims: Tuple[int, ...] = (0,)  # dims treated as fan-in for scaling
+
+
+def _norm_defs(cfg: ModelConfig, name: str) -> Dict[str, ParamDef]:
+    d = {f"{name}_scale": ParamDef((cfg.d_model,), "ones")}
+    if cfg.norm == "layernorm":
+        d[f"{name}_bias"] = ParamDef((cfg.d_model,), "zeros")
+    return d
+
+
+def _attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    defs: Dict[str, ParamDef] = {
+        "wq": ParamDef((d, qd)),
+        "wk": ParamDef((d, kvd)),
+        "wv": ParamDef((d, kvd)),
+        "wo": ParamDef((qd, d)),
+    }
+    if cfg.attn_bias:
+        defs["bq"] = ParamDef((qd,), "zeros")
+        defs["bk"] = ParamDef((kvd,), "zeros")
+        defs["bv"] = ParamDef((kvd,), "zeros")
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((cfg.head_dim,), "ones")
+        defs["k_norm"] = ParamDef((cfg.head_dim,), "ones")
+    return defs
+
+
+def _mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        return {
+            "w_gate": ParamDef((d, ff)),
+            "w_up": ParamDef((d, ff)),
+            "w_down": ParamDef((ff, d)),
+        }
+    return {
+        "w_up": ParamDef((d, ff)),
+        "w_down": ParamDef((ff, d)),
+    }
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless every layer of `cfg` is one the port has: dense
+    attention (self-attention, dense MLP), no encoder, no learned
+    positions."""
+    for st in cfg.stages:
+        for sl in st.block:
+            if sl.kind != "attn" or sl.moe or sl.cross:
+                raise NotImplementedError(
+                    f"{cfg.name}: layer {sl} needs MoE, Mamba or "
+                    f"cross-attention, not ported yet (ROADMAP Queue 1 "
+                    f"item 13)")
+    if cfg.enc_stages or cfg.learned_pos or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: encoders, learned positions and modality "
+            f"frontends are not ported yet (ROADMAP Queue 1 item 13)")
+
+
+def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
+    defs: Dict[str, Any] = {}
+    defs.update(_norm_defs(cfg, "ln1"))
+    defs["attn"] = _attn_defs(cfg)
+    if cfg.d_ff > 0:
+        defs.update(_norm_defs(cfg, "ln2"))
+        defs["mlp"] = _mlp_defs(cfg)
+        if cfg.post_norm:
+            defs.update(_norm_defs(cfg, "post2"))
+    if cfg.post_norm:
+        defs.update(_norm_defs(cfg, "post1"))
+    return defs
+
+
+def _tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(defs: Dict[str, Any], repeats: int) -> Dict[str, Any]:
+    """Add the leading stacked-layer axis."""
+    return _tree_map(lambda d: ParamDef((repeats,) + d.shape, d.init,
+                                        tuple(x + 1 for x in d.fan_in_dims)),
+                     defs)
+
+
+def stage_defs(cfg: ModelConfig, stage: Stage) -> Dict[str, Any]:
+    return _stack({f"sub{i}": layer_defs(cfg, sl)
+                   for i, sl in enumerate(stage.block)}, stage.repeats)
+
+
+def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    check_supported(cfg)
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), "embed"),
+        "stages": {f"stage{i}": stage_defs(cfg, st)
+                   for i, st in enumerate(cfg.stages)},
+    }
+    defs.update(_norm_defs(cfg, "final"))
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+    return defs
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                dtype=None):
+    """Random parameters on `device` (None: the card), in `dtype` (default
+    ``cfg.dtype``).  `generator` must live on that device.  Tensors are
+    drawn one at a time in float32 and cast, so the peak beyond the tree
+    itself is one float32 tensor (6.3 GB for chatglm3-6b's stacked
+    ``w_gate``)."""
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+
+    def make(d: ParamDef) -> torch.Tensor:
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=dev)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=dev)
+        if d.init == "embed":
+            std = 0.02
+        else:
+            fan_in = max(int(np.prod([d.shape[i] for i in d.fan_in_dims])), 1)
+            std = 1.0 / math.sqrt(fan_in)
+        x = torch.randn(d.shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return x.mul_(std).to(dt)
+
+    return _tree_map(make, model_defs(cfg))
+
+
+def from_reference(tree, device=None):
+    """The reference's parameter tree (nested dicts of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's tree on `device`
+    (None: the card), dtypes kept."""
+    dev = resolve_device(device)
+
+    def conv(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes: torch cannot read it
+            return torch.as_tensor(a.astype(np.float32), device=dev).to(
+                torch.bfloat16)
+        return torch.tensor(a, device=dev)  # copies: JAX's are read-only
+
+    return _tree_map(conv, tree)
+
+
+def count_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return tree.numel()

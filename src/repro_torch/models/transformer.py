@@ -1,0 +1,166 @@
+"""Model forward passes of the port (counterpart of
+`repro.models.transformer`): the stage-stacked decoder.
+
+Each Stage's block parameters carry a leading ``repeats`` axis; the
+reference scans it with `jax.lax.scan`, the port walks it with a Python
+loop over views of the stacked tensors.  New K/V of every layer are
+collected and committed once per stage after the loop (the deferred
+commit), as in the reference.
+
+Entry points:
+  forward(...)      — full-sequence logits (prefill)
+  decode_step(...)  — one token against caches
+  init_caches(...)  — stacked per-stage cache dicts
+
+``impl`` takes the reference's values: ``"xla"`` is the plain PyTorch
+attention (`layers.mha_xla` / `mha_chunked`), ``"pallas"`` the
+hand-written flash-attention kernel through `kernels.ops.flash_attention`
+for causal layers — on a CUDA tensor the CUDA kernel, on a CPU tensor its
+plain version `kernels.ref.mha`.  Decode always takes the plain two-piece
+softmax (`layers.mha_decode`), as in the reference.  What waits: `encode`
+and `lm_loss` (training), `remat` and the mesh `ctx`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import LayerSpec, ModelConfig, Stage
+from repro_torch.models.params import check_supported
+
+
+def _sublayer(lp: Dict[str, Any], cfg: ModelConfig, spec: LayerSpec,
+              x: torch.Tensor, positions: torch.Tensor,
+              cache: Optional[Dict[str, Any]], impl: str):
+    """One residual block: attention + MLP.  Returns (x, kv_new)."""
+    h = L.norm(lp, cfg, x, "ln1")
+    h, kv_new = L.attention(lp, cfg, spec, h, positions,
+                            cache=None if cache is None else cache["kv"],
+                            impl=impl)
+    if cfg.post_norm:
+        h = L.norm(lp, cfg, h, "post1")
+    x = x + h
+    if cfg.d_ff > 0:
+        h = L.norm(lp, cfg, x, "ln2")
+        h = L.mlp(lp["mlp"], cfg, h)
+        if cfg.post_norm:
+            h = L.norm(lp, cfg, h, "post2")
+        x = x + h
+    return x, kv_new
+
+
+def _index(tree, r: int):
+    """Layer `r` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _stage_forward(sp: Dict[str, Any], cfg: ModelConfig, stage: Stage,
+                   x: torch.Tensor, positions: torch.Tensor,
+                   cache: Optional[Dict[str, Any]], impl: str):
+    """Run the stacked block `stage.repeats` times; cache leaves carry a
+    leading (repeats,) dim and are committed once after the loop."""
+    new_kv = {f"sub{i}": [] for i in range(len(stage.block))}
+    for r in range(stage.repeats):
+        layer_p = _index(sp, r)
+        layer_cache = None if cache is None else _index(cache, r)
+        for i, spec in enumerate(stage.block):
+            sub_cache = None if layer_cache is None else layer_cache[f"sub{i}"]
+            x, kv = _sublayer(layer_p[f"sub{i}"], cfg, spec, x, positions,
+                              sub_cache, impl)
+            if kv is not None:
+                new_kv[f"sub{i}"].append(kv)
+    if cache is None:
+        return x, None
+    return x, _commit_stage_cache(stage, cache, new_kv, positions)
+
+
+def _commit_stage_cache(stage: Stage, cache, new_kv, positions):
+    """Apply the deferred KV commits: one write per stage and sub-layer."""
+    for i in range(len(stage.block)):
+        kvs = new_kv[f"sub{i}"]
+        k = torch.stack([kv["k"] for kv in kvs])   # (L, B, H, T, D)
+        v = torch.stack([kv["v"] for kv in kvs])
+        L.commit_kv(cache[f"sub{i}"]["kv"], k, v, positions)
+    return cache
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens].to(L.torch_dtype(cfg.dtype))
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = L.norm(params, cfg, x, "final")
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ w.to(x.dtype)).float()
+    if cfg.final_softcap > 0:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:  # mask vocab-padding rows
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits.masked_fill(pad, L.NEG_INF)
+    return logits
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            caches: Optional[Dict[str, Any]] = None, impl: str = "xla"):
+    """Full-sequence forward.  tokens: (B, T) integer.
+
+    Returns (logits (B, T, V) float32, new_caches, aux); aux is 0.0 (the
+    reference's MoE auxiliary loss, which a dense model does not have).
+    With `caches`, the new K/V are committed into them in place and the
+    same dicts come back.
+    """
+    check_supported(cfg)
+    x = _embed(params, cfg, tokens)
+    b, t, _ = x.shape
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, t)
+    new_caches: Dict[str, Any] = {}
+    for i, st in enumerate(cfg.stages):
+        stage_cache = None if caches is None else caches[f"stage{i}"]
+        x, nc = _stage_forward(params["stages"][f"stage{i}"], cfg, st, x,
+                               positions, stage_cache, impl)
+        if nc is not None:
+            new_caches[f"stage{i}"] = nc
+    return _head(params, cfg, x), (new_caches or None), 0.0
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                lengths: torch.Tensor,
+                caches: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step: tokens (B, 1), lengths (B,) current cache lengths.
+    Returns (logits (B, 1, V), new_caches)."""
+    positions = lengths[:, None].to(torch.int32)
+    logits, new_caches, _ = forward(params, cfg, tokens, positions=positions,
+                                    caches=caches, impl="xla")
+    return logits, new_caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                device=None) -> Dict[str, Any]:
+    """Stacked cache dicts matching the stage structure, on `device`
+    (None: the card)."""
+    dev = resolve_device(device)
+    dt = dtype or cfg.dtype
+    caches: Dict[str, Any] = {}
+    for i, st in enumerate(cfg.stages):
+        sub: Dict[str, Any] = {}
+        for j, spec in enumerate(st.block):
+            kv = L.init_kv_cache(cfg, spec, batch * st.repeats, max_len, dt,
+                                 dev)
+            sub[f"sub{j}"] = {"kv": {
+                name: a.reshape((st.repeats, batch) + a.shape[1:])
+                for name, a in kv.items()}}
+        caches[f"stage{i}"] = sub
+    return caches

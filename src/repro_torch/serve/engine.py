@@ -1,0 +1,320 @@
+"""Continuous-batching serving engine with a Balanced-PANDAS request router
+(counterpart of `repro.serve.engine`).
+
+Cluster model (the paper's data center, one level up the stack):
+  * R replica groups ("servers"), grouped into pods ("racks");
+  * every request carries a prefix id whose KV/prompt artifacts are resident
+    on 3 replicas, placed by rendezvous hashing (the uniform placement) —
+    its *local* replicas; same-pod replicas are *rack-local*, the rest
+    *remote*;
+  * the router assigns each incoming request to a replica by weighted
+    workload over estimated service rates; rates are measured online per
+    (replica, tier) with the EWMA estimator, so a slow replica sheds load
+    without any configuration.
+
+The engine runs the model: per-replica prefill (bucketed, right-padded
+prompts) through the hand-written flash-attention kernel
+(``impl="pallas"``: the CUDA kernel on the card, its plain version on the
+CPU), and batched decode steps over slotted KV caches with per-slot
+lengths.  Any router registered in `core/policy.py` is selectable by name
+(`EngineConfig.scheduler`).  All replicas share one parameter tree.
+
+Ported so far: scenario None/"static" (every slowdown 1.0), placement
+None/"uniform", replication None/"fixed", no control plane and no event
+tracer.  The other settings raise `NotImplementedError` naming their
+ROADMAP Queue 1 item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.cluster import tier_of
+from repro_torch.core.estimator import EwmaRateEstimator
+from repro_torch.core.locality import Topology
+from repro_torch.core.policy import make_router
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.placement import make_placement
+from repro_torch.telemetry import percentiles_from_hist
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (T,) int32
+    max_new_tokens: int
+    prefix_id: int = 0
+    arrival: float = 0.0
+    # filled by the engine
+    replica: int = -1
+    tier: int = -1
+    generated: Optional[List[int]] = None
+    finish_time: float = 0.0
+    start_time: float = 0.0
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    num_replicas: int = 4
+    replicas_per_pod: int = 2
+    slots_per_replica: int = 4
+    max_len: int = 256
+    prefill_buckets: Sequence[int] = (32, 64, 128)
+    scheduler: str = "balanced_pandas"
+    # prior service rates (requests/step) per tier; measured online
+    rate_local: float = 1.0
+    rate_rack: float = 0.7
+    rate_remote: float = 0.4
+    # K-tier overrides: a full `locality.Topology` for the replica fleet
+    # (num_replicas/replicas_per_pod are then derived from it) and a (K,)
+    # tier-rate prior replacing the three rate_* fields.
+    topology: Optional[Topology] = None
+    tier_rates: Optional[Sequence[float]] = None
+    seed: int = 0
+    # The reference's seams, kept with their defaults; the port supports
+    # only these defaults so far (see `_check_supported`), under which
+    # `scenario_horizon`, `rebalance_every` and `num_prefixes` do nothing.
+    scenario: object = None
+    scenario_horizon: int = 400
+    placement: object = None
+    rebalance_every: int = 0
+    replication: object = None
+    num_prefixes: int = 64
+    tracer: object = None
+    control: object = None
+    # host-side sojourn histogram (submit -> finish, engine steps), read
+    # by `sojourn_percentiles()`
+    sojourn_hist_bins: int = 512
+    sojourn_hist_max: float = 512.0
+
+
+def _check_supported(ecfg: EngineConfig) -> None:
+    """Raise for a seam the port has not ported yet."""
+    unported = (
+        ("scenario", ecfg.scenario not in (None, "static"), 7),
+        ("placement", ecfg.placement not in (None, "uniform"), 8),
+        ("replication", ecfg.replication not in (None, "fixed"), 9),
+        ("tracer", ecfg.tracer is not None, 10),
+        ("control", ecfg.control is not None, 11),
+    )
+    for name, bad, item in unported:
+        if bad:
+            raise NotImplementedError(
+                f"EngineConfig.{name}={getattr(ecfg, name)!r} is not "
+                f"ported yet (ROADMAP Queue 1 item {item})")
+
+
+class Replica:
+    """One replica group: slotted KV caches, eager prefill and decode."""
+
+    def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
+                 device: torch.device):
+        self.cfg = cfg
+        self.params = params          # shared by every replica, not copied
+        self.ecfg = ecfg
+        self.device = device
+        b = ecfg.slots_per_replica
+        self.caches = T.init_caches(cfg, b, ecfg.max_len, device=device)
+        self.lengths = np.zeros(b, np.int64)
+        self.slot_req: List[Optional[Request]] = [None] * b
+
+    def free_slots(self) -> int:
+        return sum(r is None for r in self.slot_req)
+
+    def admit(self, req: Request) -> None:
+        slot = self.slot_req.index(None)
+        self.slot_req[slot] = req
+        t = min(len(req.prompt), self.ecfg.max_len - req.max_new_tokens - 1)
+        bucket = next((b for b in self.ecfg.prefill_buckets if b >= t),
+                      self.ecfg.prefill_buckets[-1])
+        t = min(t, bucket)
+        prompt = np.zeros(bucket, np.int32)
+        prompt[:t] = req.prompt[-t:]
+        # Right-padded: pad positions are negative -> committed into
+        # invalid (-marked) ring slots; real rows never see pad keys.
+        pos = np.where(np.arange(bucket) < t, np.arange(bucket),
+                       -(np.arange(bucket) - t + 1)).astype(np.int32)
+        # The prefill goes through the hand-written attention kernel
+        # (impl="pallas"), where the reference's engine takes its XLA
+        # path: the real rows agree (ROADMAP Queue 3).
+        dev = self.device
+        caches1 = T.init_caches(self.cfg, 1, self.ecfg.max_len, device=dev)
+        logits, sub, _ = T.forward(
+            self.params, self.cfg, torch.as_tensor(prompt[None], device=dev),
+            positions=torch.as_tensor(pos[None], device=dev), caches=caches1,
+            impl="pallas")
+        # merge the freshly prefilled rows into this slot
+        for i, stage in sub.items():
+            for j, entry in stage.items():
+                for name, one in entry["kv"].items():
+                    self.caches[i][j]["kv"][name][:, slot:slot + 1] = one
+        self.lengths[slot] = t
+        req.generated = [int(torch.argmax(logits[0, t - 1]))]
+        req.start_time = time.monotonic()
+
+    def decode_once(self) -> List[Request]:
+        """One batched decode step; returns the requests that finished."""
+        finished: List[Request] = []
+        if all(r is None for r in self.slot_req):
+            return finished
+        tokens = np.zeros((len(self.slot_req), 1), np.int32)
+        for i, r in enumerate(self.slot_req):
+            if r is not None and r.generated:
+                tokens[i, 0] = r.generated[-1]
+        logits, self.caches = T.decode_step(
+            self.params, self.cfg, torch.as_tensor(tokens, device=self.device),
+            torch.as_tensor(self.lengths, dtype=torch.int32,
+                            device=self.device), self.caches)
+        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            self.lengths[i] += 1
+            r.generated.append(int(nxt[i]))
+            if (len(r.generated) > r.max_new_tokens
+                    or self.lengths[i] >= self.ecfg.max_len - 1):
+                r.finish_time = time.monotonic()
+                finished.append(r)
+                self.slot_req[i] = None
+                self.lengths[i] = 0
+        return finished
+
+
+class ServingEngine:
+    """`device=None` means the card (and raises without one); the
+    parameter tree must already live on that device."""
+
+    def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
+                 slow_replicas: Optional[Dict[int, float]] = None,
+                 device=None):
+        _check_supported(ecfg)
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"the parameters live on "
+                             f"{params['embed'].device}, the engine runs "
+                             f"on {self.device}")
+        self.cfg, self.ecfg = cfg, ecfg
+        self.spec = ecfg.topology if ecfg.topology is not None else \
+            Topology(ecfg.num_replicas, ecfg.replicas_per_pod)
+        n_rep = self.spec.num_servers
+        prior = np.asarray(
+            ecfg.tier_rates if ecfg.tier_rates is not None
+            else (ecfg.rate_local, ecfg.rate_rack, ecfg.rate_remote),
+            np.float32)
+        if prior.shape != (self.spec.num_tiers,):
+            raise ValueError(f"engine prior has {prior.size} tier rates but "
+                             f"the fleet has {self.spec.num_tiers} tiers")
+        self.estimator = EwmaRateEstimator(n_rep, prior)
+        self.router = make_router(ecfg.scheduler, self.spec, prior,
+                                  estimator=self.estimator, seed=ecfg.seed)
+        self.placement = make_placement(ecfg.placement)
+        self.replicas = [Replica(cfg, params, ecfg, self.device)
+                         for _ in range(n_rep)]
+        self.queue: deque = deque()            # not-yet-routed arrivals
+        self.waiting: List[deque] = [deque()   # routed, awaiting a slot
+                                     for _ in range(n_rep)]
+        self.pending: deque = deque()          # deferred-assignment (global)
+        self.slow = slow_replicas or {}
+        if ecfg.sojourn_hist_bins < 1 or ecfg.sojourn_hist_max <= 0:
+            raise ValueError("sojourn_hist_bins must be >= 1 and "
+                             "sojourn_hist_max > 0")
+        self._soj_width = float(ecfg.sojourn_hist_max) / ecfg.sojourn_hist_bins
+        self.sojourn_hist = np.zeros(ecfg.sojourn_hist_bins + 1, np.int64)
+        self.completed = 0
+        self.steps = 0
+        self.assign_tiers = {t: 0 for t in range(self.spec.num_tiers)}
+        self.submitted = 0
+
+    def submit(self, req: Request) -> None:
+        req.arrival = time.monotonic()
+        req._submit_step = self.steps  # type: ignore[attr-defined]
+        self.submitted += 1
+        self.queue.append(req)
+
+    @property
+    def in_system(self) -> int:
+        """Submitted-but-unfinished requests (queued, waiting, decoding)."""
+        return self.submitted - self.completed
+
+    def _note_finished(self, finished: List[Request]) -> None:
+        """Sojourn accounting (submit -> finish on the engine-step clock)."""
+        for r in finished:
+            self.completed += 1
+            b = min(int((self.steps - r._submit_step) / self._soj_width),
+                    len(self.sojourn_hist) - 1)
+            self.sojourn_hist[b] += 1
+
+    def sojourn_percentiles(self, qs=(0.5, 0.95, 0.99)) -> np.ndarray:
+        """Sojourn quantiles (engine steps) from the host histogram:
+        upper-bin-edge estimates (NaN before the first completion, inf
+        from the overflow bin)."""
+        return percentiles_from_hist(self.sojourn_hist, self._soj_width, qs)
+
+    # -- scheduling ----------------------------------------------------------
+    def _route_arrivals(self) -> None:
+        while self.queue:
+            req = self.queue.popleft()
+            locs = self.placement.replicas(self.spec, req.prefix_id, 3,
+                                           self.ecfg.seed)
+            req._locs = locs  # type: ignore[attr-defined]
+            decision = self.router.route(locs)
+            if decision.deferred:
+                self.pending.append(req)  # assigned at claim time
+            else:
+                req.replica = decision.worker
+                self.waiting[decision.worker].append(req)
+
+    def _admit(self) -> None:
+        for i, rep in enumerate(self.replicas):
+            while rep.free_slots():
+                claim = self.router.claim(i)
+                if claim is None:
+                    break
+                # claim.source names the queue the task came from: a
+                # replica's routed queue, or the global deferred queue (-1).
+                src = self.pending if claim.source < 0 \
+                    else self.waiting[claim.source]
+                req = src.popleft()
+                req.replica = i
+                req.tier = tier_of(self.spec, req._locs, req.replica)
+                self.assign_tiers[req.tier] += 1
+                t0 = time.monotonic()
+                rep.admit(req)
+                # wall clock of the prefill (it ends in a host read of the
+                # first token), scaled by a configured slowdown
+                elapsed = (time.monotonic() - t0) * self.slow.get(i, 1.0)
+                self.router.on_complete(req.replica, req.tier,
+                                        max(elapsed, 1e-4))
+
+    # -- execution -----------------------------------------------------------
+    def step(self) -> None:
+        """One engine tick: route arrivals, admit into free slots, one decode
+        step on every replica."""
+        self._route_arrivals()
+        self._admit()
+        for rep in self.replicas:
+            self._note_finished(rep.decode_once())
+        self.steps += 1
+
+    def run_until_drained(self, all_requests: Sequence[Request],
+                          max_steps: int = 10_000) -> List[Request]:
+        for r in all_requests:
+            self.submit(r)
+        outstanding = list(all_requests)
+        while any(r.finish_time == 0.0 for r in outstanding):
+            self.step()
+            if self.steps > max_steps:
+                raise RuntimeError("engine did not drain")
+        return outstanding
+
+    @property
+    def queue_depths(self) -> np.ndarray:
+        return self.router.queue_depths()

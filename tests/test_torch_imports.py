@@ -13,6 +13,10 @@ import torch
 import repro_torch
 from repro_torch.core import locality as loc, robustness as rb
 from repro_torch.core import simulator as sim
+from repro_torch.configs import registry
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import params as P, transformer as T
+from repro_torch.serve.engine import EngineConfig, ServingEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,7 +30,12 @@ def test_port_imports_neither_jax_nor_reference():
     mods = _port_modules()
     for name in ("kernels.slot_step", "kernels.wwl_route", "kernels.maxweight",
                  "core.jsq_maxweight", "core.priority", "core.fifo",
-                 "core.pandas_po2", "core.robustness", "core.claiming"):
+                 "core.pandas_po2", "core.robustness", "core.claiming",
+                 "kernels.flash_attention", "models.config", "models.params",
+                 "models.layers", "models.transformer", "configs.registry",
+                 "configs.chatglm3_6b", "configs.gemma2_2b", "core.cluster",
+                 "core.estimator", "placement.policies", "telemetry.recorder",
+                 "serve.engine", "launch.serve"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -62,3 +71,14 @@ def test_default_device_is_the_card():
     study = rb.StudyConfig(sim=cfg, loads=(0.5,), eps_grid=(), seeds=(0,))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rb.run_study(study, algos=("priority",))
+    # the serving slice: parameters, caches, the engine and its launcher
+    mcfg = registry.get_smoke_config("chatglm3_6b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        P.init_params(mcfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_caches(mcfg, 1, 16)
+    prm = P.init_params(mcfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(mcfg, prm, EngineConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main([])

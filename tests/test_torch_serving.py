@@ -1,0 +1,217 @@
+"""The port's serving path (`repro_torch.serve.engine` and the host
+routers, estimator, placement and histogram it uses) against the JAX
+reference on the CPU.
+
+Routers and the estimator are numpy on both sides, so under one seed and
+one scripted sequence of route/claim/on_complete calls they must make
+identical decisions and estimates.  The engine's routing depends on wall
+clock (the observed prefill time feeds the EWMA estimator, in the
+reference too), so the engines are compared on what does not: the tokens
+each request generates.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as rregistry
+from repro.core import estimator as rest, locality as rloc
+from repro.core import policy as rpol
+from repro.core import cluster as rcluster
+from repro.models import params as RP
+from repro.placement import policies as rplace
+from repro.serve import engine as rengine
+from repro.telemetry import recorder as rrec
+from repro_torch.configs import registry
+from repro_torch.core import cluster, estimator, locality as loc, policy
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import params as P
+from repro_torch.placement import policies as place
+from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
+from repro_torch.telemetry import percentiles_from_hist
+from _torch_port import single_torch_thread  # noqa: F401
+
+ROUTERS = ("balanced_pandas", "pandas_po2", "jsq_maxweight", "fifo")
+TOPOS = {"k3": (8, 4), "k4": (16, (2, 8))}
+PRIORS = {"k3": (1.0, 0.7, 0.4), "k4": (1.0, 0.8, 0.6, 0.4)}
+
+
+def _decision(d):
+    return None if d is None else tuple(dataclasses.astuple(d))
+
+
+@pytest.mark.parametrize("topo", sorted(TOPOS))
+@pytest.mark.parametrize("name", ROUTERS)
+def test_routers_make_the_reference_decisions(name, topo):
+    m, groups = TOPOS[topo]
+    prior = np.asarray(PRIORS[topo], np.float32)
+    ref_est = rest.EwmaRateEstimator(m, prior)
+    est = estimator.EwmaRateEstimator(m, prior)
+    ref = rpol.make_router(name, rloc.Topology(m, groups), prior,
+                           estimator=ref_est, seed=3)
+    port = policy.make_router(name, loc.Topology(m, groups), prior,
+                              estimator=est, seed=3)
+    script = np.random.default_rng(11)
+    k = prior.size
+    for _ in range(400):
+        op = script.integers(0, 3)
+        if op == 0:
+            locs = sorted(script.choice(m, 3, replace=False).tolist())
+            assert _decision(port.route(locs)) == _decision(ref.route(locs))
+        elif op == 1:
+            w = int(script.integers(0, m))
+            assert _decision(port.claim(w)) == _decision(ref.claim(w))
+        else:
+            args = (int(script.integers(0, m)), int(script.integers(0, k)),
+                    float(script.exponential(0.5)))
+            port.on_complete(*args)
+            ref.on_complete(*args)
+    np.testing.assert_array_equal(port.queue_depths(), ref.queue_depths())
+    np.testing.assert_array_equal(est.rates, ref_est.rates)
+    np.testing.assert_array_equal(est.sample_counts, ref_est.sample_counts)
+
+
+def test_router_registry_and_tiers():
+    assert policy.available_routers() == tuple(sorted(ROUTERS))
+    with pytest.raises(ValueError, match="unknown router"):
+        policy.make_router("slo_pandas", loc.Topology(4, 2), (1, 0.7, 0.4))
+    spec, rspec = loc.Topology(16, (2, 8)), rloc.Topology(16, (2, 8))
+    assert spec.num_workers == rspec.num_workers == 16
+    rng = np.random.default_rng(0)
+    for _ in range(20):
+        locs = sorted(rng.choice(16, 3, replace=False).tolist())
+        np.testing.assert_array_equal(cluster.worker_tiers(spec, locs),
+                                      rcluster.worker_tiers(rspec, locs))
+        w = int(rng.integers(0, 16))
+        np.testing.assert_array_equal(cluster.pair_worker_tiers(spec, w),
+                                      rcluster.pair_worker_tiers(rspec, w))
+        assert cluster.tier_of(spec, locs, w) == rcluster.tier_of(rspec,
+                                                                  locs, w)
+
+
+def test_estimator_matches_reference():
+    prior = np.asarray((1.0, 0.7, 0.4), np.float32)
+    ref, port = (rest.EwmaRateEstimator(6, prior),
+                 estimator.EwmaRateEstimator(6, prior))
+    rng = np.random.default_rng(1)
+    for _ in range(300):
+        args = (int(rng.integers(0, 6)), int(rng.integers(0, 3)),
+                float(rng.exponential(1.0)))
+        ref.observe(*args)
+        port.observe(*args)
+        sub = sorted(rng.choice(6, 2, replace=False).tolist())
+        np.testing.assert_array_equal(port.rates_for(sub), ref.rates_for(sub))
+    np.testing.assert_array_equal(port.rates, ref.rates)
+
+
+def test_chunk_replicas_match_reference():
+    for hosts, seed in ((4, 0), (16, 1), (10008, 0)):
+        for cid in range(200 if hosts < 1000 else 5):
+            assert place.chunk_replicas(cid, hosts, 3, seed) == \
+                rplace.chunk_replicas(cid, hosts, 3, seed)
+    uniform = place.make_placement(None)
+    assert uniform.replicas(loc.Topology(4, 2), 7, 3, 0) == \
+        rplace.UniformPlacement().replicas(rloc.Topology(4, 2), 7, 3, 0)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        place.make_placement("hdfs")
+
+
+def test_percentiles_from_hist_matches_reference():
+    rng = np.random.default_rng(2)
+    for counts in (rng.integers(0, 9, 65), np.zeros(9), np.r_[0, 0, 5]):
+        np.testing.assert_array_equal(
+            percentiles_from_hist(counts, 0.5, (0.5, 0.95, 0.99)),
+            rrec.percentiles_from_hist(counts, 0.5, (0.5, 0.95, 0.99)))
+
+
+# ----------------------------------------------------------------- engine --
+
+ARCH = "chatglm3_6b"
+ECFG = dict(num_replicas=4, replicas_per_pod=2, slots_per_replica=2,
+            max_len=64, prefill_buckets=(16,))
+
+
+@pytest.fixture(scope="module")
+def model():
+    """tests/test_serving_engine.py's model: the chatglm3-6b smoke config
+    with PRNGKey(0) weights, on both sides."""
+    rcfg = rregistry.get_smoke_config(ARCH)
+    rprm = RP.init_params(rcfg, jax.random.PRNGKey(0))
+    prm = P.from_reference(jax.tree.map(np.asarray, rprm), device="cpu")
+    return rcfg, rprm, registry.get_smoke_config(ARCH), prm
+
+
+def _requests(cls, cfg, n, length, new, seed, prefix=lambda i: i):
+    rng = np.random.default_rng(seed)
+    return [cls(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                           length).astype(np.int32),
+                max_new_tokens=new, prefix_id=prefix(i)) for i in range(n)]
+
+
+def test_engine_generates_the_reference_tokens(model):
+    """The prompts and engine of
+    tests/test_serving_engine.py::test_engine_matches_direct_greedy: the
+    port (prefill through the kernel's plain version) and the reference
+    (its XLA prefill) generate the same tokens, request by request."""
+    rcfg, rprm, cfg, prm = model
+    ref = rengine.ServingEngine(rcfg, rprm, rengine.EngineConfig(**ECFG))
+    want = ref.run_until_drained(_requests(rengine.Request, rcfg, 6, 10, 4, 1),
+                                 max_steps=100)
+    eng = ServingEngine(cfg, prm, EngineConfig(**ECFG), device="cpu")
+    got = eng.run_until_drained(_requests(Request, cfg, 6, 10, 4, 1),
+                                max_steps=100)
+    for r, w in zip(got, want):
+        assert len(r.generated) == 5
+        assert r.generated == w.generated, f"request {r.rid}"
+    assert sum(eng.assign_tiers.values()) == 6
+    assert eng.in_system == 0 and eng.completed == 6
+    p50, p95, p99 = eng.sojourn_percentiles()
+    assert 0 < p50 <= p95 <= p99 < np.inf
+
+
+@pytest.mark.parametrize("scheduler", ROUTERS)
+def test_all_schedulers_drain(model, scheduler):
+    _, _, cfg, prm = model
+    ecfg = EngineConfig(**dict(ECFG, num_replicas=2, scheduler=scheduler))
+    reqs = _requests(Request, cfg, 6, 6, 2, 3, prefix=lambda i: i % 3)
+    out = ServingEngine(cfg, prm, ecfg, device="cpu").run_until_drained(
+        reqs, max_steps=200)
+    assert all(r.finish_time > 0 and len(r.generated) == 3 for r in out)
+
+
+def test_oversubscribed_engine_drains_on_every_replica(model):
+    _, _, cfg, prm = model
+    reqs = _requests(Request, cfg, 24, 8, 3, 2, prefix=lambda i: i % 4)
+    eng = ServingEngine(cfg, prm, EngineConfig(**ECFG), device="cpu")
+    out = eng.run_until_drained(reqs, max_steps=400)
+    assert all(r.finish_time > 0 for r in out)
+    assert len({r.replica for r in out}) == ECFG["num_replicas"]
+    assert eng.queue_depths.sum() == 0
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("scenario", "stragglers", 7), ("placement", "hdfs", 8),
+    ("replication", "popularity", 9), ("tracer", object(), 10),
+    ("control", "admission", 11)])
+def test_unported_engine_settings_raise(model, field, value, item):
+    _, _, cfg, prm = model
+    ecfg = EngineConfig(**dict(ECFG, **{field: value}))
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        ServingEngine(cfg, prm, ecfg, device="cpu")
+
+
+def test_engine_defaults_match_reference():
+    ours = dataclasses.asdict(EngineConfig())
+    theirs = dataclasses.asdict(rengine.EngineConfig())
+    assert ours == theirs
+
+
+def test_launcher_on_cpu(capsys):
+    launch_serve.main(["--requests", "4", "--scheduler", "fifo"],
+                      device="cpu")
+    line = capsys.readouterr().out.strip()
+    assert line.startswith("scheduler=fifo drained 4 requests in ")
+    assert "tier mix {0:" in line
