@@ -53,9 +53,25 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each fatal on failure:
    largest logit), each forward free of host syncs (sync debug mode
    "error"); prefill ms, decode tokens/s and the
    device's busy share over a profiled window of decode steps;
+3c. (run after 9) ssd: the CUDA SSD scan against its plain version
+   `ref.ssd` at the 4 cases of tests/test_kernels_ssd.py in float32
+   (atol/rtol 3e-4) and bf16 (3e-2, and every row within 1% of its
+   largest value), two calls threaded through `init_state` against one,
+   then in bf16 at mamba2-1.3b's prefill shape of every bucket (B 1,
+   T 32/64/128, H 64, P 64, N 128) and at T = 8192 (64 chunks of 128),
+   each timed beside its plain version, with its bound;
+11. the Mamba serving slice: mamba2-1.3b at full width (48 layers,
+   d_model 2048, bf16, random weights from a seed) through the same
+   engine, defaults and 16 requests as phase 9: ssd = 48 x prefills,
+   flash_attention 0, every logits tensor finite, every request drained
+   with 17 tokens; one prefill through impl="pallas_ssd" against
+   impl="xla" (last real row within `MAMBA_LOGIT_TOL` of its largest
+   logit in bf16, and within `MAMBA_F32_LOGIT_TOL` for the same weights
+   in float32), each forward free of host syncs; prefill ms, decode
+   tokens/s and the device's busy share over a profiled decode window;
 10. the launcher: `python -m repro_torch.launch.serve` with its
-   defaults (the smoke config, on the card), counts set to 0 before and
-   read after.
+   defaults (the smoke config, on the card), then with `--arch
+   mamba2_13b`, counts set to 0 before and read after each.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -64,6 +80,7 @@ Exits non-zero, printing no result, when there is no card.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -726,24 +743,25 @@ def _attn_bound(shape, causal, window, dtype):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def _attn_check(name, out, plain, dtype):
+def _attn_check(name, out, plain, dtype, kernel="flash_attention",
+                tols=ATTN_TOL):
     """(max |kernel - plain|, the worst row's share of its max |plain|);
-    raises beyond the dtype's tolerance, and for bf16 beyond
-    `BF16_ROW_REL` in any row."""
+    raises beyond the dtype's tolerance in `tols`, and for bf16 beyond
+    `BF16_ROW_REL` in any row (a row: the last axis)."""
     torch.cuda.synchronize()
     diff = (out.float() - plain.float()).abs()
     err = float(diff.max())
     row_rel = float((diff.amax(-1) / plain.float().abs().amax(-1)
                      .clamp_min(1e-30)).max())
-    tol = ATTN_TOL[dtype]
+    tol = tols[dtype]
     try:
         torch.testing.assert_close(out.float(), plain.float(), atol=tol,
                                    rtol=tol)
     except AssertionError as exc:
-        raise AssertionError(f"flash_attention disagrees with its plain "
+        raise AssertionError(f"{kernel} disagrees with its plain "
                              f"version at {name}: {exc}") from None
     if dtype == torch.bfloat16 and not row_rel <= BF16_ROW_REL:
-        raise AssertionError(f"flash_attention disagrees with its plain "
+        raise AssertionError(f"{kernel} disagrees with its plain "
                              f"version at {name}: a row is off by {row_rel}"
                              f" of its largest value, beyond {BF16_ROW_REL}")
     return err, row_rel
@@ -831,6 +849,145 @@ def phase_attention(dev):
     return rows, max([max_err] + [r["max_abs_err"] for r in rows.values()])
 
 
+# ---------------------------------------------------------------------------
+# ssd and the Mamba serving slice (mamba2-1.3b at full width)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels_ssd.py::CASES: b, t, h, p, n
+SSD_CASES = ((1, 128, 2, 32, 16), (2, 200, 3, 16, 32), (1, 64, 1, 8, 8),
+             (1, 512, 4, 64, 64))
+SSD_TOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
+SSD_CHUNK = 128   # the reference's chunk length at full width
+MAMBA_ARCH = "mamba2_13b"
+# kernel route vs plain route prefill of mamba2-1.3b, as SERVE_LOGIT_TOL
+# for chatglm3-6b.  In bf16 (the served model) sound runs read 0.050-
+# 0.064 of the largest logit, and so does the kernel's own plain version
+# against the plain route: 48 layers of bf16 rounding, beside which a
+# small kernel fault does not show; the limit is about twice that.  The
+# same weights in float32 read 6e-6 to 1.3e-5, and there a decay off by
+# 0.1% reads 0.0038: that limit is about 8x the sound readings
+# (PERF.md, PR 14).
+MAMBA_LOGIT_TOL = 0.12
+MAMBA_F32_LOGIT_TOL = 1e-4
+
+
+def _ssd_inputs(gen, shape, dtype, dev):
+    """x, a, b, c on the card: x ~ N(0, 1), a ~ -U[0.01, 0.2), b and c ~
+    0.3 N(0, 1) (tests/test_kernels_ssd.py's law), x, b, c in `dtype`."""
+    bsz, t, h, p, n = shape
+    x = torch.randn((bsz, t, h, p), generator=gen, device=dev).to(dtype)
+    a = -(torch.rand((bsz, t, h), generator=gen, device=dev) * 0.19 + 0.01)
+    b, c = ((torch.randn((bsz, t, n), generator=gen, device=dev) * 0.3)
+            .to(dtype) for _ in range(2))
+    return x, a, b, c
+
+
+def _ssd_bound(shape, dtype):
+    """(bound_ms, bound_by, bytes, flops) of the SSD scan on these
+    inputs: x, a, b, c and h0 read once, y and hT written once, over the
+    HBM rate; against the least work, the chunked (SSD) form with chunks
+    of L = min(128, T): per (batch, chunk) C B^T, 2 L^2 N flops shared by
+    the heads; per (batch, chunk, head) scores X (2 L^2 P), C state^T
+    (2 L P N) and the state update X^T (w B) (2 L P N); elementwise decay
+    work not counted; over the dtype's peak rate (bf16 tensor cores,
+    float32 CUDA cores)."""
+    bsz, t, h, p, n = shape
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (esize * (2 * bsz * t * h * p + 2 * bsz * t * n)
+              + 4 * bsz * t * h + 2 * 4 * bsz * h * p * n)
+    lt = min(SSD_CHUNK, t)
+    chunks = -(-t // lt)
+    flops = bsz * chunks * (2 * lt * lt * n
+                            + h * (2 * lt * lt * p + 4 * lt * p * n))
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def _ssd_check(name, got, want, dtype):
+    """`_attn_check` on y (rows: P) and on the final state (float32)."""
+    err, rel = _attn_check(name, got[0], want[0], dtype, "ssd", SSD_TOL)
+    h_err, _ = _attn_check(name + " final state", got[1], want[1],
+                           torch.float32, "ssd", SSD_TOL)
+    return max(err, h_err), rel
+
+
+def ssd_shapes():
+    """(name, (B, T, H, P, N), reps, plain reps) of the timed bf16
+    shapes: mamba2-1.3b's prefill at every bucket of `EngineConfig()`
+    (the shapes the serving path gives the kernel; the largest is the
+    kernels line's row), then a long prefill of 64 chunks."""
+    from repro_torch.configs import registry
+    from repro_torch.serve.engine import EngineConfig
+
+    cfg = registry.get_config(MAMBA_ARCH)
+    ssm = cfg.ssm
+    heads = (ssm.num_heads(cfg.d_model), ssm.head_dim, ssm.d_state)
+    return ([(f"prefill_{t}", (1, t) + heads, 50, 3)
+             for t in EngineConfig().prefill_buckets]
+            + [("long", (1, LONG_T) + heads, 5, 1)])
+
+
+def phase_ssd(dev):
+    """ssd against its plain version at the SSD test cases (float32 and
+    bf16) and the init-state split, then in bf16 at the slice's prefill
+    shape of every bucket and at T = 8192, timed beside the plain
+    version, with its bound."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(dev).manual_seed(0)
+    max_err = max_rel = 0.0
+    for case in SSD_CASES:
+        for dtype in SSD_TOL:
+            x, a, b, c = _ssd_inputs(gen, case, dtype, dev)
+            h0 = torch.randn((case[0],) + case[2:], generator=gen,
+                             device=dev) * 0.1
+            err, rel = _ssd_check(f"{case} {dtype}",
+                                  ops.ssd(x, a, b, c, init_state=h0),
+                                  ref.ssd(x, a, b, c, init_state=h0), dtype)
+            max_err = max(max_err, err)
+            if dtype == torch.bfloat16:
+                max_rel = max(max_rel, rel)
+    # two calls threaded through init_state equal one call
+    x, a, b, c = _ssd_inputs(gen, (1, 256, 2, 16, 16), torch.float32, dev)
+    y_full, h_full = ops.ssd(x, a, b, c)
+    y1, h1 = ops.ssd(x[:, :128], a[:, :128], b[:, :128], c[:, :128])
+    y2, h2 = ops.ssd(x[:, 128:], a[:, 128:], b[:, 128:], c[:, 128:],
+                     init_state=h1)
+    err, _ = _ssd_check("init-state split", (torch.cat([y1, y2], 1), h2),
+                        (y_full, h_full), torch.float32)
+    max_err = max(max_err, err)
+    print(f"ssd: {len(SSD_CASES)} test cases x (float32, bf16) and the "
+          f"init-state split within tolerance, max_abs_err {max_err:.3g}, "
+          f"bf16 worst row {max_rel:.3g} of its max (limit {BF16_ROW_REL})",
+          flush=True)
+    rows = {}
+    for name, shape, reps, plain_reps in ssd_shapes():
+        x, a, b, c = _ssd_inputs(gen, shape, torch.bfloat16, dev)
+        h0 = torch.zeros((shape[0],) + shape[2:], device=dev)
+        err, rel = _ssd_check(name, ops.ssd(x, a, b, c, init_state=h0),
+                              ref.ssd(x, a, b, c, init_state=h0),
+                              torch.bfloat16)
+        bound = _ssd_bound(shape, torch.bfloat16)
+        row = dict(shape=list(shape), dtype="bf16", max_abs_err=err,
+                   row_rel_err=rel,
+                   ms=_time_ms(lambda: ops.ssd(x, a, b, c, init_state=h0),
+                               reps),
+                   plain_ms=_time_ms(lambda: ref.ssd(x, a, b, c,
+                                                     init_state=h0),
+                                     plain_reps),
+                   library_ms=None,
+                   bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
+                   flops=bound[3])
+        row["gb_per_s"] = row["bytes"] / row["ms"] / 1e6
+        rows[name] = row
+        print(f"ssd {name}: {json.dumps(row)}", flush=True)
+        del x, a, b, c, h0
+        torch.cuda.empty_cache()
+    return rows, max([max_err] + [r["max_abs_err"] for r in rows.values()])
+
+
 def _profile_window(dev, fn, steps: int) -> dict:
     """The device's busy share over `steps` calls of `fn` under
     torch.profiler: kernel time over wall time, and the top kernels."""
@@ -857,23 +1014,53 @@ def _profile_window(dev, fn, steps: int) -> dict:
                                         for k in kern[:6]]}
 
 
-def phase_serving(dev):
-    """chatglm3-6b at full width through the engine's entry points."""
+# per served arch: the prefill's kernel route, its kernel, the limit of
+# the kernel-route vs plain-route prefill logits in the served dtype and
+# (None: not run) in float32
+SERVE_ROUTES = {
+    SERVE_ARCH: ("pallas", "flash_attention", SERVE_LOGIT_TOL, None),
+    MAMBA_ARCH: ("pallas_ssd", "ssd", MAMBA_LOGIT_TOL, MAMBA_F32_LOGIT_TOL)}
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+def _uncounted(cfg) -> int:
+    """Parameters of the model's tree that the reference's analytic
+    `param_count` leaves out: each Mamba layer's conv bias and the
+    embedding's vocab-padding rows (0 for chatglm3-6b)."""
+    ssm = cfg.ssm
+    conv_b = sum(st.repeats * (ssm.d_inner(cfg.d_model)
+                               + 2 * ssm.n_groups * ssm.d_state)
+                 for st in cfg.stages for sl in st.block
+                 if sl.kind == "mamba")
+    pad = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
+    return conv_b + pad * (1 if cfg.tie_embeddings else 2)
+
+
+def phase_serving(dev, arch=SERVE_ARCH):
+    """A model at full width through the engine's entry points: its
+    prefills through its kernel route (`SERVE_ROUTES`)."""
     from repro_torch.configs import registry
     from repro_torch.models import config as mconfig
     from repro_torch.models import params as P, transformer as T
     from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
 
-    cfg = registry.get_config(SERVE_ARCH)
+    impl, kernel, logit_tol, f32_tol = SERVE_ROUTES[arch]
+    cfg = registry.get_config(arch)
     t0 = time.perf_counter()
     params = P.init_params(cfg, torch.Generator(dev).manual_seed(0),
                            device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = P.count_params(params)
-    if n_params != mconfig.param_count(cfg):
-        raise AssertionError(f"{n_params} parameters, want "
-                             f"{mconfig.param_count(cfg)}")
+    want = mconfig.param_count(cfg) + _uncounted(cfg)
+    if n_params != want or _shapes(params) != _shapes(P.model_defs(cfg)):
+        raise AssertionError(f"{n_params} parameters, want {want} in the "
+                             f"shapes of `params.model_defs`")
     weight_gb = n_params * params["embed"].element_size() / 1e9
     print(f"serving {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {n_params} parameters, {weight_gb:.2f} GB "
@@ -888,14 +1075,15 @@ def phase_serving(dev):
             for i in range(SERVE_REQUESTS)]
 
     # every logits tensor of the run is checked on the card (no host
-    # read), and the prefills (impl="pallas" forwards) are counted
+    # read), and the prefills (forwards through the kernel route) are
+    # counted
     forward = T.forward
     finite = torch.ones((), dtype=torch.bool, device=dev)
     prefills = 0
 
     def checked(*args, **kwargs):
         nonlocal prefills
-        prefills += kwargs.get("impl") == "pallas"
+        prefills += kwargs.get("impl") == impl
         out = forward(*args, **kwargs)
         finite.logical_and_(torch.isfinite(out[0]).all())
         return out
@@ -909,8 +1097,8 @@ def phase_serving(dev):
         wall = time.perf_counter() - t0
     finally:
         T.forward = forward
-    launches = _check_counts("serving", {
-        "flash_attention": cfg.num_layers * prefills})
+    launches = _check_counts(f"{arch} serving", {
+        kernel: cfg.num_layers * prefills})
     if prefills != SERVE_REQUESTS:
         raise AssertionError(f"{prefills} prefills for {SERVE_REQUESTS} "
                              f"requests")
@@ -927,21 +1115,29 @@ def phase_serving(dev):
                tier_mix=eng.assign_tiers,
                sojourn_p50_p95_p99_steps=eng.sojourn_percentiles().tolist(),
                launches=launches)
-    print(f"serving run: {json.dumps(run)}", flush=True)
+    print(f"serving run {cfg.name}: {json.dumps(run)}", flush=True)
 
-    compare = prefill_compare(dev, cfg, params, ecfg, reqs[0].prompt)
-    if not compare["share"] <= SERVE_LOGIT_TOL:
-        raise AssertionError(f"kernel and plain prefill logits differ by "
-                             f"{compare['max_abs_diff']}, beyond "
-                             f"{SERVE_LOGIT_TOL} x {compare['max_abs_logit']}")
-    return launches, run, compare, decode_window(dev, eng, ecfg, reqs)
+    compare = prefill_compare(dev, cfg, params, ecfg, reqs[0].prompt, impl,
+                              logit_tol)
+    decode = decode_window(dev, eng, ecfg, reqs)
+    if f32_tol is not None:  # the same weights and prefill in float32
+        del eng, params
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = P.init_params(cfg32, torch.Generator(dev).manual_seed(0),
+                                 device=dev)
+        compare["float32"] = prefill_compare(dev, cfg32, params32, ecfg,
+                                             reqs[0].prompt, impl, f32_tol)
+    return launches, run, compare, decode
 
 
-def prefill_compare(dev, cfg, params, ecfg, prompt) -> dict:
+def prefill_compare(dev, cfg, params, ecfg, prompt, impl,
+                    logit_tol) -> dict:
     """One right-padded prefill of `prompt` through the kernel route
-    (impl="pallas") and the plain route (impl="xla"), each forward free
-    of host syncs: the last real row's max |logit difference| and its
-    share of the row's max |logit| (`share`), printed."""
+    (`impl`) and the plain route (impl="xla"), each forward free of host
+    syncs: the last real row's max |logit difference| and its share of
+    the row's max |logit| (`share`), printed; raises when the share is
+    beyond `logit_tol`."""
     from repro_torch.models import transformer as T
 
     t = len(prompt)
@@ -953,30 +1149,35 @@ def prefill_compare(dev, cfg, params, ecfg, prompt) -> dict:
     tok, pos = torch.as_tensor(tok, device=dev), torch.as_tensor(pos,
                                                                  device=dev)
     last, prefill_ms = {}, {}
-    for impl in ("pallas", "xla", "pallas", "xla"):
+    for route in (impl, "xla", impl, "xla"):
         caches = T.init_caches(cfg, 1, ecfg.max_len, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")  # no host sync inside
         try:
             logits, _, _ = T.forward(params, cfg, tok, positions=pos,
-                                     caches=caches, impl=impl)
+                                     caches=caches, impl=route)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        prefill_ms[impl] = (time.perf_counter() - t0) * 1e3  # second run
-        last[impl] = logits[0, t - 1]
-    diff = float((last["pallas"] - last["xla"]).abs().max())
+        prefill_ms[route] = (time.perf_counter() - t0) * 1e3  # second run
+        last[route] = logits[0, t - 1, :cfg.vocab_size]  # no pad rows
+    diff = float((last[impl] - last["xla"]).abs().max())
     scale = float(last["xla"].abs().max())
-    compare = dict(prompt_tokens=t, bucket=bucket, max_abs_diff=diff,
-                   max_abs_logit=scale, share=diff / scale,
-                   tolerance=SERVE_LOGIT_TOL * scale,
-                   margin=SERVE_LOGIT_TOL * scale - diff,
-                   same_argmax=bool(last["pallas"].argmax()
+    compare = dict(model=cfg.name, dtype=cfg.dtype, prompt_tokens=t,
+                   bucket=bucket,
+                   max_abs_diff=diff, max_abs_logit=scale,
+                   share=diff / scale, tolerance=logit_tol * scale,
+                   margin=logit_tol * scale - diff,
+                   same_argmax=bool(last[impl].argmax()
                                     == last["xla"].argmax()),
                    prefill_ms=prefill_ms)
     print(f"prefill kernel route vs plain route: {json.dumps(compare)}",
           flush=True)
+    if not compare["share"] <= logit_tol:
+        raise AssertionError(f"kernel and plain prefill logits of "
+                             f"{cfg.name} ({cfg.dtype}) differ by {diff}, "
+                             f"beyond {logit_tol} x {scale}")
     return compare
 
 
@@ -1014,15 +1215,23 @@ def decode_window(dev, eng, ecfg, reqs) -> dict:
 
 
 def phase_launcher(dev):
-    """`python -m repro_torch.launch.serve` with its defaults: the smoke
-    config on the card, counts set to 0 before and read after."""
+    """`python -m repro_torch.launch.serve` with its defaults (the smoke
+    config on the card), then with `--arch mamba2_13b`, counts set to 0
+    before and read after each."""
     from repro_torch.configs import registry
     from repro_torch.launch import serve
 
     _zero_counts()
     serve.main([])
     layers = registry.get_smoke_config("chatglm3_6b").num_layers
-    return _check_counts("launcher", {"flash_attention": layers * 16})
+    got = {SERVE_ARCH: _check_counts("launcher",
+                                     {"flash_attention": layers * 16})}
+    _zero_counts()
+    serve.main(["--arch", MAMBA_ARCH])
+    layers = registry.get_smoke_config(MAMBA_ARCH).num_layers
+    got[MAMBA_ARCH] = _check_counts("launcher --arch mamba2_13b",
+                                    {"ssd": layers * 16})
+    return got
 
 
 def main() -> int:
@@ -1054,6 +1263,10 @@ def main() -> int:
     phase_dense_loop(dev)
     attn_rows, attn_err = phase_attention(dev)
     serve_launches, _, _, _ = phase_serving(dev)
+    torch.cuda.empty_cache()
+    ssd_rows, ssd_err = phase_ssd(dev)
+    mamba_launches, _, _, _ = phase_serving(dev, MAMBA_ARCH)
+    torch.cuda.empty_cache()
     phase_launcher(dev)
 
     main_row = rows[1]  # the slice's Topology(10008, 6)
@@ -1098,6 +1311,20 @@ def main() -> int:
         "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],
         "library_ms": main_attn["library_ms"],
         "long": {k: attn_rows["long"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}})
+    main_ssd = ssd_rows[max((k for k in ssd_rows if k != "long"),
+                            key=lambda k: ssd_rows[k]["shape"][1])]
+    entries.append({
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:29",
+        "launches": mamba_launches["ssd"],
+        "max_abs_err": ssd_err,
+        "ms": main_ssd["ms"], "plain_ms": main_ssd["plain_ms"],
+        "bound_ms": main_ssd["bound_ms"], "bound_by": main_ssd["bound_by"],
+        "library_ms": None,
+        "long": {k: ssd_rows["long"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}})
     print(json.dumps({"kernels": entries}), flush=True)

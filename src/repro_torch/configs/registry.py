@@ -3,9 +3,10 @@ exact public configs, selectable via ``--arch <id>``.
 
 Each ported ``<id>.py`` module defines ``CONFIG`` (exact) and
 ``smoke_config()`` (a reduced same-family config for CPU tests).  The
-port serves the dense attention-only architectures; the other ids of the
-reference raise `NotImplementedError` until their layers are ported
-(MoE, Mamba, encoder-decoder, vision: ROADMAP Queue 1 item 13).
+port serves the dense attention-only architectures and the Mamba-2 one;
+the other ids of the reference raise `NotImplementedError` until their
+layers are ported (MoE, encoder-decoder, vision: ROADMAP Queue 1 item
+13).
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ ARCH_IDS = (
     "mamba2_13b",
 )
 
-# The ids whose layers the port has: dense, attention only.
-PORTED_IDS = ("chatglm3_6b", "gemma3_1b", "codeqwen15_7b", "gemma2_2b")
+# The ids whose layers the port has: dense attention only, or Mamba-2 only.
+PORTED_IDS = ("chatglm3_6b", "gemma3_1b", "codeqwen15_7b", "gemma2_2b",
+              "mamba2_13b")
 
 # Canonical external names <-> module ids.
 ALIASES = {
@@ -60,6 +62,6 @@ def _module(arch: str):
     if arch not in PORTED_IDS:
         raise NotImplementedError(
             f"arch {arch!r} needs layers the port does not have yet (MoE, "
-            f"Mamba, encoder-decoder or vision: ROADMAP Queue 1 item 13); "
+            f"encoder-decoder or vision: ROADMAP Queue 1 item 13); "
             f"ported: {PORTED_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")

@@ -39,7 +39,8 @@ NVCC_FLAGS = (
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
 LAUNCHES: Dict[str, int] = {"fleet_route": 0, "wwl_route": 0,
-                            "maxweight_claim": 0, "flash_attention": 0}
+                            "maxweight_claim": 0, "flash_attention": 0,
+                            "ssd": 0}
 
 
 def check_arg(kernel: str, name: str, x: torch.Tensor, dtype: torch.dtype,

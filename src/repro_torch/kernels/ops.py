@@ -6,7 +6,8 @@ tensor launches the hand-written kernel or raises — there is no fallback
 from the card to the plain version.  `LAUNCHES` counts kernel launches,
 one key per kernel.  Depth 0 (K = 2) runs natively in every scheduling
 kernel: no padding and no dilated ancestor table.  `flash_attention`
-needs no padding either: the kernel masks its ragged tiles itself.
+needs no padding either: the kernel masks its ragged tiles itself, and
+neither does `ssd`: its kernel stops at T.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from repro_torch.kernels._build import LAUNCHES  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.maxweight import maxweight_claim_cuda
 from repro_torch.kernels.slot_step import fleet_route_cuda
+from repro_torch.kernels.ssd_scan import ssd_cuda
 from repro_torch.kernels.wwl_route import wwl_route_cuda
 
 
@@ -90,3 +92,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=causal, window=window,
                                 softcap=softcap, scale=scale)
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        init_state: torch.Tensor | None = None, *, block_t: int = 128):
+    """Mamba-2 SSD scan.  See `ref.ssd` for the semantics.
+
+    x: (B, T, H, P); a: (B, T, H) log-decay <= 0; b, c: (B, T, N) in x's
+    dtype; init_state: (B, H, P, N) or None (zeros).  Returns (y in x's
+    dtype, final state float32).  `block_t` is the reference's chunk
+    length (the Pallas kernel's `L`).  Neither version here splits by it:
+    the CUDA kernel walks the recurrence step by step inside each block,
+    staging 32 steps at a time in shared memory, and the plain version is
+    the sequential recurrence, which any split into chunks threads
+    through its state unchanged.  The results agree within tolerance
+    whatever the split (tests/test_torch_ssd.py).
+    """
+    del block_t  # no chunking on either route: see above
+    if not x.is_cuda:
+        return ref.ssd(x, a, b, c, init_state)
+    h0 = (torch.zeros((x.shape[0], x.shape[2], x.shape[3], b.shape[-1]),
+                      dtype=torch.float32, device=x.device)
+          if init_state is None else _f32(init_state))
+    return ssd_cuda(x.contiguous(), _f32(a), b.contiguous(), c.contiguous(),
+                    h0)

@@ -181,3 +181,30 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.where(mask, p, 0.0)          # all-masked rows: NaN -> 0
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
     return out.reshape(b, hq, tq, d).to(q.dtype)
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        init_state: torch.Tensor | None = None):
+    """Mamba-2 SSD (state-space dual) recurrence, sequential form.
+
+    x: (B, T, H, P) inputs per head (P = head dim); a: (B, T, H) per-step
+    log-decay (decay exp(a) in (0, 1]); b, c: (B, T, N) input and output
+    projections (N = state dim); init_state: (B, H, P, N) or None (zeros).
+
+    h_t = exp(a_t) h_{t-1} + x_t (outer) b_t;  y_t = h_t c_t, with the
+    state in float32.  Returns (y (B, T, H, P) in x's dtype, final state
+    (B, H, P, N) float32).
+    """
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device) if init_state is None
+             else init_state.to(torch.float32))
+    dec = torch.exp(a.to(torch.float32))
+    xf, bf, cf = (v.to(torch.float32) for v in (x, b, c))
+    ys = []
+    for i in range(t):
+        state = (state * dec[:, i, :, None, None]
+                 + xf[:, i, :, :, None] * bf[:, i, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, i]))
+    return torch.stack(ys, 1).to(x.dtype), state

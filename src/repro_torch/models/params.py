@@ -7,13 +7,14 @@ of tensors.  Two views:
 
   * `init_params`    — random tensors on the device, drawn with the
                        reference's rules (fan-in normal, embed x 0.02,
-                       ones, zeros); the generator differs from JAX's, so
-                       the values do too;
+                       ones, zeros, the Mamba a_log and dt_bias draws);
+                       the generator differs from JAX's, so the values
+                       do too;
   * `from_reference` — the JAX package's tree, handed over as numpy
                        arrays, as the port's tree (the tests use it so the
                        two models compute the same function).
 
-Only the dense attention layers are declared: MoE, Mamba, cross-attention
+Dense attention and Mamba-2 layers are declared: MoE, cross-attention
 and learned positions wait for their layers (ROADMAP Queue 1 item 13).
 """
 
@@ -34,7 +35,7 @@ from repro_torch.models.layers import torch_dtype
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"       # normal | zeros | ones | embed
+    init: str = "normal"  # normal | zeros | ones | embed | a_log | dt_bias
     fan_in_dims: Tuple[int, ...] = (0,)  # dims treated as fan-in for scaling
 
 
@@ -77,17 +78,35 @@ def _mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     }
 
 
+def _mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    ssm = cfg.ssm
+    d = cfg.d_model
+    din = ssm.d_inner(d)
+    gn = ssm.n_groups * ssm.d_state
+    h = ssm.num_heads(d)
+    conv_dim = din + 2 * gn
+    return {
+        "in_proj": ParamDef((d, 2 * din + 2 * gn + h)),
+        "conv_w": ParamDef((ssm.conv_kernel, conv_dim), "normal", (0,)),
+        "conv_b": ParamDef((conv_dim,), "zeros"),
+        "a_log": ParamDef((h,), "a_log"),
+        "d_skip": ParamDef((h,), "ones"),
+        "dt_bias": ParamDef((h,), "dt_bias"),
+        "gate_norm_scale": ParamDef((din,), "ones"),
+        "out_proj": ParamDef((din, d)),
+    }
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless every layer of `cfg` is one the port has: dense
-    attention (self-attention, dense MLP), no encoder, no learned
+    self-attention or Mamba-2, dense MLP, no encoder, no learned
     positions."""
     for st in cfg.stages:
         for sl in st.block:
-            if sl.kind != "attn" or sl.moe or sl.cross:
+            if sl.kind not in ("attn", "mamba") or sl.moe or sl.cross:
                 raise NotImplementedError(
-                    f"{cfg.name}: layer {sl} needs MoE, Mamba or "
-                    f"cross-attention, not ported yet (ROADMAP Queue 1 "
-                    f"item 13)")
+                    f"{cfg.name}: layer {sl} needs MoE or cross-attention, "
+                    f"not ported yet (ROADMAP Queue 1 item 13)")
     if cfg.enc_stages or cfg.learned_pos or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoders, learned positions and modality "
@@ -97,8 +116,11 @@ def check_supported(cfg: ModelConfig) -> None:
 def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     defs: Dict[str, Any] = {}
     defs.update(_norm_defs(cfg, "ln1"))
-    defs["attn"] = _attn_defs(cfg)
-    if cfg.d_ff > 0:
+    if spec.kind == "mamba":
+        defs["mamba"] = _mamba_defs(cfg)
+    else:
+        defs["attn"] = _attn_defs(cfg)
+    if cfg.d_ff > 0:  # mamba2-style layers have no MLP block
         defs.update(_norm_defs(cfg, "ln2"))
         defs["mlp"] = _mlp_defs(cfg)
         if cfg.post_norm:
@@ -154,6 +176,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
             return torch.zeros(d.shape, dtype=dt, device=dev)
         if d.init == "ones":
             return torch.ones(d.shape, dtype=dt, device=dev)
+        if d.init in ("a_log", "dt_bias"):
+            # Mamba-2: a_log = log U[1, 16); dt_bias = inverse-softplus
+            # of dt ~ U[1e-3, 1e-1)
+            lo, hi = (1.0, 16.0) if d.init == "a_log" else (1e-3, 1e-1)
+            u = torch.rand(d.shape, generator=generator, device=dev,
+                           dtype=torch.float32) * (hi - lo) + lo
+            u = u.log() if d.init == "a_log" else u.expm1().log()
+            return u.to(dt)
         if d.init == "embed":
             std = 0.02
         else:

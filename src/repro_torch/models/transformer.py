@@ -5,7 +5,9 @@ Each Stage's block parameters carry a leading ``repeats`` axis; the
 reference scans it with `jax.lax.scan`, the port walks it with a Python
 loop over views of the stacked tensors.  New K/V of every layer are
 collected and committed once per stage after the loop (the deferred
-commit), as in the reference.
+commit), as in the reference; so are the Mamba layers' new ``ssm`` and
+``conv`` states, which the port writes into the stacked cache in place
+where the reference hands back new arrays.
 
 Entry points:
   forward(...)      — full-sequence logits (prefill)
@@ -16,8 +18,12 @@ Entry points:
 attention (`layers.mha_xla` / `mha_chunked`), ``"pallas"`` the
 hand-written flash-attention kernel through `kernels.ops.flash_attention`
 for causal layers — on a CUDA tensor the CUDA kernel, on a CPU tensor its
-plain version `kernels.ref.mha`.  Decode always takes the plain two-piece
-softmax (`layers.mha_decode`), as in the reference.  What waits: `encode`
+plain version `kernels.ref.mha` — and ``"pallas_ssd"`` the hand-written
+SSD scan through `kernels.ops.ssd` for Mamba layers (the CUDA kernel, or
+its plain version `kernels.ref.ssd`); every other value takes the plain
+chunked SSD (`ssm_ops.ssd_chunked`) there.  Decode always takes the plain
+two-piece softmax (`layers.mha_decode`) and the plain one-step SSD
+update, as in the reference.  What waits: `encode`
 and `lm_loss` (training), `remat` and the mesh `ctx`.
 """
 
@@ -29,6 +35,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models.config import LayerSpec, ModelConfig, Stage
 from repro_torch.models.params import check_supported
 
@@ -36,11 +43,18 @@ from repro_torch.models.params import check_supported
 def _sublayer(lp: Dict[str, Any], cfg: ModelConfig, spec: LayerSpec,
               x: torch.Tensor, positions: torch.Tensor,
               cache: Optional[Dict[str, Any]], impl: str):
-    """One residual block: attention + MLP.  Returns (x, kv_new)."""
+    """One residual block: (attention | mamba) + MLP.  Returns (x, new):
+    the new K/V of an attention layer or the new states of a Mamba
+    layer, None without a cache."""
     h = L.norm(lp, cfg, x, "ln1")
-    h, kv_new = L.attention(lp, cfg, spec, h, positions,
-                            cache=None if cache is None else cache["kv"],
-                            impl=impl)
+    if spec.kind == "attn":
+        h, new = L.attention(lp, cfg, spec, h, positions,
+                             cache=None if cache is None else cache["kv"],
+                             impl=impl)
+    else:
+        h, new = M.mamba_block(
+            lp, cfg, h, cache=None if cache is None else cache["ssm_cache"],
+            use_kernel=(impl == "pallas_ssd"))
     if cfg.post_norm:
         h = L.norm(lp, cfg, h, "post1")
     x = x + h
@@ -50,7 +64,7 @@ def _sublayer(lp: Dict[str, Any], cfg: ModelConfig, spec: LayerSpec,
         if cfg.post_norm:
             h = L.norm(lp, cfg, h, "post2")
         x = x + h
-    return x, kv_new
+    return x, new
 
 
 def _index(tree, r: int):
@@ -65,28 +79,35 @@ def _stage_forward(sp: Dict[str, Any], cfg: ModelConfig, stage: Stage,
                    cache: Optional[Dict[str, Any]], impl: str):
     """Run the stacked block `stage.repeats` times; cache leaves carry a
     leading (repeats,) dim and are committed once after the loop."""
-    new_kv = {f"sub{i}": [] for i in range(len(stage.block))}
+    new = {f"sub{i}": [] for i in range(len(stage.block))}
     for r in range(stage.repeats):
         layer_p = _index(sp, r)
         layer_cache = None if cache is None else _index(cache, r)
         for i, spec in enumerate(stage.block):
             sub_cache = None if layer_cache is None else layer_cache[f"sub{i}"]
-            x, kv = _sublayer(layer_p[f"sub{i}"], cfg, spec, x, positions,
-                              sub_cache, impl)
-            if kv is not None:
-                new_kv[f"sub{i}"].append(kv)
+            x, out = _sublayer(layer_p[f"sub{i}"], cfg, spec, x, positions,
+                               sub_cache, impl)
+            if out is not None:
+                new[f"sub{i}"].append(out)
     if cache is None:
         return x, None
-    return x, _commit_stage_cache(stage, cache, new_kv, positions)
+    return x, _commit_stage_cache(stage, cache, new, positions)
 
 
-def _commit_stage_cache(stage: Stage, cache, new_kv, positions):
-    """Apply the deferred KV commits: one write per stage and sub-layer."""
-    for i in range(len(stage.block)):
-        kvs = new_kv[f"sub{i}"]
-        k = torch.stack([kv["k"] for kv in kvs])   # (L, B, H, T, D)
-        v = torch.stack([kv["v"] for kv in kvs])
-        L.commit_kv(cache[f"sub{i}"]["kv"], k, v, positions)
+def _commit_stage_cache(stage: Stage, cache, new, positions):
+    """Apply the deferred commits, one write per stage, sub-layer and
+    cache leaf, in place: K/V through `layers.commit_kv`; a Mamba layer's
+    ``ssm`` (L, B, H, P, N) float32 and ``conv`` (L, B, K-1, C) states
+    stacked over the stage's layers and copied over the old ones."""
+    for i, spec in enumerate(stage.block):
+        outs = new[f"sub{i}"]
+        if spec.kind == "attn":
+            k = torch.stack([kv["k"] for kv in outs])   # (L, B, H, T, D)
+            v = torch.stack([kv["v"] for kv in outs])
+            L.commit_kv(cache[f"sub{i}"]["kv"], k, v, positions)
+        else:
+            for name, old in cache[f"sub{i}"]["ssm_cache"].items():
+                old.copy_(torch.stack([mc[name] for mc in outs]))
     return cache
 
 
@@ -116,9 +137,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Full-sequence forward.  tokens: (B, T) integer.
 
     Returns (logits (B, T, V) float32, new_caches, aux); aux is 0.0 (the
-    reference's MoE auxiliary loss, which a dense model does not have).
-    With `caches`, the new K/V are committed into them in place and the
-    same dicts come back.
+    reference's MoE auxiliary loss, which the ported layers do not have).
+    With `caches`, the new K/V and Mamba states are committed into them
+    in place and the same dicts come back.
     """
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
@@ -150,17 +171,23 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 device=None) -> Dict[str, Any]:
     """Stacked cache dicts matching the stage structure, on `device`
-    (None: the card)."""
+    (None: the card): ``{"kv": ...}`` for an attention sub-layer,
+    ``{"ssm_cache": {"ssm", "conv"}}`` for a Mamba one."""
     dev = resolve_device(device)
     dt = dtype or cfg.dtype
     caches: Dict[str, Any] = {}
     for i, st in enumerate(cfg.stages):
         sub: Dict[str, Any] = {}
         for j, spec in enumerate(st.block):
-            kv = L.init_kv_cache(cfg, spec, batch * st.repeats, max_len, dt,
-                                 dev)
-            sub[f"sub{j}"] = {"kv": {
-                name: a.reshape((st.repeats, batch) + a.shape[1:])
-                for name, a in kv.items()}}
+            if spec.kind == "attn":
+                kv = L.init_kv_cache(cfg, spec, batch * st.repeats, max_len,
+                                     dt, dev)
+                name = "kv"
+            else:
+                kv = M.init_mamba_cache(cfg, batch * st.repeats, dt, dev)
+                name = "ssm_cache"
+            sub[f"sub{j}"] = {name: {
+                leaf: a.reshape((st.repeats, batch) + a.shape[1:])
+                for leaf, a in kv.items()}}
         caches[f"stage{i}"] = sub
     return caches

@@ -13,11 +13,13 @@ Cluster model (the paper's data center, one level up the stack):
     without any configuration.
 
 The engine runs the model: per-replica prefill (bucketed, right-padded
-prompts) through the hand-written flash-attention kernel
-(``impl="pallas"``: the CUDA kernel on the card, its plain version on the
-CPU), and batched decode steps over slotted KV caches with per-slot
-lengths.  Any router registered in `core/policy.py` is selectable by name
-(`EngineConfig.scheduler`).  All replicas share one parameter tree.
+prompts) through the model's hand-written kernel — flash attention
+(``impl="pallas"``) for an attention model, the SSD scan
+(``impl="pallas_ssd"``) for a Mamba one: the CUDA kernel on the card, its
+plain version on the CPU — and batched decode steps over slotted KV and
+SSM caches with per-slot lengths.  Any router registered in
+`core/policy.py` is selectable by name (`EngineConfig.scheduler`).  All
+replicas share one parameter tree.
 
 Ported so far: scenario None/"static" (every slowdown 1.0), placement
 None/"uniform", replication None/"fixed", no control plane and no event
@@ -123,6 +125,11 @@ class Replica:
         self.device = device
         b = ecfg.slots_per_replica
         self.caches = T.init_caches(cfg, b, ecfg.max_len, device=device)
+        # the prefill's kernel route: the SSD scan if the model has Mamba
+        # layers, else flash attention
+        self.prefill_impl = ("pallas_ssd" if any(
+            sl.kind == "mamba" for st in cfg.stages for sl in st.block)
+            else "pallas")
         self.lengths = np.zeros(b, np.int64)
         self.slot_req: List[Optional[Request]] = [None] * b
 
@@ -139,23 +146,27 @@ class Replica:
         prompt = np.zeros(bucket, np.int32)
         prompt[:t] = req.prompt[-t:]
         # Right-padded: pad positions are negative -> committed into
-        # invalid (-marked) ring slots; real rows never see pad keys.
+        # invalid (-marked) ring slots; real rows never see pad keys.  A
+        # Mamba layer's scan runs through the pads as the reference's
+        # does, and its states carry them into decode (ROADMAP Queue 3).
         pos = np.where(np.arange(bucket) < t, np.arange(bucket),
                        -(np.arange(bucket) - t + 1)).astype(np.int32)
-        # The prefill goes through the hand-written attention kernel
-        # (impl="pallas"), where the reference's engine takes its XLA
+        # The prefill goes through the model's hand-written kernel
+        # (`prefill_impl`), where the reference's engine takes its XLA
         # path: the real rows agree (ROADMAP Queue 3).
         dev = self.device
         caches1 = T.init_caches(self.cfg, 1, self.ecfg.max_len, device=dev)
         logits, sub, _ = T.forward(
             self.params, self.cfg, torch.as_tensor(prompt[None], device=dev),
             positions=torch.as_tensor(pos[None], device=dev), caches=caches1,
-            impl="pallas")
-        # merge the freshly prefilled rows into this slot
+            impl=self.prefill_impl)
+        # merge the freshly prefilled rows (K/V, or SSM and conv states)
+        # into this slot
         for i, stage in sub.items():
             for j, entry in stage.items():
-                for name, one in entry["kv"].items():
-                    self.caches[i][j]["kv"][name][:, slot:slot + 1] = one
+                for kind, leaves in entry.items():
+                    for name, one in leaves.items():
+                        self.caches[i][j][kind][name][:, slot:slot + 1] = one
         self.lengths[slot] = t
         req.generated = [int(torch.argmax(logits[0, t - 1]))]
         req.start_time = time.monotonic()

@@ -182,9 +182,11 @@ def test_commit_kv_matches_reference(stacked):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_right_padded_prefill_kernel_route_equals_plain(arch):
     """The engine's prefill: a right-padded prompt with negative pad
-    positions.  The real rows of impl="pallas" (the kernel's index mask)
-    equal those of impl="xla" (the position mask), and so does the
-    decode after each, though the pad rows differ."""
+    positions.  The real rows of the kernel route (impl="pallas": the
+    kernel's index mask; impl="pallas_ssd" for Mamba layers: the SSD
+    kernel's plain version) equal those of impl="xla" (the position
+    mask; the chunked SSD), and so does the decode after each, though
+    the pad rows differ."""
     _, cfg = _cfgs(arch)
     _, prm = _params(_cfgs(arch)[0])
     t, bucket = 10, 16
@@ -192,8 +194,9 @@ def test_right_padded_prefill_kernel_route_equals_plain(arch):
     prompt[0, :t] = _tokens(cfg, 1, t, seed=4)[0]
     pos = np.where(np.arange(bucket) < t, np.arange(bucket),
                    -(np.arange(bucket) - t + 1)).astype(np.int32)[None]
+    kernel = "pallas_ssd" if cfg.ssm is not None else "pallas"
     out = {}
-    for impl in ("xla", "pallas"):
+    for impl in ("xla", kernel):
         caches = T.init_caches(cfg, 1, 32, device="cpu")
         lg, caches, _ = T.forward(prm, cfg, torch.tensor(prompt),
                                   positions=torch.tensor(pos), caches=caches,
@@ -206,9 +209,21 @@ def test_right_padded_prefill_kernel_route_equals_plain(arch):
             steps.append(d[0, 0])
             nxt = int(torch.argmax(d[0, 0]))
         out[impl] = (lg[0, :t], torch.stack(steps))
-    for a, b in zip(out["xla"], out["pallas"]):
+    for a, b in zip(out["xla"], out[kernel]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4,
                                    rtol=1e-4)
+
+
+def _uncounted(cfg):
+    """Parameters of the reference's tree that its analytic `param_count`
+    leaves out: each Mamba layer's conv bias and the embedding's
+    vocab-padding rows (0 for the attention archs)."""
+    conv_b = sum(st.repeats * (cfg.ssm.d_inner(cfg.d_model)
+                               + 2 * cfg.ssm.n_groups * cfg.ssm.d_state)
+                 for st in cfg.stages for sl in st.block
+                 if sl.kind == "mamba")
+    pad = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
+    return conv_b + pad * (1 if cfg.tie_embeddings else 2)
 
 
 def test_params_mirror_reference_layout():
@@ -221,7 +236,8 @@ def test_params_mirror_reference_layout():
         got = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)[6:]),
                            prm)
         assert got == ref_tree, arch
-        assert P.count_params(prm) == config.param_count(cfg)
+        assert P.count_params(prm) == config.param_count(cfg) \
+            + _uncounted(cfg), arch
     # the full-width configs: the same analytic counts (chatglm3-6b 6.24 B)
     for arch in ARCHS:
         assert config.param_count(registry.get_config(arch)) == \

@@ -215,3 +215,63 @@ def test_launcher_on_cpu(capsys):
     line = capsys.readouterr().out.strip()
     assert line.startswith("scheduler=fifo drained 4 requests in ")
     assert "tier mix {0:" in line
+
+
+# ------------------------------------------------------- the Mamba engine --
+
+MAMBA_ECFG = dict(num_replicas=2, replicas_per_pod=1, slots_per_replica=2,
+                  max_len=64, prefill_buckets=(16, 32))
+
+
+def test_mamba_engine_generates_the_reference_tokens():
+    """mamba2-1.3b's smoke config with PRNGKey(0) weights on both sides:
+    prompts of 9-27 tokens (none a bucket length) that span both buckets,
+    so each prefill runs pad steps through the SSM state.  The port's
+    engine (prefill through the SSD kernel's plain version) and the
+    reference's (its XLA prefill) generate the same tokens, request by
+    request."""
+    rcfg = rregistry.get_smoke_config("mamba2_13b")
+    rprm = RP.init_params(rcfg, jax.random.PRNGKey(0))
+    cfg = registry.get_smoke_config("mamba2_13b")
+    prm = P.from_reference(jax.tree.map(np.asarray, rprm), device="cpu")
+    lengths = (9, 27, 14, 20, 11, 31)
+
+    def requests(cls):
+        rng = np.random.default_rng(4)
+        return [cls(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               n).astype(np.int32),
+                    max_new_tokens=4, prefix_id=i) for i, n in
+                enumerate(lengths)]
+
+    ref = rengine.ServingEngine(rcfg, rprm,
+                                rengine.EngineConfig(**MAMBA_ECFG))
+    want = ref.run_until_drained(requests(rengine.Request), max_steps=100)
+    eng = ServingEngine(cfg, prm, EngineConfig(**MAMBA_ECFG), device="cpu")
+    assert all(rep.prefill_impl == "pallas_ssd" for rep in eng.replicas)
+    got = eng.run_until_drained(requests(Request), max_steps=100)
+    for r, w in zip(got, want):
+        assert len(r.generated) == 5
+        assert r.generated == w.generated, f"request {r.rid}"
+    assert eng.in_system == 0 and eng.completed == len(lengths)
+
+
+def test_launcher_serves_mamba_on_cpu(capsys, monkeypatch):
+    """`--arch mamba2_13b` serves the smoke config, and prints the
+    reference launcher's line: the same steps and tier mix (all four
+    requests are routed on the prior rates before any completes), the
+    wall-clock latency aside."""
+    import re
+
+    from repro.launch import serve as rserve
+
+    args = ["--arch", "mamba2_13b", "--requests", "4"]
+    launch_serve.main(args, device="cpu")
+    line = capsys.readouterr().out.strip()
+    monkeypatch.setattr("sys.argv", ["serve"] + args)
+    rserve.main()
+    want = capsys.readouterr().out.strip()
+    assert line.startswith("scheduler=balanced_pandas drained 4 requests "
+                           "in ")
+    latency = re.compile(r"mean latency \d+ms")
+    assert latency.search(line)
+    assert latency.sub("", line) == latency.sub("", want)
