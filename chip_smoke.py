@@ -34,14 +34,21 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each fatal on failure:
 8. dense loop: every policy's slot loop under
    `torch.cuda.set_sync_debug_mode("error")` (no host sync), and a
    profiled window of the Balanced-PANDAS dense step;
-3b. (run after 8) flash_attention: the CUDA kernel against its plain
-   version `ref.mha` at the 8 cases of tests/test_kernels_attention.py
-   in float32 (atol/rtol 2e-5) and bf16 (2e-2, and every row within 1%
-   of its largest value), then in bf16 at the serving slice's prefill
-   shape of every bucket (B 1, Hq 32, Hkv 2, T 32/64/128, D 128, causal)
-   and at T = 8192, each timed beside its plain version, one
+3b. (run after 8) flash_attention: the bf16 kernel's ptxas summary
+   (registers, shared memory, spills) and its `HGMMA` count in the
+   built library's SASS (fatal if 0: bf16 must run on the tensor
+   cores); the CUDA kernels against their plain version `ref.mha` at the
+   8 cases of tests/test_kernels_attention.py in float32 (atol/rtol
+   2e-5, CUDA-core kernel) and bf16 (2e-2, and every row within 1% of
+   its largest value, tensor-core kernel), the float32 kernel timed at
+   the first case; then in bf16 at the serving slice's prefill shape of
+   every bucket (B 1, Hq 32, Hkv 2, T 32/64/128, D 128, causal) and at
+   T = 8192, each timed beside its plain version, one
    `scaled_dot_product_attention` call (the library yardstick, used
-   nowhere in the port) and its bound;
+   nowhere in the port) and its bound, with the share of the bound
+   reached, the kernel's device time by `torch.profiler` at the serving
+   shapes (where CUDA events time the host's enqueue) and the host time
+   of encoding the TMA tensor maps;
 9. the serving slice: chatglm3-6b at full width (28 layers, d_model
    4096, bf16, random weights from a seed) through
    `ServingEngine.run_until_drained` with the `EngineConfig()` defaults
@@ -767,6 +774,32 @@ def _attn_check(name, out, plain, dtype, kernel="flash_attention",
     return err, row_rel
 
 
+def _device_ms(fn, kernel: str, reps: int):
+    """Mean device ms of one launch of the kernel whose name holds
+    `kernel`, over `reps` calls of `fn` under `torch.profiler` (CUDA
+    events time the host's enqueue where that is the slower); None if
+    the profiler records no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    total, count = (sum(e.device_time_total for e in evs),
+                    sum(e.count for e in evs))
+    if not (count and total):
+        top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+        print(f"profiler: no device time for {kernel}; top events "
+              f"{[(e.key[:60], e.count, e.device_time_total) for e in top[:4]]}",
+              flush=True)
+        return None
+    return total / count / 1e3
+
+
 def _sdpa_fn(q, k, v, scale):
     """A call of one PyTorch function computing the same (Tq = Tk,
     causal, no window or softcap): the library yardstick, used nowhere
@@ -792,15 +825,83 @@ def attn_shapes():
             + [("long", heads + (LONG_T, LONG_T, cfg.head_dim), 3, 1)])
 
 
-def phase_attention(dev):
-    """flash_attention against its plain version at the attention test
-    cases (float32 and bf16), then in bf16 at the slice's prefill shape
-    of every bucket and at T = 8192, timed beside the plain version and
-    SDPA."""
-    from repro_torch.kernels import ops, ref
+TC_KERNEL = "attention_tc_kernel"   # the bf16 tensor-core kernel's name
 
+
+def attn_build_report() -> dict:
+    """Per instantiation of the bf16 kernel ("D=128" or "D=128 softcap"):
+    its ptxas summary (registers, spill bytes, from `_build.BUILD_LOGS`
+    when this run built it) and the `HGMMA` instructions in the built
+    library's SASS.  Raises if an instantiation has no `HGMMA` (bf16
+    off the tensor cores)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    def tag(fn):
+        got = re.search(r"ILi(\d+)ELb([01])E", fn or "")
+        if fn is None or TC_KERNEL not in fn or got is None:
+            return None
+        return f"D={got.group(1)}" + (" softcap" if got.group(2) == "1"
+                                       else "")
+
+    report, fn = {}, None
+    for line in _build.BUILD_LOGS.get("flash_attention", "").splitlines():
+        got = re.search(r"(?:Compiling entry function|Function properties "
+                        r"for) '?(\S+?)'?(?: for |$)", line)
+        if got:
+            fn = got.group(1)
+            continue
+        if tag(fn) is None:
+            continue
+        row = report.setdefault(tag(fn), {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            row["spill_stores"], row["spill_loads"] = map(int, spill.groups())
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            row["registers"] = int(regs.group(1))
+            row["ptxas"] = line.split(":", 1)[-1].strip()
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = tag(line.split("Function :")[-1].strip())
+            if fn is not None:
+                report.setdefault(fn, {})["hgmma"] = 0
+        elif fn is not None and "HGMMA" in line:
+            report[fn]["hgmma"] += 1
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    for d in HEAD_DIMS:
+        for name in (f"D={d}", f"D={d} softcap"):
+            row = report.setdefault(name, {})
+            print(f"flash_attention bf16 {name}: {json.dumps(row)}",
+                  flush=True)
+            if not row.get("hgmma"):
+                raise AssertionError(f"flash_attention: the bf16 kernel at "
+                                     f"{name} has no HGMMA instruction in "
+                                     f"its SASS")
+    return report
+
+
+def phase_attention(dev):
+    """flash_attention's build report (`attn_build_report`), then the
+    kernels against their plain version at the attention test cases
+    (float32 and bf16; float32 timed at the first), then in bf16 at the
+    slice's prefill shape of every bucket and at T = 8192, timed beside
+    the plain version and SDPA.  Returns (timed rows, max |error|, the
+    build report)."""
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+
+    build = attn_build_report()
     rng = np.random.default_rng(0)
     max_err = max_rel = 0.0
+    f32_row = None
     for case in ATTN_CASES:
         b, hq, hkv, tq, tk, d, causal, window, cap = case
         host = [rng.normal(size=s).astype(np.float32)
@@ -814,10 +915,24 @@ def phase_attention(dev):
             max_err = max(max_err, err)
             if dtype == torch.bfloat16:
                 max_rel = max(max_rel, rel)
+            elif f32_row is None:   # the float32 kernel, timed once
+                shape = (b, hq, hkv, tq, tk, d)
+                bound = _attn_bound(shape, causal, window, dtype)
+                f32_row = dict(
+                    shape=list(shape), dtype="f32", max_abs_err=err,
+                    ms=_time_ms(lambda: ops.flash_attention(q, k, v, **opts),
+                                50),
+                    plain_ms=_time_ms(lambda: ref.mha(q, k, v, **opts), 20),
+                    library_ms=_time_ms(_sdpa_fn(q, k, v, d ** -0.5), 50),
+                    bound_ms=bound[0], bound_by=bound[1], flops=bound[3])
+                f32_row["tflops"] = f32_row["flops"] / f32_row["ms"] / 1e9
+                f32_row["bound_share"] = f32_row["bound_ms"] / f32_row["ms"]
+                print(f"flash_attention f32 {case}: {json.dumps(f32_row)}",
+                      flush=True)
     print(f"flash_attention: {len(ATTN_CASES)} test cases x (float32, bf16) "
           f"within tolerance, max_abs_err {max_err:.3g}, bf16 worst row "
           f"{max_rel:.3g} of its max (limit {BF16_ROW_REL})", flush=True)
-    rows = {}
+    rows = {"f32": f32_row}
     gen = torch.Generator(dev).manual_seed(0)
     for name, shape, reps, plain_reps in attn_shapes():
         b, hq, hkv, tq, tk, d = shape
@@ -840,13 +955,19 @@ def phase_attention(dev):
                                      plain_reps),
                    library_ms=_time_ms(lib_fn, reps),
                    bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
-                   flops=bound[3])
+                   flops=bound[3], encode_us=fa.tensor_map_encode_us(q, k, v))
+        if name.startswith("prefill_"):  # CUDA events time the host here
+            row["device_ms"] = _device_ms(
+                lambda: ops.flash_attention(q, k, v, scale=scale), TC_KERNEL,
+                reps)
         row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows[name] = row
         print(f"flash_attention {name}: {json.dumps(row)}", flush=True)
         del q, k, v, lib_fn
         torch.cuda.empty_cache()
-    return rows, max([max_err] + [r["max_abs_err"] for r in rows.values()])
+    return (rows, max([max_err] + [r["max_abs_err"] for r in rows.values()]),
+            build)
 
 
 # ---------------------------------------------------------------------------
@@ -1261,7 +1382,7 @@ def main() -> int:
     quick_launches, _, quick_bad, quick_err = phase_quickstart(dev)
     bench_launches, bench_rows = phase_bench(dev)
     phase_dense_loop(dev)
-    attn_rows, attn_err = phase_attention(dev)
+    attn_rows, attn_err, attn_build = phase_attention(dev)
     serve_launches, _, _, _ = phase_serving(dev)
     torch.cuda.empty_cache()
     ssd_rows, ssd_err = phase_ssd(dev)
@@ -1299,7 +1420,8 @@ def main() -> int:
             "ms": bench["ms"], "plain_ms": bench["plain_ms"],
             "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
             "library_ms": None})
-    main_attn = attn_rows[max((k for k in attn_rows if k != "long"),
+    main_attn = attn_rows[max((k for k in attn_rows
+                               if k.startswith("prefill_")),
                               key=lambda k: attn_rows[k]["shape"][3])]
     entries.append({
         "name": "flash_attention", "route": "cuda",
@@ -1310,9 +1432,14 @@ def main() -> int:
         "ms": main_attn["ms"], "plain_ms": main_attn["plain_ms"],
         "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],
         "library_ms": main_attn["library_ms"],
+        "device_ms": main_attn["device_ms"],
         "long": {k: attn_rows["long"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}})
+            "library_ms")},
+        "f32": {k: attn_rows["f32"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "hgmma": {n: r["hgmma"] for n, r in attn_build.items()}})
     main_ssd = ssd_rows[max((k for k in ssd_rows if k != "long"),
                             key=lambda k: ssd_rows[k]["shape"][1])]
     entries.append({

@@ -78,7 +78,8 @@ def sources() -> Iterable[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where csrc/<name>.cu's library is (or will be) built."""
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
@@ -86,7 +87,7 @@ def _target(name: str) -> Path:
 
 def _start(name: str):
     """Start nvcc for one source; None when its library is already built."""
-    out = _target(name)
+    out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -129,6 +130,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
