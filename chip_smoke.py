@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`src/repro_torch`).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--prev DIR]
 
-Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each fatal on failure:
+Needs one NVIDIA H100 (sm_90a) and nvcc.  With --prev, DIR holds the
+parent tree's kernel sources (csrc/): its all-pairs fleet_route kernel
+is built with the same flags and timed beside this tree's, and the fleet
+slots/s is measured with each in turn.  Phases, each fatal on failure:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
 2. build: every kernel source under src/repro_torch/kernels/csrc/ with
@@ -12,13 +15,16 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each fatal on failure:
    outputs equal bit for bit, kernel and plain times by CUDA events, and
    the bound: `fleet_route`, `wwl_route` and `maxweight_claim` at the
    fleet shapes (M = 10008, B = 5474, depths 0, 1 and 2, tie-heavy
-   inputs);
+   inputs; `fleet_route` also at ragged group sizes, racks of 4 and 8
+   and pods of 12 and 24, depths 1 and 2, with its device time by
+   `torch.profiler`);
 4. the fleet slice: `simulate("balanced_pandas", ...)` at M = 10008,
    rho = 0.8 (auto-engages the fleet path), with every launch count set
    to 0 just before and read just after; then 128 slots with the kernel
    on and off must leave an identical carry;
-5. fleet profile: steady-state slots/s, and the device's busy share and
-   time by kernel over a window of slots under `torch.profiler`;
+5. fleet profile: steady-state slots/s (with --prev, also this tree's
+   fleet_route and the parent's in turn), and the device's busy share
+   and time by kernel over a window of slots under `torch.profiler`;
 6. the quickstart path (examples/quickstart.py, layers 1 and 2), counts
    set to 0 before and read after: the paper's robustness study through
    `run_study` for all five policies on the dense path (Topology(24, 6),
@@ -60,13 +66,18 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each fatal on failure:
    largest logit), each forward free of host syncs (sync debug mode
    "error"); prefill ms, decode tokens/s and the
    device's busy share over a profiled window of decode steps;
-3c. (run after 9) ssd: the CUDA SSD scan against its plain version
-   `ref.ssd` at the 4 cases of tests/test_kernels_ssd.py in float32
-   (atol/rtol 3e-4) and bf16 (3e-2, and every row within 1% of its
-   largest value), two calls threaded through `init_state` against one,
-   then in bf16 at mamba2-1.3b's prefill shape of every bucket (B 1,
-   T 32/64/128, H 64, P 64, N 128) and at T = 8192 (64 chunks of 128),
-   each timed beside its plain version, with its bound;
+3c. (run after 9) ssd: the bf16 tensor-core kernel's ptxas summary and
+   its `HGMMA` count per instantiation (fatal at 0); the CUDA SSD scan
+   against its plain version `ref.ssd` at the 4 cases of
+   tests/test_kernels_ssd.py in float32 (atol/rtol 3e-4, recurrent
+   kernel) and bf16 (3e-2, and every row within 1% of its largest value,
+   tensor-core kernel; the final state, float32, within 3e-4), two calls
+   threaded through `init_state` against one, bf16 at T = 1, 17 and 129
+   from a nonzero state at mamba2-1.3b's head widths, then in bf16 at
+   its prefill shape of every bucket (B 1, T 32/64/128, H 64, P 64,
+   N 128) and at T = 8192, each timed beside its plain version and the
+   recurrent kernel (by CUDA events and, by `torch.profiler`, on the
+   device), with its bound;
 11. the Mamba serving slice: mamba2-1.3b at full width (48 layers,
    d_model 2048, bf16, random weights from a seed) through the same
    engine, defaults and 16 requests as phase 9: ssd = 48 x prefills,
@@ -74,8 +85,10 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each fatal on failure:
    with 17 tokens; one prefill through impl="pallas_ssd" against
    impl="xla" (last real row within `MAMBA_LOGIT_TOL` of its largest
    logit in bf16, and within `MAMBA_F32_LOGIT_TOL` for the same weights
-   in float32), each forward free of host syncs; prefill ms, decode
-   tokens/s and the device's busy share over a profiled decode window;
+   in float32), each forward free of host syncs; the drained run's
+   tokens/s with `ssd` on the tensor cores and on the recurrent kernel
+   in turn; prefill ms, decode tokens/s and the device's busy share over
+   a profiled decode window;
 10. the launcher: `python -m repro_torch.launch.serve` with its
    defaults (the smoke config, on the card), then with `--arch
    mamba2_13b`, counts set to 0 before and read after each.
@@ -87,6 +100,7 @@ Exits non-zero, printing no result, when there is no card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -94,6 +108,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -168,45 +183,107 @@ def _fleet_route_bound(topo, est, locs):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def phase_kernels(dev):
-    """fleet_route against its plain version at M = 10008, B = 5474."""
+# ragged explicit group sizes at the fleet width: racks of 4 and 8 in
+# turn, then pods of 12 and 24 in turn (every boundary nested)
+RAGGED_RACKS = (4, 8) * (M_FLEET // 12)
+RAGGED_PODS = (12, 24) * (M_FLEET // 36)
+FLEET_ROUTE_KERNEL = "fleet_route_kernel"   # the CUDA kernel's name
+
+
+def fleet_route_topos():
+    """(name, Topology, Rates) of phase 3: the three depths at uniform
+    sizes (D=1 is the fleet slice's Topology(10008, 6)), then the ragged
+    sizes at depths 1 and 2."""
     from repro_torch.core import locality as loc
-    from repro_torch.kernels import ops, ref
+
+    return (("D=0", loc.Topology(M_FLEET), loc.Rates(0.5, 0.25)),
+            ("D=1", loc.Topology(M_FLEET, 6), loc.Rates()),
+            ("D=2", loc.Topology(M_FLEET, (6, 72)),
+             loc.Rates(0.5, 0.45, 0.35, 0.25)),
+            ("ragged D=1", loc.Topology(M_FLEET, (RAGGED_RACKS,)),
+             loc.Rates()),
+            ("ragged D=2", loc.Topology(M_FLEET, (RAGGED_RACKS, RAGGED_PODS)),
+             loc.Rates(0.5, 0.45, 0.35, 0.25)))
+
+
+def load_prev(prev_dir):
+    """The parent tree's `fleet_route_launch` from `prev_dir`'s
+    fleet_route.cu (the all-pairs kernel the current one replaced),
+    built with this tree's flags into the build directory, with the same
+    C signature; None without a directory."""
+    import ctypes
+    import hashlib
+
+    from repro_torch.kernels import _build
+
+    if prev_dir is None:
+        return None
+    src = os.path.join(prev_dir, "fleet_route.cu")
+    digest = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"prev-fleet_route-{digest}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
+                   check=True, capture_output=True, text=True, timeout=600)
+    fn = ctypes.CDLL(str(out)).fleet_route_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def phase_kernels(dev, prev_fn=None):
+    """fleet_route against its plain version at M = 10008, B = 5474, at
+    each of `fleet_route_topos`, timed by CUDA events and on the device;
+    with `prev_fn` (the parent's all-pairs kernel, `load_prev`) that
+    kernel is checked and timed beside it on the same inputs."""
+    from repro_torch.core import locality as loc
+    from repro_torch.kernels import ops, ref, slot_step
 
     rng = np.random.default_rng(0)
     rows = {}
-    for topo, rates in ((loc.Topology(M_FLEET), loc.Rates(0.5, 0.25)),
-                        (loc.Topology(M_FLEET, 6), loc.Rates()),
-                        (loc.Topology(M_FLEET, (6, 72)),
-                         loc.Rates(0.5, 0.45, 0.35, 0.25))):
+    for name, topo, rates in fleet_route_topos():
         k, d = topo.num_tiers, topo.depth
         est = loc.per_server_rates(rates.as_array(dev), M_FLEET).contiguous()
         anc = torch.as_tensor(np.array(topo.ancestors), device=dev)
-        mismatches, max_err = 0, 0.0
+        mismatches, prev_mismatches, max_err = 0, 0, 0.0
         for _ in range(3):
             q, serving, locs = _fuzz_state(rng, M_FLEET, k, B_FLEET)
             args = (torch.as_tensor(q, device=dev),
                     torch.as_tensor(serving, device=dev), est, anc,
                     torch.as_tensor(locs, device=dev))
-            sk, tk, vk = ops.fleet_route(*args)
-            sp, tp, vp = ref.fleet_route(*args)
-            torch.cuda.synchronize()
-            bad = ((sk != sp) | (tk != tp)
-                   | (vk.view(torch.int32) != vp.view(torch.int32)))
-            mismatches += int(bad.sum())
-            max_err = max(max_err, float((vk - vp).abs().max()))
-        ms = _time_ms(lambda: ops.fleet_route(*args), KERNEL_REPS)
-        plain_ms = _time_ms(lambda: ref.fleet_route(*args), PLAIN_REPS)
+            plain = ref.fleet_route(*args)
+            got = ops.fleet_route(*args)
+            bad, err = _compare(got, plain)
+            mismatches += bad
+            max_err = max(max_err, err)
+            if prev_fn is not None:
+                with mock.patch.object(slot_step, "_fn", prev_fn):
+                    prev_mismatches += _compare(ops.fleet_route(*args),
+                                                plain)[0]
+        new = lambda: ops.fleet_route(*args)  # noqa: E731
+        row = dict(depth=d, mismatches=mismatches, max_abs_err=max_err,
+                   ms=_time_ms(new, KERNEL_REPS),
+                   device_ms=_device_ms(new, FLEET_ROUTE_KERNEL, KERNEL_REPS),
+                   plain_ms=_time_ms(lambda: ref.fleet_route(*args),
+                                     PLAIN_REPS),
+                   prev_ms=None, prev_device_ms=None)
+        if prev_fn is not None:
+            with mock.patch.object(slot_step, "_fn", prev_fn):
+                row.update(prev_mismatches=prev_mismatches,
+                           prev_ms=_time_ms(new, KERNEL_REPS),
+                           prev_device_ms=_device_ms(new, FLEET_ROUTE_KERNEL,
+                                                     KERNEL_REPS))
         bound_ms, bound_by, nbytes, nops = _fleet_route_bound(topo,
                                                               est.cpu(), locs)
-        rows[d] = dict(depth=d, mismatches=mismatches, max_abs_err=max_err,
-                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, bytes=nbytes, ops=nops)
-        print(f"fleet_route D={d}: {json.dumps(rows[d])}", flush=True)
-        if mismatches:
+        row.update(bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   ops=nops)
+        rows[name] = row
+        print(f"fleet_route {name}: {json.dumps(row)}", flush=True)
+        if mismatches or prev_mismatches:
             raise AssertionError(f"fleet_route kernel disagrees with its "
-                                 f"plain version at depth {d}: "
-                                 f"{mismatches} tasks")
+                                 f"plain version at {name}: {mismatches} "
+                                 f"tasks ({prev_mismatches} for the parent's "
+                                 f"kernel)")
     return rows
 
 
@@ -268,10 +345,14 @@ def phase_slice(dev):
     return launches, res, (cfg, lam, est_t)
 
 
-def phase_profile(dev, cfg, lam, est_t, slots: int = 32):
+def phase_profile(dev, cfg, lam, est_t, slots: int = 32, prev_fn=None,
+                  ab_slots: int = 64):
     """Where a slot's time goes: steady-state slots/s without the
     profiler, then one profiled window — the device's busy share (kernel
-    time over wall time) and the device time of the top kernels."""
+    time over wall time) and the device time of the top kernels.  With
+    `prev_fn` (the parent's fleet_route kernel), steady slots/s over
+    `ab_slots` slots with this tree's kernel and the parent's in turn
+    (new, parent, parent, new, new, parent), the same carry going on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.rng import DeviceSource
@@ -289,10 +370,24 @@ def phase_profile(dev, cfg, lam, est_t, slots: int = 32):
             t += 1
         torch.cuda.synchronize()
 
+    def slots_per_s(n=slots):
+        t0 = time.perf_counter()
+        run(n)
+        return n / (time.perf_counter() - t0)
+
     run(16)  # warm up
-    t0 = time.perf_counter()
-    run(slots)
-    steady = slots / (time.perf_counter() - t0)
+    steady = slots_per_s()
+    ab = None
+    if prev_fn is not None:
+        from repro_torch.kernels import slot_step
+
+        ab = {"new": [], "prev": []}
+        for which in ("new", "prev", "prev", "new", "new", "prev"):
+            if which == "prev":
+                with mock.patch.object(slot_step, "_fn", prev_fn):
+                    ab[which].append(slots_per_s(ab_slots))
+            else:
+                ab[which].append(slots_per_s(ab_slots))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -302,7 +397,8 @@ def phase_profile(dev, cfg, lam, est_t, slots: int = 32):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy_us = sum(k[0] for k in kern)
-    out = {"slots_per_s_steady": steady, "window_slots": slots,
+    out = {"slots_per_s_steady": steady, "slots_per_s_new_vs_prev": ab,
+           "window_slots": slots,
            "window_ms_per_slot": window_us / slots / 1e3,
            "device_busy_share": busy_us / window_us if kern else None,
            "device_launches_per_slot": sum(k[1] for k in kern) / slots,
@@ -778,26 +874,28 @@ def _device_ms(fn, kernel: str, reps: int):
     """Mean device ms of one launch of the kernel whose name holds
     `kernel`, over `reps` calls of `fn` under `torch.profiler` (CUDA
     events time the host's enqueue where that is the slower); None if
-    the profiler records no device time for it."""
+    the profiler records no device time for it in three tries (it
+    sometimes records no kernel of a window at all)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if kernel in e.key]
-    total, count = (sum(e.device_time_total for e in evs),
-                    sum(e.count for e in evs))
-    if not (count and total):
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if kernel in e.key]
+        total, count = (sum(e.device_time_total for e in evs),
+                        sum(e.count for e in evs))
+        if count and total:
+            return total / count / 1e3
         top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
         print(f"profiler: no device time for {kernel}; top events "
               f"{[(e.key[:60], e.count, e.device_time_total) for e in top[:4]]}",
               flush=True)
-        return None
-    return total / count / 1e3
+    return None
 
 
 def _sdpa_fn(q, k, v, scale):
@@ -828,25 +926,25 @@ def attn_shapes():
 TC_KERNEL = "attention_tc_kernel"   # the bf16 tensor-core kernel's name
 
 
-def attn_build_report() -> dict:
-    """Per instantiation of the bf16 kernel ("D=128" or "D=128 softcap"):
-    its ptxas summary (registers, spill bytes, from `_build.BUILD_LOGS`
-    when this run built it) and the `HGMMA` instructions in the built
-    library's SASS.  Raises if an instantiation has no `HGMMA` (bf16
-    off the tensor cores)."""
+def _build_report(source, kernel, tag_re, tag_fmt, names) -> dict:
+    """Per instantiation of `kernel` in csrc/`source`.cu (named by
+    `tag_fmt` of the `tag_re` match on its mangled name): its ptxas
+    summary (registers, spill bytes, from `_build.BUILD_LOGS` when this
+    run built it) and the `HGMMA` instructions in the built library's
+    SASS.  Raises if one of `names` has no `HGMMA` (off the tensor
+    cores)."""
     import re
 
     from repro_torch.kernels import _build
 
     def tag(fn):
-        got = re.search(r"ILi(\d+)ELb([01])E", fn or "")
-        if fn is None or TC_KERNEL not in fn or got is None:
+        got = re.search(tag_re, fn or "")
+        if fn is None or kernel not in fn or got is None:
             return None
-        return f"D={got.group(1)}" + (" softcap" if got.group(2) == "1"
-                                       else "")
+        return tag_fmt(got)
 
     report, fn = {}, None
-    for line in _build.BUILD_LOGS.get("flash_attention", "").splitlines():
+    for line in _build.BUILD_LOGS.get(source, "").splitlines():
         got = re.search(r"(?:Compiling entry function|Function properties "
                         r"for) '?(\S+?)'?(?: for |$)", line)
         if got:
@@ -865,7 +963,7 @@ def attn_build_report() -> dict:
             row["ptxas"] = line.split(":", 1)[-1].strip()
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run(
-        [cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
+        [cuobjdump, "-sass", str(_build.library_path(source))],
         check=True, capture_output=True, text=True, timeout=300).stdout
     fn = None
     for line in sass.splitlines():
@@ -875,18 +973,25 @@ def attn_build_report() -> dict:
                 report.setdefault(fn, {})["hgmma"] = 0
         elif fn is not None and "HGMMA" in line:
             report[fn]["hgmma"] += 1
+    for name in names:
+        row = report.setdefault(name, {})
+        print(f"{source} {kernel} {name}: {json.dumps(row)}", flush=True)
+        if not row.get("hgmma"):
+            raise AssertionError(f"{source}: {kernel} at {name} has no "
+                                 f"HGMMA instruction in its SASS")
+    return report
+
+
+def attn_build_report() -> dict:
+    """Per instantiation of the bf16 kernel ("D=128" or "D=128 softcap"):
+    `_build_report` of `attention_tc_kernel`."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
-    for d in HEAD_DIMS:
-        for name in (f"D={d}", f"D={d} softcap"):
-            row = report.setdefault(name, {})
-            print(f"flash_attention bf16 {name}: {json.dumps(row)}",
-                  flush=True)
-            if not row.get("hgmma"):
-                raise AssertionError(f"flash_attention: the bf16 kernel at "
-                                     f"{name} has no HGMMA instruction in "
-                                     f"its SASS")
-    return report
+    return _build_report(
+        "flash_attention", TC_KERNEL, r"ILi(\d+)ELb([01])E",
+        lambda g: f"D={g.group(1)}" + (" softcap" if g.group(2) == "1"
+                                       else ""),
+        [f"D={d}{cap}" for d in HEAD_DIMS for cap in ("", " softcap")])
 
 
 def phase_attention(dev):
@@ -1050,13 +1155,47 @@ def ssd_shapes():
             + [("long", (1, LONG_T) + heads, 5, 1)])
 
 
-def phase_ssd(dev):
-    """ssd against its plain version at the SSD test cases (float32 and
-    bf16) and the init-state split, then in bf16 at the slice's prefill
-    shape of every bucket and at T = 8192, timed beside the plain
-    version, with its bound."""
-    from repro_torch.kernels import ops, ref
+SSD_TC_KERNEL = "ssd_tc_kernel"     # bf16, the tensor cores
+SSD_REC_KERNEL = "ssd_scan_kernel"  # the recurrent kernel (CUDA cores)
+SSD_EDGES = (1, 17, 129)            # bf16 lengths around a chunk of 64
 
+
+def _ssd_recurrent():
+    """Within the block, bf16 calls take the recurrent kernel (the one
+    every bf16 call took before the tensor-core kernel), for timing beside the
+    tensor-core kernel."""
+    from repro_torch.kernels import ssd_scan
+
+    route = ssd_scan.route
+
+    def recurrent(dtype, p, n):
+        rt = route(dtype, p, n)
+        return ssd_scan.RECURRENT_BF16 if rt == ssd_scan.TENSOR_CORES else rt
+
+    return mock.patch.object(ssd_scan, "route", recurrent)
+
+
+def ssd_build_report() -> dict:
+    """Per instantiation of the tensor-core kernel ("N=128"): its ptxas
+    summary (registers, spill bytes, from `_build.BUILD_LOGS` when this
+    run built it) and the `HGMMA` instructions in the built library's
+    SASS.  Raises if an instantiation has none (bf16 off the tensor
+    cores)."""
+    return _build_report("ssd_scan", SSD_TC_KERNEL, r"ILi(\d+)E",
+                         lambda g: f"N={g.group(1)}",
+                         [f"N={n}" for n in (8, 16, 32, 64, 128)])
+
+
+def phase_ssd(dev):
+    """ssd's build report (`ssd_build_report`), then the kernel against
+    its plain version at the SSD test cases (float32 and bf16), the
+    init-state split and the bf16 edges T = 1, 17, 129 at mamba2-1.3b's
+    widths, then in bf16 at the slice's prefill shape of every bucket
+    and at T = 8192, timed beside the plain version and the recurrent
+    kernel (by CUDA events and on the device), with its bound."""
+    from repro_torch.kernels import ops, ref, ssd_scan
+
+    build = ssd_build_report()
     gen = torch.Generator(dev).manual_seed(0)
     max_err = max_rel = 0.0
     for case in SSD_CASES:
@@ -1079,34 +1218,56 @@ def phase_ssd(dev):
     err, _ = _ssd_check("init-state split", (torch.cat([y1, y2], 1), h2),
                         (y_full, h_full), torch.float32)
     max_err = max(max_err, err)
-    print(f"ssd: {len(SSD_CASES)} test cases x (float32, bf16) and the "
-          f"init-state split within tolerance, max_abs_err {max_err:.3g}, "
-          f"bf16 worst row {max_rel:.3g} of its max (limit {BF16_ROW_REL})",
-          flush=True)
-    rows = {}
-    for name, shape, reps, plain_reps in ssd_shapes():
-        x, a, b, c = _ssd_inputs(gen, shape, torch.bfloat16, dev)
-        h0 = torch.zeros((shape[0],) + shape[2:], device=dev)
-        err, rel = _ssd_check(name, ops.ssd(x, a, b, c, init_state=h0),
+    shapes = ssd_shapes()
+    heads = shapes[0][1][2:]
+    if ssd_scan.route(torch.bfloat16, *heads[1:]) != ssd_scan.TENSOR_CORES:
+        raise AssertionError(f"bf16 ssd at {heads} would not run on the "
+                             f"tensor cores")
+    for t in SSD_EDGES:  # below, across and past a chunk, from a state
+        x, a, b, c = _ssd_inputs(gen, (1, t) + heads, torch.bfloat16, dev)
+        h0 = torch.randn((1,) + heads, generator=gen, device=dev) * 0.1
+        err, rel = _ssd_check(f"edge T={t}", ops.ssd(x, a, b, c,
+                                                     init_state=h0),
                               ref.ssd(x, a, b, c, init_state=h0),
                               torch.bfloat16)
+        max_err, max_rel = max(max_err, err), max(max_rel, rel)
+    print(f"ssd: {len(SSD_CASES)} test cases x (float32, bf16), the "
+          f"init-state split and the bf16 edges T = {SSD_EDGES} within "
+          f"tolerance, max_abs_err {max_err:.3g}, bf16 worst row "
+          f"{max_rel:.3g} of its max (limit {BF16_ROW_REL})", flush=True)
+    rows = {}
+    for name, shape, reps, plain_reps in shapes:
+        x, a, b, c = _ssd_inputs(gen, shape, torch.bfloat16, dev)
+        h0 = torch.zeros((shape[0],) + shape[2:], device=dev)
+        fn = lambda: ops.ssd(x, a, b, c, init_state=h0)  # noqa: E731
+        err, rel = _ssd_check(name, fn(), ref.ssd(x, a, b, c, init_state=h0),
+                              torch.bfloat16)
+        with _ssd_recurrent():
+            rec_err, _ = _ssd_check(name + " recurrent", fn(),
+                                    ref.ssd(x, a, b, c, init_state=h0),
+                                    torch.bfloat16)
         bound = _ssd_bound(shape, torch.bfloat16)
         row = dict(shape=list(shape), dtype="bf16", max_abs_err=err,
-                   row_rel_err=rel,
-                   ms=_time_ms(lambda: ops.ssd(x, a, b, c, init_state=h0),
-                               reps),
+                   row_rel_err=rel, ms=_time_ms(fn, reps),
+                   device_ms=_device_ms(fn, SSD_TC_KERNEL, reps),
                    plain_ms=_time_ms(lambda: ref.ssd(x, a, b, c,
                                                      init_state=h0),
                                      plain_reps),
                    library_ms=None,
                    bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
-                   flops=bound[3])
+                   flops=bound[3], recurrent_max_abs_err=rec_err)
+        with _ssd_recurrent():
+            row.update(recurrent_ms=_time_ms(fn, reps),
+                       recurrent_device_ms=_device_ms(fn, SSD_REC_KERNEL,
+                                                      reps))
         row["gb_per_s"] = row["bytes"] / row["ms"] / 1e6
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows[name] = row
         print(f"ssd {name}: {json.dumps(row)}", flush=True)
-        del x, a, b, c, h0
+        del x, a, b, c, h0, fn
         torch.cuda.empty_cache()
-    return rows, max([max_err] + [r["max_abs_err"] for r in rows.values()])
+    return rows, max([max_err] + [r["max_abs_err"] for r in rows.values()]), \
+        build
 
 
 def _profile_window(dev, fn, steps: int) -> dict:
@@ -1237,6 +1398,8 @@ def phase_serving(dev, arch=SERVE_ARCH):
                sojourn_p50_p95_p99_steps=eng.sojourn_percentiles().tolist(),
                launches=launches)
     print(f"serving run {cfg.name}: {json.dumps(run)}", flush=True)
+    if arch == MAMBA_ARCH:
+        run["tokens_per_s_tc_vs_recurrent"] = ssd_ab(eng, reqs)
 
     compare = prefill_compare(dev, cfg, params, ecfg, reqs[0].prompt, impl,
                               logit_tol)
@@ -1250,6 +1413,33 @@ def phase_serving(dev, arch=SERVE_ARCH):
         compare["float32"] = prefill_compare(dev, cfg32, params32, ecfg,
                                              reqs[0].prompt, impl, f32_tol)
     return launches, run, compare, decode
+
+
+def ssd_ab(eng, reqs) -> dict:
+    """Tokens/s of the same drained run with bf16 `ssd` on the tensor
+    cores and on the recurrent kernel in turn (tensor cores, recurrent,
+    recurrent, tensor cores), every request drained each time."""
+    from repro_torch.serve.engine import Request
+
+    out = {"tc": [], "recurrent": []}
+    for which in ("tc", "recurrent", "recurrent", "tc"):
+        fresh = [Request(rid=1000 + r.rid, prompt=r.prompt,
+                         max_new_tokens=r.max_new_tokens,
+                         prefix_id=r.prefix_id) for r in reqs]
+        route = (_ssd_recurrent() if which == "recurrent"
+                 else contextlib.nullcontext())
+        with route:
+            t0 = time.perf_counter()
+            done = eng.run_until_drained(fresh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if any(len(r.generated) != SERVE_NEW + 1 for r in done):
+            raise AssertionError(f"a request of the {which} run did not "
+                                 f"drain with {SERVE_NEW + 1} tokens")
+        out[which].append(sum(len(r.generated) for r in done) / wall)
+    print(f"mamba serving tokens/s, ssd on the tensor cores vs the "
+          f"recurrent kernel: {json.dumps(out)}", flush=True)
+    return out
 
 
 def prefill_compare(dev, cfg, params, ecfg, prompt, impl,
@@ -1355,7 +1545,14 @@ def phase_launcher(dev):
     return got
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--prev", default=None, help=(
+        "a directory holding the parent tree's kernel sources (csrc/): "
+        "its fleet_route kernel is built and timed beside this tree's"))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1375,22 +1572,24 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    rows = phase_kernels(dev)
+    prev_fn = load_prev(args.prev)
+    rows = phase_kernels(dev, prev_fn)
     sched_rows = phase_sched_kernels(dev)
     launches, _, (cfg, lam, est_t) = phase_slice(dev)
-    phase_profile(dev, cfg, lam, est_t)
+    phase_profile(dev, cfg, lam, est_t, prev_fn=prev_fn)
     quick_launches, _, quick_bad, quick_err = phase_quickstart(dev)
     bench_launches, bench_rows = phase_bench(dev)
     phase_dense_loop(dev)
     attn_rows, attn_err, attn_build = phase_attention(dev)
     serve_launches, _, _, _ = phase_serving(dev)
     torch.cuda.empty_cache()
-    ssd_rows, ssd_err = phase_ssd(dev)
+    ssd_rows, ssd_err, ssd_build = phase_ssd(dev)
     mamba_launches, _, _, _ = phase_serving(dev, MAMBA_ARCH)
     torch.cuda.empty_cache()
     phase_launcher(dev)
 
-    main_row = rows[1]  # the slice's Topology(10008, 6)
+    main_row = rows["D=1"]  # the slice's Topology(10008, 6)
+    timed = ("ms", "device_ms", "prev_ms", "prev_device_ms", "bound_ms")
     entries = [{
         "name": "fleet_route", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fleet_route.cu",
@@ -1400,7 +1599,10 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None}]
+        "library_ms": None, "device_ms": main_row["device_ms"],
+        "prev_ms": main_row["prev_ms"],
+        "prev_device_ms": main_row["prev_device_ms"],
+        "topologies": {n: {k: r[k] for k in timed} for n, r in rows.items()}}]
     for name, source, replaces in (
             ("wwl_route", "src/repro_torch/kernels/csrc/wwl_route.cu",
              "src/repro/kernels/wwl_route.py:41"),
@@ -1450,10 +1652,19 @@ def main() -> int:
         "max_abs_err": ssd_err,
         "ms": main_ssd["ms"], "plain_ms": main_ssd["plain_ms"],
         "bound_ms": main_ssd["bound_ms"], "bound_by": main_ssd["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "device_ms": main_ssd["device_ms"],
+        "recurrent_ms": main_ssd["recurrent_ms"],
+        "recurrent_device_ms": main_ssd["recurrent_device_ms"],
         "long": {k: ssd_rows["long"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}})
+            "library_ms", "device_ms", "recurrent_ms",
+            "recurrent_device_ms")},
+        "buckets": {n: {k: r[k] for k in ("ms", "device_ms", "recurrent_ms",
+                                          "recurrent_device_ms")}
+                    for n, r in ssd_rows.items()},
+        "ptxas": {n: {k: r.get(k) for k in ("registers", "spill_stores",
+                                            "hgmma")}
+                  for n, r in ssd_build.items()}})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,40 +15,93 @@
 // is the float 1e-6f, and division is IEEE, so the kernel agrees bit for
 // bit with the plain version and with the JAX reference.
 //
-// Design.  One block of 256 threads serves kTasks tasks.  Threads stride
-// over all M servers; each thread computes W_m once per server and scores
-// it for the block's tasks, keeping a per-task running best (strict <, so
-// within a thread the lowest index wins).  A warp-shuffle and then a
-// shared-memory reduction combine (score, server, tier) lexicographically.
-// The kernel reads the (M, .) arrays directly and masks the ragged edges
-// itself: no padding.  The tier of a server to a task comes from the
-// ancestor table and the task's three locals, deepest level first, with
-// the local override; the depth is a template parameter so the per-server
-// group ids live in registers.
+// Precondition (depth D >= 1): every row of the ancestor table is
+// non-decreasing, so each group is one contiguous range of server ids,
+// and every group lies inside one group of each coarser level.  Then a
+// task's private set (servers sharing some level's group with one of its
+// three locals) is the union of its locals' top-level groups: at most
+// 3 x the largest top-level group, 18 servers at the fleet cell
+// (Topology(10008, 6)), 216 at (6, 72).  `Topology.ancestors` builds
+// such tables, and `sharding.sim.make_ctx` checks the table once on the
+// host before it goes to the card.  The plain version takes any table.
+//
+// Design: one warp per task, eight tasks a block of 256 threads.  The
+// private set is small (a few tens to a few hundred servers), so one
+// warp's lanes cover it in one or a few strides, and the warp reduces
+// its candidates with shuffles: no shared memory and no block barrier.
+//   * Locals: every lane loads the task's three locals and their group
+//     ids at every level (the same addresses on all lanes: broadcasts).
+//   * D = 0: the set is the three locals, scored by lanes 0..2.
+//   * D >= 1: the ends of each local's top-level group g = anc[D-1][l]
+//     in the row anc[D-1]: the warp loads the 32 ids around l (servers
+//     l - 16 .. l + 15) in one coalesced load, in the same round as the
+//     locals' group ids, and a ballot of the lanes equal to g gives both
+//     ends when they lie inside.  A group that reaches past the window
+//     (more than 16 servers on a side) is finished by lanes 0..5 in
+//     parallel, galloping outward from the window's edge (steps 1, 2,
+//     4, ...) until the id differs or the row ends, then bisecting the
+//     last step.  A group already seen for this task (an equal id) is
+//     skipped; the lanes stride over the distinct ranges.
+//   * Per server a lane computes W_m with the operations above in the
+//     order above (the workload is recomputed for each task that scores
+//     the server, about 10x redundant at the fleet shape and trivial
+//     beside the loads; a first pass writing W to scratch would add a
+//     launch), then the tier, deepest level first with the local
+//     override, and the score.  It keeps a lexicographic (score, server)
+//     best that starts at (3e38, server 0, tier 0), as the all-pairs
+//     kernel this one replaced did, so every output, degenerate inputs
+//     included, equals that kernel's bit for bit.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): the function reads
 // about 0.45 MB at M = 10008, K = 3, B = 5474, i.e. ~0.13 us, and the
 // work its data needs (W for every server plus a score for every private
 // (task, server) pair) is a few million operations: it is bytes-bound.
-// This kernel instead visits all B x M pairs (about 5.5e7 tier tests)
-// and re-reads the server arrays once per block from L2, so it runs far
-// above that bound.  Idea for a later version: a task's private set lies
-// inside the contiguous top-level groups of its three locals (ancestor
-// ids are contiguous ranges), so a redesign can scan O(group size)
-// servers per task instead of M, with W computed once into a scratch
-// vector by a first pass.
+// The kernel reads the server arrays of the private sets only (about
+// 98k scores a launch at the fleet cell) and is bound by the latency of
+// its chain of dependent loads (locals, their groups, the gallop, the
+// server data) and by the launch: on an H100 80GB HBM3 at 700 W it takes
+// about 7 us on the device at D = 1 (4 us at D = 0, 21 us at D = 2 with
+// up to 216 servers a task), against 0.14 ms for the all-pairs kernel it
+// replaces, which tested all B x M = 5.5e7 (task, server) pairs (PERF.md
+// row 1 has both kernels' times).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTasks = 8;  // tasks per block
+constexpr int kTasks = kThreads / 32;  // tasks a block: one warp each
 constexpr float kLarge = 3.0e38f;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kHalf = 16;  // a local's window: servers l - 16 .. l + 15
 
 __device__ __forceinline__ bool beats(float sa, int ia, float sb, int ib) {
   return sa < sb || (sa == sb && ia < ib);
+}
+
+// One end of the run of `g` that holds position `l` in the non-decreasing
+// row `r` of length m: the first index of the run (up = false) or one past
+// its last (up = true).  Gallops outward from l, then bisects.
+__device__ int run_end(const int* __restrict__ r, int m, int l, int g,
+                       bool up) {
+  int known = l, bad, step = 1;  // r[known] == g; r[bad] != g or outside
+  while (true) {
+    const int probe = up ? known + step : known - step;
+    if (probe < 0 || probe >= m || r[probe] != g) {
+      bad = probe < 0 ? -1 : (probe >= m ? m : probe);
+      break;
+    }
+    known = probe;
+    step <<= 1;
+  }
+  while (bad - known > 1 || known - bad > 1) {
+    const int mid = (known + bad) / 2;
+    if (r[mid] == g)
+      known = mid;
+    else
+      bad = mid;
+  }
+  return up ? known + 1 : known;
 }
 
 template <int D>
@@ -59,114 +112,133 @@ fleet_route_kernel(const int* __restrict__ q, const int* __restrict__ serving,
                    int* __restrict__ server_out, int* __restrict__ tier_out,
                    float* __restrict__ score_out) {
   constexpr int K = D + 2;
-  __shared__ int s_loc[kTasks][3];
-  __shared__ int s_grp[kTasks][D > 0 ? D : 1][3];
-  __shared__ float s_score[kTasks][kWarps];
-  __shared__ int s_server[kTasks][kWarps];
-  __shared__ int s_tier[kTasks][kWarps];
+  const int lane = threadIdx.x & 31;
+  const int task = blockIdx.x * kTasks + (threadIdx.x >> 5);
+  if (task >= b) return;  // whole warps leave together
 
-  const int task0 = blockIdx.x * kTasks;
-  const int ntask = min(kTasks, b - task0);
-  for (int i = threadIdx.x; i < kTasks * 3; i += kThreads) {
-    const int t = i / 3, j = i % 3;
-    // rows past the last task repeat task 0's locals; never written out
-    const int l = t < ntask ? locs[(task0 + t) * 3 + j] : locs[task0 * 3 + j];
-    s_loc[t][j] = l;
+  int loc[3];
 #pragma unroll
-    for (int lvl = 0; lvl < D; ++lvl) s_grp[t][lvl][j] = anc[lvl * m + l];
+  for (int j = 0; j < 3; ++j) loc[j] = locs[task * 3 + j];
+  int grp[D > 0 ? D : 1][3];
+#pragma unroll
+  for (int lvl = 0; lvl < D; ++lvl)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) grp[lvl][j] = anc[lvl * m + loc[j]];
+
+  // the private ranges: [lo_j, hi_j) per local, empty when already seen
+  int lo[3], hi[3];
+  if constexpr (D == 0) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      lo[j] = loc[j];
+      hi[j] = loc[j] + 1;
+    }
+  } else {
+    const int* top = anc + (D - 1) * m;
+    // one coalesced load a local: lane i holds the top-level id of server
+    // l - kHalf + i (-1 outside the row, never an id); the ballot of the
+    // lanes equal to the local's group then shows the run's ends when
+    // they lie inside the window
+    bool far_lo[3], far_hi[3], far = false;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int pos = loc[j] - kHalf + lane;
+      const int id = pos >= 0 && pos < m ? top[pos] : -1;
+      const unsigned same = __ballot_sync(kAll, id == grp[D - 1][j]);
+      const unsigned below = ~same & ((1u << kHalf) - 1u);
+      const unsigned above = ~same & ~((2u << kHalf) - 1u);
+      lo[j] = loc[j] - kHalf + (32 - __clz(below));  // past the last miss
+      hi[j] = loc[j] - kHalf + (__ffs(above) - 1);    // the first miss
+      far_lo[j] = below == 0;
+      far_hi[j] = above == 0;
+      far = far || far_lo[j] || far_hi[j];
+    }
+    if (far) {
+      // a run past the window (warp-uniform): lanes 0..5 gallop on from
+      // its edges, the lower and the upper end of each local's group
+      int end = 0;
+      if (lane < 6) {
+        const int j = lane >> 1;
+        const bool up = lane & 1;
+        const int l = j == 0 ? loc[0] : (j == 1 ? loc[1] : loc[2]);
+        const int g = j == 0 ? grp[D - 1][0]
+                             : (j == 1 ? grp[D - 1][1] : grp[D - 1][2]);
+        const bool go = up ? (j == 0 ? far_hi[0]
+                                     : (j == 1 ? far_hi[1] : far_hi[2]))
+                           : (j == 0 ? far_lo[0]
+                                     : (j == 1 ? far_lo[1] : far_lo[2]));
+        if (go) end = run_end(top, m, up ? l + kHalf - 1 : l - kHalf, g, up);
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int e_lo = __shfl_sync(kAll, end, 2 * j);
+        const int e_hi = __shfl_sync(kAll, end, 2 * j + 1);
+        if (far_lo[j]) lo[j] = e_lo;
+        if (far_hi[j]) hi[j] = e_hi;
+      }
+    }
+    if (grp[D - 1][1] == grp[D - 1][0]) hi[1] = lo[1];
+    if (grp[D - 1][2] == grp[D - 1][0] || grp[D - 1][2] == grp[D - 1][1])
+      hi[2] = lo[2];
   }
-  __syncthreads();
 
-  float best_s[kTasks];
-  int best_i[kTasks], best_t[kTasks];
+  float best_s = kLarge;
+  int best_i = 0, best_t = 0;
 #pragma unroll
-  for (int t = 0; t < kTasks; ++t) {
-    best_s[t] = kLarge;
-    best_i[t] = 0;
-    best_t[t] = 0;
-  }
+  for (int j = 0; j < 3; ++j) {
+    for (int mm = lo[j] + lane; mm < hi[j]; mm += 32) {
+      float e[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) e[c] = est[mm * K + c];
+      float w = __fdiv_rn(__int2float_rn(q[mm * K]), e[0]);
+#pragma unroll
+      for (int c = 1; c < K; ++c)
+        w = __fadd_rn(w, __fdiv_rn(__int2float_rn(q[mm * K + c]), e[c]));
+      const int sv = serving[mm];
+      const int ri = min(max(sv - 1, 0), K - 1);
+      float er = e[0];
+#pragma unroll
+      for (int c = 1; c < K; ++c) er = ri == c ? e[c] : er;
+      w = __fadd_rn(w, sv > 0 ? __fdiv_rn(1.0f, er) : 0.0f);
 
-  for (int mm = threadIdx.x; mm < m; mm += kThreads) {
-    float e[K];
-#pragma unroll
-    for (int c = 0; c < K; ++c) e[c] = est[mm * K + c];
-    float w = __fdiv_rn(__int2float_rn(q[mm * K]), e[0]);
-#pragma unroll
-    for (int c = 1; c < K; ++c)
-      w = __fadd_rn(w, __fdiv_rn(__int2float_rn(q[mm * K + c]), e[c]));
-    const int sv = serving[mm];
-    const int ri = min(max(sv - 1, 0), K - 1);
-    float er = e[0];
-#pragma unroll
-    for (int c = 1; c < K; ++c) er = ri == c ? e[c] : er;
-    w = __fadd_rn(w, sv > 0 ? __fdiv_rn(1.0f, er) : 0.0f);
-    int g[D > 0 ? D : 1];
-#pragma unroll
-    for (int lvl = 0; lvl < D; ++lvl) g[lvl] = anc[lvl * m + mm];
-
-#pragma unroll
-    for (int t = 0; t < kTasks; ++t) {
       int tier = D + 1;
 #pragma unroll
       for (int lvl = D - 1; lvl >= 0; --lvl) {
-        if (g[lvl] == s_grp[t][lvl][0] || g[lvl] == s_grp[t][lvl][1] ||
-            g[lvl] == s_grp[t][lvl][2])
+        const int gm = anc[lvl * m + mm];
+        if (gm == grp[lvl][0] || gm == grp[lvl][1] || gm == grp[lvl][2])
           tier = lvl + 1;
       }
-      if (mm == s_loc[t][0] || mm == s_loc[t][1] || mm == s_loc[t][2])
-        tier = 0;
+      if (mm == loc[0] || mm == loc[1] || mm == loc[2]) tier = 0;
       if (tier <= D) {
         float rate = e[0];
 #pragma unroll
         for (int c = 1; c <= D; ++c) rate = tier == c ? e[c] : rate;
         const float sc =
             __fsub_rn(__fdiv_rn(w, rate), __fmul_rn(rate, 1e-6f));
-        if (sc < best_s[t]) {
-          best_s[t] = sc;
-          best_i[t] = mm;
-          best_t[t] = tier;
+        if (beats(sc, mm, best_s, best_i)) {
+          best_s = sc;
+          best_i = mm;
+          best_t = tier;
         }
       }
     }
   }
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int t = 0; t < kTasks; ++t) {
-    float s = best_s[t];
-    int i = best_i[t], tr = best_t[t];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float so = __shfl_down_sync(0xffffffffu, s, off);
-      const int io = __shfl_down_sync(0xffffffffu, i, off);
-      const int to = __shfl_down_sync(0xffffffffu, tr, off);
-      if (beats(so, io, s, i)) {
-        s = so;
-        i = io;
-        tr = to;
-      }
-    }
-    if (lane == 0) {
-      s_score[t][warp] = s;
-      s_server[t][warp] = i;
-      s_tier[t][warp] = tr;
+  for (int off = 16; off > 0; off >>= 1) {
+    const float so = __shfl_down_sync(kAll, best_s, off);
+    const int io = __shfl_down_sync(kAll, best_i, off);
+    const int to = __shfl_down_sync(kAll, best_t, off);
+    if (beats(so, io, best_s, best_i)) {
+      best_s = so;
+      best_i = io;
+      best_t = to;
     }
   }
-  __syncthreads();
-  if (threadIdx.x < ntask) {
-    const int t = threadIdx.x;
-    float s = s_score[t][0];
-    int i = s_server[t][0], tr = s_tier[t][0];
-    for (int wi = 1; wi < kWarps; ++wi) {
-      if (beats(s_score[t][wi], s_server[t][wi], s, i)) {
-        s = s_score[t][wi];
-        i = s_server[t][wi];
-        tr = s_tier[t][wi];
-      }
-    }
-    server_out[task0 + t] = i;
-    tier_out[task0 + t] = tr;
-    score_out[task0 + t] = s;
+  if (lane == 0) {
+    server_out[task] = best_i;
+    tier_out[task] = best_t;
+    score_out[task] = best_s;
   }
 }
 
@@ -184,9 +256,10 @@ cudaError_t launch(const int* q, const int* serving, const float* est,
 
 // Plain C entry point for ctypes.  Every array is a contiguous device
 // pointer: q (m, depth+2) int32, serving (m,) int32, est (m, depth+2)
-// float32, anc (depth, m) int32, locs (b, 3) int32; outputs server (b,)
-// int32, tier (b,) int32, score (b,) float32.  Returns the cudaError_t
-// of the launch (0 on success); depth must be 0..4 and b, m >= 1.
+// float32, anc (depth, m) int32 meeting the precondition above, locs
+// (b, 3) int32; outputs server (b,) int32, tier (b,) int32, score (b,)
+// float32.  Returns the cudaError_t of the launch (0 on success); depth
+// must be 0..4 and b, m >= 1.
 extern "C" int fleet_route_launch(const void* q, const void* serving,
                                   const void* est, const void* anc,
                                   const void* locs, int m, int depth, int b,

@@ -7,7 +7,8 @@ from the card to the plain version.  `LAUNCHES` counts kernel launches,
 one key per kernel.  Depth 0 (K = 2) runs natively in every scheduling
 kernel: no padding and no dilated ancestor table.  `flash_attention`
 needs no padding either: the kernel masks its ragged tiles itself, and
-neither does `ssd`: its kernel stops at T.
+neither does `ssd`: its kernels stop at T (the chunked one reads zeros
+past T through its TMA boxes).
 """
 
 from __future__ import annotations
@@ -101,14 +102,14 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     x: (B, T, H, P); a: (B, T, H) log-decay <= 0; b, c: (B, T, N) in x's
     dtype; init_state: (B, H, P, N) or None (zeros).  Returns (y in x's
     dtype, final state float32).  `block_t` is the reference's chunk
-    length (the Pallas kernel's `L`).  Neither version here splits by it:
-    the CUDA kernel walks the recurrence step by step inside each block,
-    staging 32 steps at a time in shared memory, and the plain version is
-    the sequential recurrence, which any split into chunks threads
-    through its state unchanged.  The results agree within tolerance
-    whatever the split (tests/test_torch_ssd.py).
+    length (the Pallas kernel's `L`), which neither version here takes:
+    on the card bf16 runs the chunked form with its own fixed chunk of
+    `ssd_scan.TC_CHUNK` = 64 steps on the tensor cores and float32 the
+    recurrent form step by step (`ssd_scan.route` says which), and the
+    plain version is the sequential recurrence.  The results agree
+    within tolerance whatever the split (tests/test_torch_ssd.py).
     """
-    del block_t  # no chunking on either route: see above
+    del block_t  # each kernel chunks by its own fixed length: see above
     if not x.is_cuda:
         return ref.ssd(x, a, b, c, init_state)
     h0 = (torch.zeros((x.shape[0], x.shape[2], x.shape[3], b.shape[-1]),

@@ -12,6 +12,13 @@ with the workload it consumes:
     score   = W_m / est[m, tier(m, task)] - est[...] * 1e-6
     out_b   = argmin over servers with tier(m, task) < K-1
 
+The kernel scans only each task's private set: one warp a task finds
+its locals' top-level groups in the ancestor table and strides over
+their union (at most 18 servers at the fleet cell), instead of testing
+all B x M pairs.  That needs every row of the table non-decreasing with
+nested groups (`check_anc_ranges`); `sharding.sim.make_ctx` checks its
+table once on the host, and `ref.fleet_route` takes any table.
+
 Semantics contract: `ref.fleet_route`.  `fleet_route_cuda` takes CUDA
 tensors only and raises on anything else; `ops.fleet_route` is the
 dispatching entry point.
@@ -21,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -42,6 +50,29 @@ def _kernel():
     return _fn
 
 
+def check_anc_ranges(anc) -> None:
+    """Raise unless the (depth, M) ancestor table meets the kernel's
+    precondition: every row non-decreasing, so each group is one
+    contiguous range of server ids, and every group inside one group of
+    each coarser level (no coarser row changes where a finer one does
+    not)."""
+    anc = np.asarray(anc)
+    if anc.ndim != 2 or anc.shape[0] == 0:
+        return
+    step = np.diff(anc.astype(np.int64), axis=1)
+    if (step < 0).any():
+        lvl, pos = np.argwhere(step < 0)[0]
+        raise ValueError(f"fleet_route: ancestor row {lvl} decreases at "
+                         f"server {pos + 1}; the kernel needs every group "
+                         f"to be one contiguous, ascending range of ids")
+    changes = step != 0
+    for lvl in range(1, anc.shape[0]):
+        if (changes[lvl] & ~changes[lvl - 1]).any():
+            raise ValueError(f"fleet_route: a level-{lvl - 1} group of the "
+                             f"ancestor table straddles two level-{lvl} "
+                             f"groups; the kernel needs nested groups")
+
+
 def fleet_route_cuda(q: torch.Tensor, serving: torch.Tensor,
                      est: torch.Tensor, anc: torch.Tensor,
                      locs: torch.Tensor):
@@ -50,6 +81,11 @@ def fleet_route_cuda(q: torch.Tensor, serving: torch.Tensor,
     q (M, K) int32, serving (M,) int32, est (M, K) float32, anc (D, M)
     int32 with K = D + 2, locs (B, 3) int32, all contiguous on one card.
     Returns (server (B,) int32, tier (B,) int32, score (B,) float32).
+
+    Precondition (not checked here, on the card): `anc` passes
+    `check_anc_ranges`, as every `Topology.ancestors` table does.  The
+    kernel finds a task's private set from the top row alone, so a table
+    that breaks it gives wrong routes, not an error.
     """
     m, k = q.shape
     depth = anc.shape[0]

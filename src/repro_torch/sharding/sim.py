@@ -43,6 +43,7 @@ from repro_torch.core import locality as loc
 from repro_torch.core.policy import PolicyLike, policy_name
 from repro_torch.core.rng import DeviceSource, DrawSource, SlotDraws
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.slot_step import check_anc_ranges
 
 # Auto-engagement floor for core.simulator's ``fleet=None``: paper-scale
 # configurations stay on the dense path; fleet-sized topologies switch.
@@ -105,7 +106,9 @@ class FleetCtx:
 
 
 def make_ctx(topo: loc.Topology, device) -> FleetCtx:
-    anc = torch.as_tensor(np.array(topo.ancestors), device=device)  # int32
+    table = np.array(topo.ancestors)
+    check_anc_ranges(table)   # the fleet_route kernel's precondition
+    anc = torch.as_tensor(table, device=device)  # int32
     return FleetCtx(
         num_servers=topo.num_servers,
         num_tiers=topo.num_tiers,

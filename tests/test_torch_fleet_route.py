@@ -5,24 +5,34 @@ The reference side runs as its own tests run it on the CPU: the oracle
 `repro.kernels.ref.fleet_route` and the Pallas kernel through
 `repro.kernels.ops.fleet_route` in interpret mode.  Integer outputs are
 exact and scores bitwise: both sides round every f32 operation alone.
-The CUDA kernel itself runs only on the card (`cuda` marker).
+The CUDA kernel itself runs only on the card (`cuda` marker); its
+group-restricted scan (each task scores only the union of its locals'
+top-level groups) is held here by a plain model of that scan.  The
+`cuda`-marked tests need only the port, so on a machine with the card
+and no JAX they run alone: `PYTHONPATH=src python -m pytest
+--noconftest -m cuda tests/test_torch_fleet_route.py`.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
-import jax
-import jax.numpy as jnp
-
-from repro.core import balanced_pandas as rbp, locality as rloc
-from repro.kernels import ops as rops, ref as rref
-from repro.sharding import sim as rfs
 from repro_torch.core import balanced_pandas as bp, locality as loc
 from repro_torch.core.rng import SlotDraws
 from repro_torch.kernels import ops, ref, slot_step
 from repro_torch.sharding import sim as fs
-from _torch_port import single_torch_thread  # noqa: F401
+
+try:  # the JAX reference, which the CPU tests compare against
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import balanced_pandas as rbp, locality as rloc
+    from repro.kernels import ops as rops, ref as rref
+    from repro.sharding import sim as rfs
+    from _torch_port import single_torch_thread  # noqa: F401
+except ModuleNotFoundError:  # the port alone: only the cuda tests run
+    jax = jnp = rbp = rloc = rops = rref = rfs = None
 
 # (num_servers, group spec, rates) at depth 0 (K=2), 1 and 2
 TOPOS = (
@@ -31,6 +41,12 @@ TOPOS = (
     (36, (3, 6), (0.5, 0.45, 0.35, 0.25)),
 )
 IDS = ["depth0", "depth1", "depth2"]
+# explicit (ragged) group sizes: racks of 4, 8, 6, 12, then pods of 12, 18
+RAGGED = (
+    (30, ((4, 8, 6, 12),), (0.5, 0.45, 0.25)),
+    (30, ((4, 8, 6, 12), (12, 18)), (0.5, 0.45, 0.35, 0.25)),
+)
+RAGGED_IDS = ["ragged1", "ragged2"]
 
 
 def _fuzz_state(rng, m, k, batch=17):
@@ -45,7 +61,10 @@ def _fuzz_state(rng, m, k, batch=17):
 
 
 def _est(m, rates):
-    return np.array(rloc.per_server_rates(rloc.Rates(rates).as_array(), m))
+    """(M, K) float32 per-server rates (the shared vector broadcast, as
+    the reference's `per_server_rates` makes it)."""
+    return loc.per_server_rates(loc.Rates(rates).as_array(),
+                                m).contiguous().numpy()
 
 
 def _assert_same(port_out, ref_out):
@@ -71,6 +90,124 @@ def test_plain_fleet_route_matches_reference(m, groups, rates):
         _assert_same(port, rref.fleet_route(q, serving, est, anc, locs))
         # the Pallas kernel (interpret mode), dilated at depth 0
         _assert_same(port, rops.fleet_route(q, serving, est, anc, locs))
+
+
+def _group_scan(q, serving, est, anc, locs):
+    """Plain model of the CUDA kernel's group-restricted scan: W as the
+    plain version computes it, then per task only the union of its
+    locals' top-level ranges (found by `searchsorted` on the sorted top
+    row; the three locals at depth 0), each server's tier deepest level
+    first with the local override, and a lexicographic (score, server)
+    minimum that starts at (3e38, server 0, tier 0)."""
+    q, serving, est = (torch.from_numpy(v) for v in (q, serving, est))
+    d, k = anc.shape[0], est.shape[1]
+    w = q[:, 0].float() / est[:, 0]
+    for t in range(1, k):
+        w = w + q[:, t].float() / est[:, t]
+    idx = torch.clamp(serving.long() - 1, 0, k - 1)
+    resid = torch.gather(est, 1, idx[:, None])[:, 0]
+    w = w + torch.where(serving > 0, 1.0 / resid, torch.zeros_like(resid))
+    out = []
+    for loc3 in locs.tolist():
+        if d == 0:
+            cand = sorted(set(loc3))
+        else:
+            top = anc[d - 1]
+            groups = sorted(set(top[loc3].tolist()))
+            lo = np.searchsorted(top, groups, side="left")
+            hi = np.searchsorted(top, groups, side="right")
+            cand = [m for a, b in zip(lo, hi) for m in range(a, b)]
+        sid = torch.tensor(cand, dtype=torch.long)
+        tier = torch.full((len(cand),), d + 1, dtype=torch.int32)
+        for lvl in range(d - 1, -1, -1):
+            share = np.isin(anc[lvl][cand], anc[lvl][loc3])
+            tier[torch.from_numpy(share)] = lvl + 1
+        tier[torch.from_numpy(np.isin(cand, loc3))] = 0
+        rate = est[sid, tier.long()]
+        score = w[sid] / rate - rate * 1e-6
+        best = (np.float32(3e38), 0, 0)
+        for sc, m, t in zip(score.tolist(), cand, tier.tolist()):
+            sc = np.float32(sc)
+            if t <= d and (sc, m) < best[:2]:
+                best = (sc, m, t)
+        out.append(best)
+    s, m, t = zip(*out)
+    return (torch.tensor(m, dtype=torch.int32), torch.tensor(t,
+            dtype=torch.int32), torch.tensor(np.array(s, np.float32)))
+
+
+@pytest.mark.parametrize("m,groups,rates", TOPOS + RAGGED,
+                         ids=IDS + RAGGED_IDS)
+def test_group_scan_model_matches_reference(m, groups, rates):
+    """The kernel's scan order, in plain PyTorch, equals the plain
+    version (all-pairs masked argmin) and the JAX oracle bit for bit on
+    tie-heavy states, ragged group sizes included."""
+    rng = np.random.default_rng(5)
+    anc = np.array(loc.Topology(m, groups).ancestors)
+    np.testing.assert_array_equal(anc, rloc.Topology(m, groups).ancestors)
+    est = _est(m, rates)
+    for _ in range(10):
+        q, serving, locs = _fuzz_state(rng, m, est.shape[1])
+        model = _group_scan(q, serving, est, anc, locs)
+        _assert_same(model, rref.fleet_route(q, serving, est, anc, locs))
+        _assert_same(model, ref.fleet_route(
+            torch.from_numpy(q), torch.from_numpy(serving),
+            torch.from_numpy(est), torch.from_numpy(anc),
+            torch.from_numpy(locs)))
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.lists(st.integers(1, 9), min_size=1, max_size=12),
+       st.lists(st.integers(1, 4), min_size=1, max_size=12),
+       st.integers(1, 6))
+def test_ancestor_tables_meet_the_kernel_precondition(racks, pods, uniform):
+    """`Topology.ancestors` rows are non-decreasing and nested, for
+    explicit (ragged) and uniform sizes, so `check_anc_ranges` passes."""
+    # pods: consecutive runs of racks, of the drawn lengths (cut to fit)
+    pod_sizes, i = [], 0
+    for n in pods:
+        if i >= len(racks):
+            break
+        pod_sizes.append(sum(racks[i:i + n]))
+        i += n
+    if i < len(racks):
+        pod_sizes.append(sum(racks[i:]))
+    m = sum(racks)
+    specs = [(racks,), (uniform, uniform * 2), ()]
+    if len(pod_sizes) < len(racks):
+        specs.append((racks, pod_sizes))
+    for spec in specs:
+        mm = m if spec and spec[0] is racks else uniform * 2 * len(racks)
+        anc = np.array(loc.Topology(mm, spec).ancestors)
+        assert (np.diff(anc, axis=1) >= 0).all()
+        slot_step.check_anc_ranges(anc)
+
+
+def test_make_ctx_checks_the_kernel_precondition():
+    """`make_ctx` raises on a table whose groups are not contiguous
+    ascending ranges (shuffled servers) or do not nest, and takes every
+    `Topology`'s own."""
+    topo = loc.Topology(24, (4, 12))
+    fs.make_ctx(topo, "cpu")
+    rng = np.random.default_rng(6)
+
+    class Shuffled(loc.Topology):
+        @property
+        def ancestors(self):
+            return super().ancestors[:, rng.permutation(self.num_servers)]
+
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.make_ctx(Shuffled(24, (4, 12)), "cpu")
+    bad = np.array([[0, 0, 1, 1], [0, 1, 1, 1]], np.int32)
+    with pytest.raises(ValueError, match="nested"):
+        slot_step.check_anc_ranges(bad)
+    # the plain version takes any table: it equals the oracle on these
+    q, serving, locs = _fuzz_state(rng, 24, 4)
+    anc = Shuffled(24, (4, 12)).ancestors
+    est = _est(24, (0.5, 0.45, 0.35, 0.25))
+    _assert_same(ref.fleet_route(*(torch.from_numpy(np.ascontiguousarray(v))
+                                   for v in (q, serving, est, anc, locs))),
+                 rref.fleet_route(q, serving, est, anc, locs))
 
 
 @pytest.mark.parametrize("m,groups,rates", TOPOS, ids=IDS)
@@ -170,7 +307,8 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,groups,rates", TOPOS, ids=IDS)
+@pytest.mark.parametrize("m,groups,rates", TOPOS + RAGGED,
+                         ids=IDS + RAGGED_IDS)
 def test_cuda_kernel_matches_plain_version(m, groups, rates):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")

@@ -8,19 +8,30 @@ kernel through `repro.kernels.ops.ssd` in interpret mode, the oracle
 Inputs are made with numpy from a seed and handed to both.  Tolerances
 are those of tests/test_kernels_ssd.py: 3e-4 in float32 (the same
 float32 recurrence summed in another order), 3e-2 in bfloat16 (one bf16
-rounding of outputs of order 1, 2^-8 relative).
+rounding of outputs of order 1, 2^-8 relative).  On the card bf16 runs
+the chunked form on the tensor cores, which rounds three more things to
+bf16; a plain model of those rounding points is held here to the same
+limits, and each bf16 row to 1% of its largest value (`BF16_ROW_REL`
+of chip_smoke.py).  The `cuda`-marked tests need only the port: on a
+machine with the card and no JAX, `PYTHONPATH=src python -m pytest
+--noconftest -m cuda tests/test_torch_ssd.py`.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels import ops as rops, ref as rref
-from repro.models import ssm_ops as rssm
 from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.models import ssm_ops
-from _torch_port import single_torch_thread  # noqa: F401
+
+try:  # the JAX reference, which the CPU tests compare against
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as rops, ref as rref
+    from repro.models import ssm_ops as rssm
+    from _torch_port import single_torch_thread  # noqa: F401
+except ModuleNotFoundError:  # the port alone: only the cuda tests run
+    jnp = rops = rref = rssm = None
 
 CASES = [
     # b, t, h, p, n  (tests/test_kernels_ssd.py::CASES)
@@ -30,6 +41,9 @@ CASES = [
     (1, 512, 4, 64, 64),    # multi-chunk, square state
 ]
 TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+BF16_ROW_REL = 1e-2
+# mamba2-1.3b's head widths (P 64, N 128), a chunk and a ragged T
+MAMBA_CASES = [(1, 128, 2, 64, 128), (1, 300, 2, 64, 128)]
 
 
 def _inputs(case, seed=0):
@@ -58,6 +72,55 @@ def _close(got, want, tol, what):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=tol,
                                rtol=tol, err_msg=what)
+
+
+def _row_rel(got, want):
+    """Worst row's max |got - want| over the row's max |want| (rows: P)."""
+    diff = (got.float() - want.float()).abs()
+    return float((diff.amax(-1) / want.float().abs().amax(-1)
+                  .clamp_min(1e-30)).max())
+
+
+def _bf16(v):
+    return v.to(torch.bfloat16).float()
+
+
+def _hi_lo(v):
+    """v as the kernel feeds it to the tensor cores: bf16(v) + bf16(v -
+    bf16(v)), in float32."""
+    hi = _bf16(v)
+    return hi + _bf16(v - hi)
+
+
+def _chunked_bf16_model(x, a, b, c, h0, chunk=ssd_scan.TC_CHUNK):
+    """The tensor-core kernel's arithmetic in plain PyTorch: per chunk of
+    `chunk` steps, with lcum the prefix sum of a and total its last,
+    S' = C B^T exp(lcum_t - lcum_s) for s <= t, y = exp(lcum_t) C h^T +
+    S' X and h = exp(total) h + X^T (w o B), w_s = exp(total - lcum_s),
+    where S', h (in C h^T) and w o B each enter as a pair of bf16 hi +
+    lo (`_hi_lo`); float32 sums, every exponent clamped at 0."""
+    xf, bf, cf = (v.float() for v in (x, b, c))
+    h = h0.float().clone()
+    ys = []
+    for t0 in range(0, x.shape[1], chunk):
+        xs, bs, cs = (v[:, t0:t0 + chunk] for v in (xf, bf, cf))
+        lcum = torch.cumsum(a[:, t0:t0 + chunk].float(), 1)    # (B, l, H)
+        total = lcum[:, -1]
+        tri = torch.tril(torch.ones(xs.shape[1], xs.shape[1],
+                                    dtype=torch.bool))[None, :, :, None]
+        decay = torch.exp(torch.clamp(lcum[:, :, None] - lcum[:, None],
+                                      max=0))                    # (B,t,s,H)
+        scores = torch.einsum("btn,bsn->bts", cs, bs)[..., None]
+        sp = _hi_lo(torch.where(tri, scores * decay, torch.zeros(())))
+        y = (torch.exp(lcum)[..., None]
+             * torch.einsum("btn,bhpn->bthp", cs, _hi_lo(h))
+             + torch.einsum("btsh,bshp->bthp", sp, xs))
+        w = torch.exp(torch.clamp(total[:, None] - lcum, max=0))  # (B,s,H)
+        wb = _hi_lo(w[..., None] * bs[:, :, None, :])             # (B,s,H,N)
+        h = (torch.exp(total)[..., None, None] * h
+             + torch.einsum("bshp,bshn->bhpn", xs, wb))
+        ys.append(y)
+    return torch.cat(ys, 1).to(x.dtype), h
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -100,6 +163,50 @@ def test_ssd_initial_state_threading(fn):
     _, wh1 = rops.ssd(*(v[:, :128] for v in jx))
     _, wh2 = rops.ssd(*(v[:, 128:] for v in jx), init_state=wh1)
     _close(h2, wh2, tol, "threaded state vs the Pallas kernel")
+
+
+@pytest.mark.parametrize("case", CASES + MAMBA_CASES)
+def test_chunked_bf16_model_matches_reference(case):
+    """The tensor-core kernel's rounding points (S', w o B and the state
+    copy as bf16 hi + lo pairs, float32 sums) keep y within 3e-2 of
+    `ref.ssd` and of the JAX oracle, every row within 1% of its largest
+    value, and the float32 final state within float32's 3e-4 (the limit
+    chip_smoke.py holds it to), from a nonzero initial state."""
+    arrays = _inputs(case, seed=4)
+    x, a, b, c = _torch(arrays, torch.bfloat16)
+    h0 = torch.from_numpy(np.random.default_rng(7).normal(
+        size=case[:1] + case[2:]).astype(np.float32)) * 0.1
+    y, h = _chunked_bf16_model(x, a, b, c, h0)
+    assert y.dtype == torch.bfloat16 and y.shape == case[:4]
+    wy, wh = ref.ssd(x, a, b, c, init_state=h0)
+    tol, h_tol = TOL["bfloat16"], TOL["float32"]
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, wh, atol=h_tol, rtol=h_tol)
+    assert _row_rel(y, wy) <= BF16_ROW_REL
+    jy, jh = rref.ssd(*_jax(arrays, jnp.bfloat16),
+                      init_state=jnp.asarray(h0.numpy()))
+    _close(y, jy, tol, "y: chunked bf16 model vs the JAX oracle")
+    _close(h, jh, h_tol, "state: chunked bf16 model vs the JAX oracle")
+
+
+def test_route_sends_bf16_to_the_tensor_cores():
+    """bf16 at every Mamba-2 width the port serves takes the tensor-core
+    kernel; float32 and bf16 rows of 4 elements (not a multiple of 16
+    bytes, which TMA needs) take the recurrent one."""
+    from repro_torch.configs import registry
+
+    for get in (registry.get_config, registry.get_smoke_config):
+        cfg = get("mamba2_13b")
+        p, n = cfg.ssm.head_dim, cfg.ssm.d_state
+        assert ssd_scan.route(torch.bfloat16, p, n) == ssd_scan.TENSOR_CORES
+        assert ssd_scan.route(torch.float32, p, n) == ssd_scan.RECURRENT_F32
+    for p, n in ((8, 8), (16, 32), (32, 16), (64, 64), (64, 128)):
+        assert ssd_scan.route(torch.bfloat16, p, n) == ssd_scan.TENSOR_CORES
+    for p, n in ((4, 4), (8, 4), (4, 8), (128, 128)):
+        assert (ssd_scan.route(torch.bfloat16, p, n)
+                == ssd_scan.RECURRENT_BF16)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd_scan.route(torch.float16, 64, 128)
 
 
 def test_ssd_chunk_size_independence():
@@ -176,3 +283,28 @@ def test_cuda_kernel_matches_plain_version(case, dtype):
     tol = TOL[dtype]
     torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, wh, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 17, 129, 300])
+def test_cuda_bf16_tensor_core_kernel_at_ragged_lengths(t):
+    """The tensor-core kernel at mamba2-1.3b's head widths for lengths
+    below, across and past a chunk, from a nonzero state: y within 3e-2
+    of `ref.ssd`, every row within 1%, the float32 final state within
+    3e-4, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    case = (2, t, 4, 64, 128)
+    assert (ssd_scan.route(torch.bfloat16, 64, 128)
+            == ssd_scan.TENSOR_CORES)
+    x, a, b, c = _torch(_inputs(case, seed=5), torch.bfloat16,
+                        device="cuda")
+    h0 = torch.randn(case[:1] + case[2:], device="cuda") * 0.1
+    before = ops.LAUNCHES["ssd"]
+    y, h = ops.ssd(x, a, b, c, init_state=h0)
+    assert ops.LAUNCHES["ssd"] == before + 1
+    wy, wh = ref.ssd(x, a, b, c, init_state=h0)
+    tol, h_tol = TOL["bfloat16"], TOL["float32"]
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, wh, atol=h_tol, rtol=h_tol)
+    assert _row_rel(y.cpu(), wy.cpu()) <= BF16_ROW_REL
