@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--prev DIR]
 
 Needs one NVIDIA H100 (sm_90a) and nvcc.  With --prev, DIR holds the
-parent tree's kernel sources (csrc/): its all-pairs fleet_route kernel
-is built with the same flags and timed beside this tree's, and the fleet
-slots/s is measured with each in turn.  Phases, each fatal on failure:
+parent tree's kernel sources (csrc/): its fleet_route, wwl_route and
+maxweight kernels are built with the same flags, held against the plain
+versions and timed beside this tree's on the same inputs, and the fleet
+slots/s is measured with each fleet_route in turn.  Phases, each fatal
+on failure:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
 2. build: every kernel source under src/repro_torch/kernels/csrc/ with
@@ -15,9 +17,16 @@ slots/s is measured with each in turn.  Phases, each fatal on failure:
    outputs equal bit for bit, kernel and plain times by CUDA events, and
    the bound: `fleet_route`, `wwl_route` and `maxweight_claim` at the
    fleet shapes (M = 10008, B = 5474, depths 0, 1 and 2, tie-heavy
-   inputs; `fleet_route` also at ragged group sizes, racks of 4 and 8
-   and pods of 12 and 24, depths 1 and 2, with its device time by
-   `torch.profiler`);
+   inputs, and ragged group sizes, racks of 4 and 8 and pods of 12 and
+   24, depths 1 and 2), with device times by `torch.profiler` (for
+   `wwl_route` and `maxweight_claim`, the sum of a call's two
+   launches, issued in stream order, and each launch's own);
+   `wwl_route` and `maxweight_claim` also on the D=1 and D=2 tables with
+   their columns permuted, and `maxweight_claim` at near-ties (queue
+   lengths one float apart whose products round equal); each call's
+   launch count must move by one, and each must take the
+   group-restricted path on a sorted table and the all-pairs path on a
+   permuted one (read from the kernel's flag after the call);
 4. the fleet slice: `simulate("balanced_pandas", ...)` at M = 10008,
    rho = 0.8 (auto-engages the fleet path), with every launch count set
    to 0 just before and read just after; then 128 slots with the kernel
@@ -32,11 +41,13 @@ slots/s is measured with each in turn.  Phases, each fatal on failure:
    with its fatal checks (finite delays, throughput within 2% of lam at
    loads 0.6 and 0.8 for all but FIFO, Balanced-PANDAS at or below
    JSQ-MaxWeight at 0.95 with exact rates), then `ops.wwl_route` at
-   M = 1024, B = 128 against its plain version;
+   M = 1024, B = 128 against its plain version (group-restricted path);
 7. the kernel bench path (benchmarks/bench_kernels.py at full width),
    counts set to 0 before and read after: `ops.wwl_route` and
    `ops.maxweight_claim` at M = N = 65536, B = 8192 with the legacy rack
-   map, against their plain versions, then timed;
+   map, against their plain versions (group-restricted path), then
+   timed by events and on the device a call (with --prev, the parent's
+   all-pairs kernels beside them);
 8. dense loop: every policy's slot loop under
    `torch.cuda.set_sync_debug_mode("error")` (no host sync), and a
    profiled window of the Balanced-PANDAS dense step;
@@ -91,7 +102,10 @@ slots/s is measured with each in turn.  Phases, each fatal on failure:
    a profiled decode window;
 10. the launcher: `python -m repro_torch.launch.serve` with its
    defaults (the smoke config, on the card), then with `--arch
-   mamba2_13b`, counts set to 0 before and read after each.
+   mamba2_13b`, counts set to 0 before and read after each; then the
+   float32 `flash_attention` and `ssd` kernels at the largest shape the
+   launcher gave each, against their plain versions, timed by events
+   and on the device, with the bound (and SDPA for attention).
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -206,36 +220,67 @@ def fleet_route_topos():
              loc.Rates(0.5, 0.45, 0.35, 0.25)))
 
 
+# an earlier tree's scheduling kernels: (source, C entry point, pointer
+# arguments before and after its three ints, without a scratch pointer)
+PREV_KERNELS = {"fleet_route": ("fleet_route", "fleet_route_launch", 5, 4),
+                "wwl_route": ("wwl_route", "wwl_route_launch", 4, 4),
+                "maxweight_claim": ("maxweight", "maxweight_launch", 5, 3)}
+
+
 def load_prev(prev_dir):
-    """The parent tree's `fleet_route_launch` from `prev_dir`'s
-    fleet_route.cu (the all-pairs kernel the current one replaced),
-    built with this tree's flags into the build directory, with the same
-    C signature; None without a directory."""
+    """{kernel: an earlier tree's launch function} from `prev_dir`'s
+    fleet_route.cu, wwl_route.cu and maxweight.cu (and its headers),
+    built with this tree's flags into the build directory, one nvcc
+    each, all started together; None without a directory.  Each takes
+    this tree's wrapper's arguments, so it can stand in for the
+    wrapper's `_fn`: where a source's entry point takes no scratch
+    pointer (the all-pairs kernels of PR 16 and before), it is dropped."""
     import ctypes
+    import glob
     import hashlib
 
     from repro_torch.kernels import _build
 
     if prev_dir is None:
         return None
-    src = os.path.join(prev_dir, "fleet_route.cu")
-    digest = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"prev-fleet_route-{digest}.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
-                   check=True, capture_output=True, text=True, timeout=600)
-    fn = ctypes.CDLL(str(out)).fleet_route_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    return fn
+    headers = b"".join(open(h, "rb").read() for h in
+                       sorted(glob.glob(os.path.join(prev_dir, "*.cuh"))))
+    procs = {}
+    for name, (source, _, _, _) in PREV_KERNELS.items():
+        src = os.path.join(prev_dir, f"{source}.cu")
+        text = open(src, "rb").read()
+        digest = hashlib.sha256(text + headers).hexdigest()[:16]
+        out = _build.BUILD_DIR / f"prev-{source}-{digest}.so"
+        procs[name] = (out, b"void* scratch" in text, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (out, scratch, proc) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the parent's {name}:\n{log}")
+        _, entry, before, after = PREV_KERNELS[name]
+        fn = getattr(ctypes.CDLL(str(out)), entry)
+        fn.argtypes = ([ctypes.c_void_p] * before + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * (after + scratch))
+        fn.restype = ctypes.c_int
+        fns[name] = (fn if name == "fleet_route" or scratch
+                     else _without_scratch(fn))
+    return fns
+
+
+def _without_scratch(raw):
+    """An all-pairs launcher called with this tree's wrapper's
+    arguments, less the scratch pointer (the one before the stream)."""
+    return lambda *args: raw(*args[:-2], args[-1])
 
 
 def phase_kernels(dev, prev_fn=None):
     """fleet_route against its plain version at M = 10008, B = 5474, at
     each of `fleet_route_topos`, timed by CUDA events and on the device;
-    with `prev_fn` (the parent's all-pairs kernel, `load_prev`) that
-    kernel is checked and timed beside it on the same inputs."""
+    with `prev_fn` (the parent tree's kernel, `load_prev`) that kernel is
+    checked and timed beside it on the same inputs."""
     from repro_torch.core import locality as loc
     from repro_torch.kernels import ops, ref, slot_step
 
@@ -485,55 +530,154 @@ def _wwl_inputs(rng, m, b, anc, rates, ties):
             np.asarray(anc, np.int32), np.asarray(hot + cold, np.int32))
 
 
-def _mw_inputs(rng, n, b, anc, rates, ties):
+def near_tie(rng):
+    """(x, y, w): y = nextafter(x, 0) and a rate w whose products with
+    the two round to one float, searched with numpy."""
+    x = np.float32(3.0)
+    y = np.nextafter(x, np.float32(0))
+    while True:
+        w = np.float32(rng.uniform(0.2, 0.3))
+        if w * x == w * y:
+            return x, y, w
+
+
+def _mw_inputs(rng, n, b, anc, rates, ties, near=False):
     """Fleet-shape maxweight_claim inputs; `ties`: shared rates, so equal
-    small queues score exactly alike."""
+    small queues score exactly alike; `near`: queues of 0 and 1, then 48
+    queues of nextafter(x, 0), all at lower indices than 48 of x, under
+    a remote rate that rounds the two products to one float (the lowest
+    index must win, with the smaller queue)."""
     k = len(rates)
     q = rng.integers(0, 5, n).astype(np.float32)
     ids = rng.choice(n, b, replace=False).astype(np.int32)
     er = np.tile(rates, (b, 1))
     if not ties:
         er = er * rng.uniform(0.8, 1.2, (b, k))
+    er = er.astype(np.float32)
+    if near:
+        x, y, w = near_tie(rng)
+        q = np.minimum(q, 1).astype(np.float32)
+        pos = np.sort(rng.choice(n, 96, replace=False))
+        q[pos[:48]], q[pos[48:]] = y, x
+        er[:, k - 1] = w
     anc = np.asarray(anc, np.int32)
-    return q, anc, ids, anc[:, ids], er.astype(np.float32)
+    return q, anc, ids, anc[:, ids], er
 
 
-def phase_sched_kernels(dev):
+def sched_topos():
+    """(name, (D, M) table, rates) of phase 3's wwl_route and
+    maxweight_claim checks at M = 10008: `fleet_route_topos` (depths 0-2,
+    ragged sizes at depths 1-2), then the D=1 and D=2 tables with their
+    columns permuted (not sorted: the all-pairs path)."""
+    out = [(name, np.array(topo.ancestors), tuple(rates.as_array().tolist()))
+           for name, topo, rates in fleet_route_topos()]
+    perm = np.random.default_rng(7).permutation(M_FLEET)
+    out += [(f"permuted {name}", anc[:, perm], rates)
+            for name, anc, rates in out if name in ("D=1", "D=2")]
+    return out
+
+
+# profiler name fragments of each call's kernels: both passes of this
+# tree's, the one all-pairs kernel of the parent's
+SCHED_KERNEL_NAMES = {"wwl_route": "wwl_", "maxweight_claim": "maxweight_"}
+
+
+def _sched_times(name, call, plain, prev_fn, reps=KERNEL_REPS):
+    """ms by events, device ms a call (`_device_times`: the sum of its
+    kernels' mean durations, each kernel's beside it, and how many
+    kernels the profiler recorded) and plain ms; with `prev_fn`, the
+    parent's kernel in the wrapper's place, by events and on the
+    device."""
+    from repro_torch.kernels import maxweight, wwl_route
+
+    module = wwl_route if name == "wwl_route" else maxweight
+    frag = SCHED_KERNEL_NAMES[name]
+    split = _device_times(call, frag, reps)
+    row = dict(ms=_time_ms(call, reps),
+               device_ms=sum(split.values()) if split else None,
+               device_ms_by_kernel=split, kernels_a_call=len(split) or None,
+               plain_ms=_time_ms(plain, PLAIN_REPS),
+               prev_ms=None, prev_device_ms=None)
+    if prev_fn is not None:
+        with mock.patch.object(module, "_fn", prev_fn):
+            row.update(prev_ms=_time_ms(call, reps),
+                       prev_device_ms=_device_ms(call, frag, reps))
+    return row
+
+
+def _checked_call(name, kernel, plain, args, want_path, prev_fn=None):
+    """One call of the kernel against its plain version: (mismatches,
+    max_abs_err, path); raises if the launch count does not move by one
+    or the call took another path than `want_path`.  With `prev_fn`, the
+    parent's kernel is also held against the plain version on the same
+    inputs, and its mismatches are added."""
+    from repro_torch.kernels import maxweight, ops, wwl_route
+
+    module = wwl_route if name == "wwl_route" else maxweight
+    before = ops.LAUNCHES[name]
+    got = kernel(*args)
+    if ops.LAUNCHES[name] != before + 1:
+        raise AssertionError(f"{name}: one call moved LAUNCHES by "
+                             f"{ops.LAUNCHES[name] - before}")
+    want = plain(*args)
+    bad, err = _compare(got, want)
+    path = module.last_path()
+    if path != want_path:
+        raise AssertionError(f"{name} took the {path} path, want "
+                             f"{want_path}")
+    if prev_fn is not None:
+        with mock.patch.object(module, "_fn", prev_fn):
+            bad += _compare(kernel(*args), want)[0]
+    return bad, err, path
+
+
+def phase_sched_kernels(dev, prev=None):
     """wwl_route and maxweight_claim against their plain versions at the
-    fleet shapes, depths 0, 1 and 2, with and without exact ties."""
-    from repro_torch.core import locality as loc
+    fleet shapes (`sched_topos`: depths 0-2, ragged, permuted), with and
+    without exact ties, and maxweight_claim at near-ties; which path each
+    call took (group-restricted on the sorted tables, all-pairs on the
+    permuted), read after the call; times by events, on the device a
+    call (both passes) and, with `prev`, the parent's all-pairs kernels
+    beside them on the same inputs."""
     from repro_torch.kernels import ops, ref
 
     rng = np.random.default_rng(1)
     rows = {}
-    for m, groups, rates in FLEET_TOPOS:
-        anc = np.array(loc.Topology(m, groups).ancestors)
+    for topo, anc, rates in sched_topos():
         d, k = anc.shape[0], len(rates)
-        for name, make, kernel, plain, bound in (
+        want_path = "all-pairs" if topo.startswith("permuted") else "group"
+        for name, make, kernel, plain, bound, sets in (
                 ("wwl_route", _wwl_inputs, ops.wwl_route, ref.wwl_route,
-                 lambda a: _wwl_bound(a[2], a[3], k)),
+                 lambda a: _wwl_bound(a[2], a[3], k),
+                 ((True, False), (False, False), (True, False))),
                 ("maxweight_claim", _mw_inputs, ops.maxweight_claim,
                  ref.maxweight_claim, lambda a: _maxweight_bound(a[1], a[2],
-                                                                 k))):
-            mismatches, max_err = 0, 0.0
-            for ties in (True, False, True):
-                host = make(rng, m, B_FLEET, anc, rates, ties)
+                                                                 k),
+                 ((True, False), (True, True), (False, False)))):
+            mismatches, max_err, paths = 0, 0.0, []
+            pfn = prev[name] if prev else None
+            for ties, near in sets:
+                extra = {"near": True} if near else {}
+                host = make(rng, M_FLEET, B_FLEET, anc, rates, ties, **extra)
                 args = [torch.as_tensor(x, device=dev) for x in host]
-                bad, err = _compare(kernel(*args), plain(*args))
+                bad, err, path = _checked_call(name, kernel, plain, args,
+                                               want_path, pfn)
                 mismatches += bad
                 max_err = max(max_err, err)
-            ms = _time_ms(lambda: kernel(*args), KERNEL_REPS)
-            plain_ms = _time_ms(lambda: plain(*args), PLAIN_REPS)
-            bound_ms, bound_by, nbytes, nops = bound(host)
+                paths.append(path)
             row = dict(depth=d, mismatches=mismatches, max_abs_err=max_err,
-                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, bytes=nbytes, ops=nops)
-            rows[(name, d)] = row
-            print(f"{name} M={m} B={B_FLEET} D={d}: {json.dumps(row)}",
-                  flush=True)
+                       paths=paths)
+            row.update(_sched_times(name, lambda: kernel(*args),
+                                    lambda: plain(*args), pfn))
+            bound_ms, bound_by, nbytes, nops = bound(host)
+            row.update(bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       ops=nops)
+            rows[(name, topo)] = row
+            print(f"{name} M={M_FLEET} B={B_FLEET} {topo}: "
+                  f"{json.dumps(row)}", flush=True)
             if mismatches:
                 raise AssertionError(f"{name} kernel disagrees with its "
-                                     f"plain version at depth {d}: "
+                                     f"plain version at {topo}: "
                                      f"{mismatches} rows")
     return rows
 
@@ -603,7 +747,7 @@ def phase_quickstart(dev):
     (every policy on the dense path) and `ops.wwl_route` at M = 1024,
     B = 128 against its plain version."""
     from repro_torch.core import robustness as rb, simulator as sim
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, wwl_route
 
     cfg = _study_cfg()
     _zero_counts()
@@ -639,11 +783,15 @@ def phase_quickstart(dev):
     out = ops.wwl_route(wl, er, sr, tl)
     launches = _check_counts("quickstart", {"wwl_route": 1})
     bad, err = _compare(out, ref.wwl_route(wl, er, sr, tl))
+    path = wwl_route.last_path()
     mix = np.bincount(out[1].cpu().numpy(), minlength=3).tolist()
     print(f"quickstart layer 2: wwl_route({b} tasks x {m} servers) "
-          f"mismatches={bad} locality mix {mix}", flush=True)
+          f"mismatches={bad} path={path} locality mix {mix}", flush=True)
     if bad:
         raise AssertionError(f"quickstart wwl_route: {bad} mismatches")
+    if path != "group":
+        raise AssertionError(f"quickstart wwl_route took the {path} path "
+                             f"on a sorted rack map")
 
     lam = study["lam"]
     for algo, d in study["delay"].items():
@@ -671,11 +819,13 @@ def phase_quickstart(dev):
     return launches, rates, bad, err
 
 
-def phase_bench(dev):
+def phase_bench(dev, prev=None):
     """benchmarks/bench_kernels.py's scheduler rows at full width, counts
     set to 0 before and read after, then each kernel against its plain
-    version and timed."""
-    from repro_torch.kernels import ops, ref
+    version (the group-restricted path, as the sorted rack map gives)
+    and timed: by events, on the device a call (both passes) and, with
+    `prev`, the parent's all-pairs kernel in its place."""
+    from repro_torch.kernels import maxweight, ops, ref, wwl_route
 
     rng = np.random.default_rng(0)
     m, b = M_BENCH, B_BENCH
@@ -691,26 +841,34 @@ def phase_bench(dev):
 
     _zero_counts()
     wwl_out = ops.wwl_route(*wwl_args)
+    wwl_path = wwl_route.last_path()
     mw_out = ops.maxweight_claim(*mw_args)
+    mw_path = maxweight.last_path()
     launches = _check_counts("bench", {"wwl_route": 1,
                                        "maxweight_claim": 1})
     rows = {}
-    for name, out, kernel, plain, args, bound in (
-            ("wwl_route", wwl_out, ops.wwl_route, ref.wwl_route, wwl_args,
-             _wwl_bound(sr[None], tl, 3)),
-            ("maxweight_claim", mw_out, ops.maxweight_claim,
+    for name, out, path, kernel, plain, args, bound in (
+            ("wwl_route", wwl_out, wwl_path, ops.wwl_route, ref.wwl_route,
+             wwl_args, _wwl_bound(sr[None], tl, 3)),
+            ("maxweight_claim", mw_out, mw_path, ops.maxweight_claim,
              ref.maxweight_claim, mw_args, _maxweight_bound(sr[None], ids,
                                                             3))):
         bad, err = _compare(out, plain(*args))
-        rows[name] = dict(mismatches=bad, max_abs_err=err,
-                          ms=_time_ms(lambda: kernel(*args), KERNEL_REPS),
-                          plain_ms=_time_ms(lambda: plain(*args), PLAIN_REPS),
+        pfn = prev[name] if prev else None
+        if pfn is not None:
+            bad += _checked_call(name, kernel, plain, args, path, pfn)[0]
+        rows[name] = dict(mismatches=bad, max_abs_err=err, path=path,
                           bound_ms=bound[0], bound_by=bound[1],
                           bytes=bound[2], ops=bound[3])
+        rows[name].update(_sched_times(name, lambda: kernel(*args),
+                                       lambda: plain(*args), pfn))
         print(f"{name} bench M={m} B={b}: {json.dumps(rows[name])}",
               flush=True)
         if bad:
             raise AssertionError(f"{name} at bench width: {bad} mismatches")
+        if path != "group":
+            raise AssertionError(f"{name} at bench width took the {path} "
+                                 f"path on a sorted rack map")
         torch.cuda.empty_cache()
     return launches, rows
 
@@ -870,12 +1028,14 @@ def _attn_check(name, out, plain, dtype, kernel="flash_attention",
     return err, row_rel
 
 
-def _device_ms(fn, kernel: str, reps: int):
-    """Mean device ms of one launch of the kernel whose name holds
-    `kernel`, over `reps` calls of `fn` under `torch.profiler` (CUDA
-    events time the host's enqueue where that is the slower); None if
-    the profiler records no device time for it in three tries (it
+def _device_times(fn, frag: str, reps: int) -> dict:
+    """{kernel: mean device ms of one launch} of the kernels whose names
+    hold `frag`, over `reps` calls of `fn` under `torch.profiler` (CUDA
+    events time the host's enqueue where that is the slower); {} if the
+    profiler records no device time for them in three tries (it
     sometimes records no kernel of a window at all)."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -886,16 +1046,29 @@ def _device_ms(fn, kernel: str, reps: int):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if kernel in e.key]
-        total, count = (sum(e.device_time_total for e in evs),
-                        sum(e.count for e in evs))
-        if count and total:
-            return total / count / 1e3
+        times = {}
+        for e in prof.key_averages():
+            if frag in e.key and e.count and e.device_time_total:
+                name = re.search(r"\w*" + re.escape(frag) + r"\w*",
+                                 e.key).group(0)
+                times[name] = (times.get(name, 0.0)
+                               + e.device_time_total / e.count / 1e3)
+        if times:
+            return times
         top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
-        print(f"profiler: no device time for {kernel}; top events "
+        print(f"profiler: no device time for {frag}; top events "
               f"{[(e.key[:60], e.count, e.device_time_total) for e in top[:4]]}",
               flush=True)
-    return None
+    return {}
+
+
+def _device_ms(fn, frag: str, reps: int):
+    """Device ms of one call of `fn`: the sum, over the kernels whose
+    names hold `frag` (each launched once a call, in stream order), of
+    each one's mean launch (`_device_times`); None if the profiler
+    recorded none."""
+    times = _device_times(fn, frag, reps)
+    return sum(times.values()) if times else None
 
 
 def _sdpa_fn(q, k, v, scale):
@@ -1525,24 +1698,87 @@ def decode_window(dev, eng, ecfg, reqs) -> dict:
     return decode
 
 
+def _launcher_row(name, calls, dev_kernel):
+    """The kernel at the largest shape the launcher gave it (the smoke
+    config, float32): its error against the plain version, times by
+    events and on the device, the plain version's, the bound and, for
+    attention without window or softcap, one SDPA call."""
+    from repro_torch.kernels import ops, ref
+
+    args, kwargs = max(calls, key=lambda c: c[0][0].numel())
+    dtype = args[0].dtype
+    if name == "flash_attention":
+        q, k, v = args
+        kernel = lambda: ops.flash_attention(*args, **kwargs)  # noqa: E731
+        plain = lambda: ref.mha(*args, **kwargs)  # noqa: E731
+        shape = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                 q.shape[3])
+        bound = _attn_bound(shape, kwargs.get("causal", True),
+                            kwargs.get("window", 0), dtype)
+        err = _attn_check(f"launcher {shape}", kernel(), plain(), dtype)[0]
+        library = (_sdpa_fn(q, k, v, kwargs.get("scale") or
+                            q.shape[-1] ** -0.5)
+                   if not kwargs.get("window") and not kwargs.get("softcap")
+                   and kwargs.get("causal", True) and shape[3] == shape[4]
+                   else None)
+    else:
+        x, a, b, c = args[:4]
+        init = kwargs.get("init_state", args[4] if len(args) > 4 else None)
+        kernel = lambda: ops.ssd(x, a, b, c, init_state=init)  # noqa: E731
+        plain = lambda: ref.ssd(x, a, b, c, init)  # noqa: E731
+        shape = tuple(x.shape) + (b.shape[-1],)
+        bound = _ssd_bound(shape, dtype)
+        err = _ssd_check(f"launcher {shape}", kernel(), plain(), dtype)[0]
+        library = None
+    row = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+               calls=len(calls), max_abs_err=err,
+               ms=_time_ms(kernel, KERNEL_REPS),
+               device_ms=_device_ms(kernel, dev_kernel, KERNEL_REPS),
+               plain_ms=_time_ms(plain, PLAIN_REPS), bound_ms=bound[0],
+               bound_by=bound[1], library_ms=(_time_ms(library, KERNEL_REPS)
+                                              if library else None))
+    print(f"{name} at the launcher's largest shape: {json.dumps(row)}",
+          flush=True)
+    return row
+
+
 def phase_launcher(dev):
     """`python -m repro_torch.launch.serve` with its defaults (the smoke
     config on the card), then with `--arch mamba2_13b`, counts set to 0
-    before and read after each."""
+    before and read after each; each kernel's calls are recorded, and the
+    kernel is then timed at the largest shape the launcher gave it
+    (`_launcher_row`)."""
     from repro_torch.configs import registry
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
+    seen = {"flash_attention": [], "ssd": []}
+
+    def recorded(name):
+        real = getattr(ops, name)
+
+        def call(*args, **kwargs):
+            seen[name].append((args, kwargs))
+            return real(*args, **kwargs)
+        return mock.patch.object(ops, name, call)
+
     _zero_counts()
-    serve.main([])
+    with recorded("flash_attention"):
+        serve.main([])
     layers = registry.get_smoke_config("chatglm3_6b").num_layers
     got = {SERVE_ARCH: _check_counts("launcher",
                                      {"flash_attention": layers * 16})}
     _zero_counts()
-    serve.main(["--arch", MAMBA_ARCH])
+    with recorded("ssd"):
+        serve.main(["--arch", MAMBA_ARCH])
     layers = registry.get_smoke_config(MAMBA_ARCH).num_layers
     got[MAMBA_ARCH] = _check_counts("launcher --arch mamba2_13b",
                                     {"ssd": layers * 16})
-    return got
+    rows = {"flash_attention": _launcher_row(
+                "flash_attention", seen["flash_attention"],
+                "attention_f32_kernel"),
+            "ssd": _launcher_row("ssd", seen["ssd"], SSD_REC_KERNEL)}
+    return got, rows
 
 
 def main(argv=None) -> int:
@@ -1551,7 +1787,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--prev", default=None, help=(
         "a directory holding the parent tree's kernel sources (csrc/): "
-        "its fleet_route kernel is built and timed beside this tree's"))
+        "its fleet_route, wwl_route and maxweight kernels are built and "
+        "timed beside this tree's"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1572,13 +1809,14 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    prev_fn = load_prev(args.prev)
-    rows = phase_kernels(dev, prev_fn)
-    sched_rows = phase_sched_kernels(dev)
+    prev = load_prev(args.prev)
+    prev_route = prev["fleet_route"] if prev else None
+    rows = phase_kernels(dev, prev_route)
+    sched_rows = phase_sched_kernels(dev, prev)
     launches, _, (cfg, lam, est_t) = phase_slice(dev)
-    phase_profile(dev, cfg, lam, est_t, prev_fn=prev_fn)
+    phase_profile(dev, cfg, lam, est_t, prev_fn=prev_route)
     quick_launches, _, quick_bad, quick_err = phase_quickstart(dev)
-    bench_launches, bench_rows = phase_bench(dev)
+    bench_launches, bench_rows = phase_bench(dev, prev)
     phase_dense_loop(dev)
     attn_rows, attn_err, attn_build = phase_attention(dev)
     serve_launches, _, _, _ = phase_serving(dev)
@@ -1586,7 +1824,7 @@ def main(argv=None) -> int:
     ssd_rows, ssd_err, ssd_build = phase_ssd(dev)
     mamba_launches, _, _, _ = phase_serving(dev, MAMBA_ARCH)
     torch.cuda.empty_cache()
-    phase_launcher(dev)
+    _, launcher_rows = phase_launcher(dev)
 
     main_row = rows["D=1"]  # the slice's Topology(10008, 6)
     timed = ("ms", "device_ms", "prev_ms", "prev_device_ms", "bound_ms")
@@ -1608,20 +1846,27 @@ def main(argv=None) -> int:
              "src/repro/kernels/wwl_route.py:41"),
             ("maxweight_claim", "src/repro_torch/kernels/csrc/maxweight.cu",
              "src/repro/kernels/maxweight.py:24")):
-        fleet_rows = [r for (n, _), r in sched_rows.items() if n == name]
+        fleet_rows = {t: r for (n, t), r in sched_rows.items() if n == name}
         bench = bench_rows[name]  # the bench path's full width
         extra = (quick_bad, quick_err) if name == "wwl_route" else (0, 0.0)
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": quick_launches[name] + bench_launches[name],
-            "mismatches": (sum(r["mismatches"] for r in fleet_rows)
+            "mismatches": (sum(r["mismatches"] for r in fleet_rows.values())
                            + bench["mismatches"] + extra[0]),
-            "max_abs_err": max([r["max_abs_err"] for r in fleet_rows]
+            "max_abs_err": max([r["max_abs_err"]
+                                for r in fleet_rows.values()]
                                + [bench["max_abs_err"], extra[1]]),
             "ms": bench["ms"], "plain_ms": bench["plain_ms"],
             "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
-            "library_ms": None})
+            "library_ms": None, "device_ms": bench["device_ms"],
+            "device_ms_by_kernel": bench["device_ms_by_kernel"],
+            "kernels_a_call": bench["kernels_a_call"],
+            "prev_ms": bench["prev_ms"],
+            "prev_device_ms": bench["prev_device_ms"],
+            "topologies": {t: {k: r[k] for k in timed + ("paths",)}
+                           for t, r in fleet_rows.items()}})
     main_attn = attn_rows[max((k for k in attn_rows
                                if k.startswith("prefill_")),
                               key=lambda k: attn_rows[k]["shape"][3])]
@@ -1641,6 +1886,7 @@ def main(argv=None) -> int:
         "f32": {k: attn_rows["f32"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
+        "launcher": launcher_rows["flash_attention"],
         "hgmma": {n: r["hgmma"] for n, r in attn_build.items()}})
     main_ssd = ssd_rows[max((k for k in ssd_rows if k != "long"),
                             key=lambda k: ssd_rows[k]["shape"][1])]
@@ -1662,6 +1908,7 @@ def main(argv=None) -> int:
         "buckets": {n: {k: r[k] for k in ("ms", "device_ms", "recurrent_ms",
                                           "recurrent_device_ms")}
                     for n, r in ssd_rows.items()},
+        "launcher": launcher_rows["ssd"],
         "ptxas": {n: {k: r.get(k) for k in ("registers", "spill_stores",
                                             "hgmma")}
                   for n, r in ssd_build.items()}})

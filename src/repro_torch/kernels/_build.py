@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``kernels/_build/<name>-<digest>.so`` (the digest covers
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded).  No PyTorch header is included, which keeps a
+the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source or header is rebuilt and a stale library is never
+loaded).  No PyTorch header is included, which keeps a
 build to seconds; pointers and the stream cross as ``ctypes.c_void_p``.
 Nothing is built or loaded when this module is imported.
 
@@ -81,7 +82,9 @@ def sources() -> Iterable[str]:
 def library_path(name: str) -> Path:
     """Where csrc/<name>.cu's library is (or will be) built."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -33,15 +33,16 @@
 //     ids at every level (the same addresses on all lanes: broadcasts).
 //   * D = 0: the set is the three locals, scored by lanes 0..2.
 //   * D >= 1: the ends of each local's top-level group g = anc[D-1][l]
-//     in the row anc[D-1]: the warp loads the 32 ids around l (servers
-//     l - 16 .. l + 15) in one coalesced load, in the same round as the
-//     locals' group ids, and a ballot of the lanes equal to g gives both
-//     ends when they lie inside.  A group that reaches past the window
-//     (more than 16 servers on a side) is finished by lanes 0..5 in
-//     parallel, galloping outward from the window's edge (steps 1, 2,
-//     4, ...) until the id differs or the row ends, then bisecting the
-//     last step.  A group already seen for this task (an equal id) is
-//     skipped; the lanes stride over the distinct ranges.
+//     in the row anc[D-1], by `run_bounds` (group_select.cuh, shared
+//     with wwl_route.cu and maxweight.cu): lanes 0..15 read the 16 ids
+//     below the local and lanes 16..31 the 16 above it, a ballot of
+//     those equal to g brackets each end, an end past that window is
+//     bracketed by a second round at distances 32, 48, ..., 272 (or by
+//     the row's end), and a bracket wider than one is narrowed 16-ary.
+//     A group of up to 16 servers is found in one round of loads (the
+//     fleet cell's six), one of up to 272 in at most three.  A group
+//     already seen for this task (an equal id) is skipped; the lanes
+//     stride over the distinct ranges.
 //   * Per server a lane computes W_m with the operations above in the
 //     order above (the workload is recomputed for each task that scores
 //     the server, about 10x redundant at the fleet shape and trivial
@@ -58,7 +59,7 @@
 // (task, server) pair) is a few million operations: it is bytes-bound.
 // The kernel reads the server arrays of the private sets only (about
 // 98k scores a launch at the fleet cell) and is bound by the latency of
-// its chain of dependent loads (locals, their groups, the gallop, the
+// its chain of dependent loads (locals, their groups, the range probes, the
 // server data) and by the launch: on an H100 80GB HBM3 at 700 W it takes
 // about 7 us on the device at D = 1 (4 us at D = 0, 21 us at D = 2 with
 // up to 216 servers a task), against 0.14 ms for the all-pairs kernel it
@@ -67,41 +68,16 @@
 
 #include <cuda_runtime.h>
 
+#include "group_select.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTasks = kThreads / 32;  // tasks a block: one warp each
 constexpr float kLarge = 3.0e38f;
-constexpr unsigned kAll = 0xffffffffu;
-constexpr int kHalf = 16;  // a local's window: servers l - 16 .. l + 15
 
 __device__ __forceinline__ bool beats(float sa, int ia, float sb, int ib) {
   return sa < sb || (sa == sb && ia < ib);
-}
-
-// One end of the run of `g` that holds position `l` in the non-decreasing
-// row `r` of length m: the first index of the run (up = false) or one past
-// its last (up = true).  Gallops outward from l, then bisects.
-__device__ int run_end(const int* __restrict__ r, int m, int l, int g,
-                       bool up) {
-  int known = l, bad, step = 1;  // r[known] == g; r[bad] != g or outside
-  while (true) {
-    const int probe = up ? known + step : known - step;
-    if (probe < 0 || probe >= m || r[probe] != g) {
-      bad = probe < 0 ? -1 : (probe >= m ? m : probe);
-      break;
-    }
-    known = probe;
-    step <<= 1;
-  }
-  while (bad - known > 1 || known - bad > 1) {
-    const int mid = (known + bad) / 2;
-    if (r[mid] == g)
-      known = mid;
-    else
-      bad = mid;
-  }
-  return up ? known + 1 : known;
 }
 
 template <int D>
@@ -134,49 +110,8 @@ fleet_route_kernel(const int* __restrict__ q, const int* __restrict__ serving,
       hi[j] = loc[j] + 1;
     }
   } else {
-    const int* top = anc + (D - 1) * m;
-    // one coalesced load a local: lane i holds the top-level id of server
-    // l - kHalf + i (-1 outside the row, never an id); the ballot of the
-    // lanes equal to the local's group then shows the run's ends when
-    // they lie inside the window
-    bool far_lo[3], far_hi[3], far = false;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int pos = loc[j] - kHalf + lane;
-      const int id = pos >= 0 && pos < m ? top[pos] : -1;
-      const unsigned same = __ballot_sync(kAll, id == grp[D - 1][j]);
-      const unsigned below = ~same & ((1u << kHalf) - 1u);
-      const unsigned above = ~same & ~((2u << kHalf) - 1u);
-      lo[j] = loc[j] - kHalf + (32 - __clz(below));  // past the last miss
-      hi[j] = loc[j] - kHalf + (__ffs(above) - 1);    // the first miss
-      far_lo[j] = below == 0;
-      far_hi[j] = above == 0;
-      far = far || far_lo[j] || far_hi[j];
-    }
-    if (far) {
-      // a run past the window (warp-uniform): lanes 0..5 gallop on from
-      // its edges, the lower and the upper end of each local's group
-      int end = 0;
-      if (lane < 6) {
-        const int j = lane >> 1;
-        const bool up = lane & 1;
-        const int l = j == 0 ? loc[0] : (j == 1 ? loc[1] : loc[2]);
-        const int g = j == 0 ? grp[D - 1][0]
-                             : (j == 1 ? grp[D - 1][1] : grp[D - 1][2]);
-        const bool go = up ? (j == 0 ? far_hi[0]
-                                     : (j == 1 ? far_hi[1] : far_hi[2]))
-                           : (j == 0 ? far_lo[0]
-                                     : (j == 1 ? far_lo[1] : far_lo[2]));
-        if (go) end = run_end(top, m, up ? l + kHalf - 1 : l - kHalf, g, up);
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int e_lo = __shfl_sync(kAll, end, 2 * j);
-        const int e_hi = __shfl_sync(kAll, end, 2 * j + 1);
-        if (far_lo[j]) lo[j] = e_lo;
-        if (far_hi[j]) hi[j] = e_hi;
-      }
-    }
+    const int g[3] = {grp[D - 1][0], grp[D - 1][1], grp[D - 1][2]};
+    run_bounds<32, 3>(anc + (D - 1) * m, m, loc, g, lane, kAll, 0, lo, hi);
     if (grp[D - 1][1] == grp[D - 1][0]) hi[1] = lo[1];
     if (grp[D - 1][2] == grp[D - 1][0] || grp[D - 1][2] == grp[D - 1][1])
       hi[2] = lo[2];

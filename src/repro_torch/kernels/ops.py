@@ -38,7 +38,10 @@ def wwl_route(workload: torch.Tensor, est_rates: torch.Tensor,
 
     `server_anc` is the (depth, M) ancestor table (a legacy (M,) rack map
     is accepted).  Returns (server (B,) int32, tier (B,) int32, score (B,)
-    float32)."""
+    float32).  On the card a call is two launches: each task scans its
+    locals' top-level groups when the table is sorted and nested (checked
+    on the card), every server otherwise; any table gives the plain
+    version's answer."""
     anc = ref._as_anc(server_anc)
     if not workload.is_cuda:
         return ref.wwl_route(workload, est_rates, anc, task_locals)
@@ -69,7 +72,11 @@ def maxweight_claim(queues: torch.Tensor, queue_anc: torch.Tensor,
 
     Ancestor tables are (depth, N) / (depth, B) (legacy rack maps
     accepted).  Returns (queue (B,) int32, score (B,) float32); a row
-    whose queues are all empty gives queue 0 and score -inf."""
+    whose queues are all empty gives queue 0 and score -inf.  On the card
+    a call is two launches: each idle server scans its own top-level
+    group when the queue table is sorted and nested and `idle_anc` is its
+    columns at `idle_servers` (checked on the card), every queue
+    otherwise; any input gives the plain version's answer."""
     qa, ia = ref._as_anc(queue_anc), ref._as_anc(idle_anc)
     if not queues.is_cuda:
         return ref.maxweight_claim(queues, qa, idle_servers, ia, est_rates)
