@@ -26,7 +26,12 @@ on failure:
    lengths one float apart whose products round equal); each call's
    launch count must move by one, and each must take the
    group-restricted path on a sorted table and the all-pairs path on a
-   permuted one (read from the kernel's flag after the call);
+   permuted one (read from the kernel's flag after the call); then
+   `fleet_route` with a cell axis at the D = 1 fleet shape for N = 1, 8
+   and 30 cells: bit for bit against the plain version and against N
+   one-cell launches, one launch a call, device time beside N x the
+   one-cell time, and the bound (with --prev, the parent's one-cell
+   kernel at N = 1);
 4. the fleet slice: `simulate("balanced_pandas", ...)` at M = 10008,
    rho = 0.8 (auto-engages the fleet path), with every launch count set
    to 0 just before and read just after; then 128 slots with the kernel
@@ -34,6 +39,16 @@ on failure:
 5. fleet profile: steady-state slots/s (with --prev, also this tree's
    fleet_route and the parent's in turn), and the device's busy share
    and time by kernel over a window of slots under `torch.profiler`;
+5b. the fleet study: `run_study(fleet=True)` for Balanced-PANDAS and
+   power-of-d at phase 4's configuration, loads 0.6/0.8/0.95 x exact and
+   "per_server" eps 0.1/0.3 of both signs x seeds 0-1 (30 cells, one
+   batch per arm), counts set to 0 before each and read after
+   (fleet_route = rounds x horizon for Balanced-PANDAS whatever the
+   cell count, 0 for power-of-d); fatal: delays not finite, a cell's
+   throughput at loads 0.6 and 0.8 off lam by more than 2%, two sampled
+   cells per arm unequal to `simulate` of that cell; cell-slots/s beside
+   phase 5's one-cell slots/s, and a profiled window of the batched
+   Balanced-PANDAS step at the 30 cells;
 6. the quickstart path (examples/quickstart.py, layers 1 and 2), counts
    set to 0 before and read after: the paper's robustness study through
    `run_study` for all five policies on the dense path (Topology(24, 6),
@@ -48,7 +63,9 @@ on failure:
    map, against their plain versions (group-restricted path), then
    timed by events and on the device a call (with --prev, the parent's
    all-pairs kernels beside them);
-8. dense loop: every policy's slot loop under
+8. dense loop: every registered policy's slot loop (Blind-PANDAS and
+   SLO-PANDAS too) and the batched fleet steps of Balanced-PANDAS and
+   power-of-d at the fleet study's 30 cells under
    `torch.cuda.set_sync_debug_mode("error")` (no host sync), and a
    profiled window of the Balanced-PANDAS dense step;
 3b. (run after 8) flash_attention: the bf16 kernel's ptxas summary
@@ -225,6 +242,9 @@ def fleet_route_topos():
 PREV_KERNELS = {"fleet_route": ("fleet_route", "fleet_route_launch", 5, 4),
                 "wwl_route": ("wwl_route", "wwl_route_launch", 4, 4),
                 "maxweight_claim": ("maxweight", "maxweight_launch", 5, 3)}
+# the cell count that fleet_route's entry takes after its three ints
+# since it routes a study's cells in one launch
+FLEET_ROUTE_CELLS_ARG = rb"fleet_route_launch\([^)]*\bint n,"
 
 
 def load_prev(prev_dir):
@@ -234,10 +254,13 @@ def load_prev(prev_dir):
     each, all started together; None without a directory.  Each takes
     this tree's wrapper's arguments, so it can stand in for the
     wrapper's `_fn`: where a source's entry point takes no scratch
-    pointer (the all-pairs kernels of PR 16 and before), it is dropped."""
+    pointer (the earlier all-pairs kernels), it is dropped,
+    and where its `fleet_route` takes no cell count (a tree from before
+    the cell axis: one cell a launch), so is the count, which must be 1."""
     import ctypes
     import glob
     import hashlib
+    import re
 
     from repro_torch.kernels import _build
 
@@ -252,22 +275,38 @@ def load_prev(prev_dir):
         text = open(src, "rb").read()
         digest = hashlib.sha256(text + headers).hexdigest()[:16]
         out = _build.BUILD_DIR / f"prev-{source}-{digest}.so"
-        procs[name] = (out, b"void* scratch" in text, subprocess.Popen(
+        procs[name] = (out, b"void* scratch" in text,
+                       bool(re.search(FLEET_ROUTE_CELLS_ARG, text)),
+                       subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
-    for name, (out, scratch, proc) in procs.items():
+    for name, (out, scratch, cells, proc) in procs.items():
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the parent's {name}:\n{log}")
         _, entry, before, after = PREV_KERNELS[name]
         fn = getattr(ctypes.CDLL(str(out)), entry)
-        fn.argtypes = ([ctypes.c_void_p] * before + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * before
+                       + [ctypes.c_int] * (3 + cells)
                        + [ctypes.c_void_p] * (after + scratch))
         fn.restype = ctypes.c_int
-        fns[name] = (fn if name == "fleet_route" or scratch
-                     else _without_scratch(fn))
+        if name == "fleet_route":
+            fns[name] = fn if cells else _one_cell(fn)
+        else:
+            fns[name] = fn if scratch else _without_scratch(fn)
     return fns
+
+
+def _one_cell(raw):
+    """A one-cell fleet_route launcher called with this tree's wrapper's
+    arguments, less the cell count (the ninth), which must be 1."""
+    def call(*args):
+        if args[8] != 1:
+            raise ValueError("the parent's fleet_route routes one cell a "
+                             "launch")
+        return raw(*args[:8], *args[9:])
+    return call
 
 
 def _without_scratch(raw):
@@ -332,6 +371,78 @@ def phase_kernels(dev, prev_fn=None):
     return rows
 
 
+BATCH_CELLS = (1, 8, 30)   # the fleet study's grid is 30 cells
+
+
+def phase_batched_route(dev, prev_fn=None):
+    """fleet_route with a cell axis at the fleet shape (M = 10008, B =
+    5474, D = 1) for N = 1, 8 and 30 cells of their own tie-heavy states:
+    bit for bit against the plain version and against N one-cell
+    launches, one launch a call; events and device time beside N x the
+    one-cell device time, and the bound, N cells' bytes (the table read
+    once) against their operations.  With `prev_fn`, the parent's
+    one-cell kernel is timed at N = 1 beside it."""
+    from repro_torch.core import locality as loc
+    from repro_torch.kernels import ops, ref, slot_step
+
+    rng = np.random.default_rng(1)
+    topo, rates = loc.Topology(M_FLEET, 6), loc.Rates()
+    k, d = topo.num_tiers, topo.depth
+    anc = torch.as_tensor(np.array(topo.ancestors), device=dev)
+    est1 = loc.per_server_rates(rates.as_array(dev), M_FLEET).contiguous()
+    rows = {}
+    for n in BATCH_CELLS:
+        cells = [_fuzz_state(rng, M_FLEET, k, B_FLEET) for _ in range(n)]
+        q, serving, locs = (torch.as_tensor(np.stack(x), device=dev)
+                            for x in zip(*cells))
+        est = est1.expand(n, M_FLEET, k).contiguous()
+        before = ops.LAUNCHES["fleet_route"]
+        got = ops.fleet_route(q, serving, est, anc, locs)
+        calls = ops.LAUNCHES["fleet_route"] - before
+        mismatches, max_err = _compare(got, ref.fleet_route(q, serving, est,
+                                                            anc, locs))
+        singles = [ops.fleet_route(q[c], serving[c], est[c], anc, locs[c])
+                   for c in range(n)]
+        single_bad = _compare(got, tuple(torch.stack(x)
+                                         for x in zip(*singles)))[0]
+        call = lambda: ops.fleet_route(q, serving, est, anc, locs)  # noqa
+        one = lambda: ops.fleet_route(q[0], serving[0], est[0], anc,  # noqa
+                                      locs[0])
+        bounds = [_fleet_route_bound(topo, est1.cpu(), c[2]) for c in cells]
+        nbytes = sum(b[2] for b in bounds) - (n - 1) * 4 * d * M_FLEET
+        nops = sum(b[3] for b in bounds)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+        row = dict(cells=n, launches_a_call=calls, mismatches=mismatches,
+                   single_cell_mismatches=single_bad, max_abs_err=max_err,
+                   ms=_time_ms(call, KERNEL_REPS),
+                   device_ms=_device_ms(call, FLEET_ROUTE_KERNEL,
+                                        KERNEL_REPS),
+                   one_cell_device_ms=_device_ms(one, FLEET_ROUTE_KERNEL,
+                                                 KERNEL_REPS),
+                   plain_ms=_time_ms(lambda: ref.fleet_route(
+                       q, serving, est, anc, locs), 2),
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, ops=nops, prev_device_ms=None)
+        if row["one_cell_device_ms"] and row["device_ms"]:
+            row["device_ms_over_n_cells"] = (row["device_ms"]
+                                             / (n * row["one_cell_device_ms"]))
+        if prev_fn is not None and n == 1:
+            with mock.patch.object(slot_step, "_fn", prev_fn):
+                row["prev_device_ms"] = _device_ms(call, FLEET_ROUTE_KERNEL,
+                                                   KERNEL_REPS)
+        rows[n] = row
+        print(f"fleet_route batched N={n}: {json.dumps(row)}", flush=True)
+        if mismatches or single_bad or calls != 1:
+            raise AssertionError(f"batched fleet_route at N={n}: "
+                                 f"{mismatches} tasks differ from the plain "
+                                 f"version, {single_bad} from one-cell "
+                                 f"launches, {calls} launches a call")
+        del q, serving, locs, est, got, singles
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_slice(dev):
     """The fleet path at M = 10008 through `simulate`, and kernel on/off."""
     from repro_torch.core import locality as loc, simulator as sim
@@ -371,13 +482,13 @@ def phase_slice(dev):
         raise AssertionError(f"mean_delay {out['mean_delay']} not finite")
 
     # kernel on/off: same seed, 128 slots, identical carry
-    est_t = torch.as_tensor(est, device=dev)
+    est_t = torch.as_tensor(est, device=dev)[None].contiguous()
     carries = []
     for use_kernel in (True, False):
         init, step = fleet._build_fleet_step(
             "balanced_pandas", cfg, fleet.FleetConfig(use_kernel=use_kernel),
             dev)
-        src = DeviceSource(0, lam, cfg.max_arrivals, M_FLEET, dev)
+        src = DeviceSource([(0, lam)], cfg.max_arrivals, M_FLEET, dev)
         carry = init()
         for t in range(128):
             carry = step(carry, t, est_t, src.slot(t))
@@ -390,14 +501,16 @@ def phase_slice(dev):
     return launches, res, (cfg, lam, est_t)
 
 
-def phase_profile(dev, cfg, lam, est_t, slots: int = 32, prev_fn=None,
-                  ab_slots: int = 64):
-    """Where a slot's time goes: steady-state slots/s without the
-    profiler, then one profiled window — the device's busy share (kernel
-    time over wall time) and the device time of the top kernels.  With
-    `prev_fn` (the parent's fleet_route kernel), steady slots/s over
-    `ab_slots` slots with this tree's kernel and the parent's in turn
-    (new, parent, parent, new, new, parent), the same carry going on."""
+def phase_profile(dev, cfg, cells, est_t, slots: int = 32, prev_fn=None,
+                  ab_slots: int = 64, label: str = f"M={M_FLEET}"):
+    """Where a slot's time goes, for the cells ``[(seed, lam), ...]`` with
+    (N, M, K) estimates `est_t` as one batch: steady-state slots/s
+    without the profiler, then one profiled window — the device's busy
+    share (kernel time over wall time) and the device time of the top
+    kernels.  With `prev_fn` (the parent's fleet_route kernel), steady
+    slots/s over `ab_slots` slots with this tree's kernel and the
+    parent's in turn (new, parent, parent, new, new, parent), the same
+    carry going on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.rng import DeviceSource
@@ -405,8 +518,8 @@ def phase_profile(dev, cfg, lam, est_t, slots: int = 32, prev_fn=None,
 
     init, step = fleet._build_fleet_step("balanced_pandas", cfg,
                                          fleet.FleetConfig(), dev)
-    src = DeviceSource(1, lam, cfg.max_arrivals, M_FLEET, dev)
-    carry, t = init(), 0
+    src = DeviceSource(cells, cfg.max_arrivals, M_FLEET, dev)
+    carry, t = init(len(cells)), 0
 
     def run(n):
         nonlocal carry, t
@@ -442,14 +555,102 @@ def phase_profile(dev, cfg, lam, est_t, slots: int = 32, prev_fn=None,
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy_us = sum(k[0] for k in kern)
-    out = {"slots_per_s_steady": steady, "slots_per_s_new_vs_prev": ab,
-           "window_slots": slots,
+    out = {"cells": len(cells), "slots_per_s_steady": steady,
+           "cell_slots_per_s_steady": steady * len(cells),
+           "slots_per_s_new_vs_prev": ab, "window_slots": slots,
            "window_ms_per_slot": window_us / slots / 1e3,
            "device_busy_share": busy_us / window_us if kern else None,
            "device_launches_per_slot": sum(k[1] for k in kern) / slots,
            "top_kernels_us_per_slot": [[k[2][:60], k[0] / slots]
                                        for k in kern[:6]]}
-    print(f"profile M={M_FLEET}: {json.dumps(out)}", flush=True)
+    print(f"profile {label}: {json.dumps(out)}", flush=True)
+    return out
+
+
+# the fleet study: the robustness study at data-centre scale, phase 4's
+# fleet configuration under loads x per-server errors x seeds (30 cells)
+FLEET_STUDY_LOADS = (0.6, 0.8, 0.95)
+FLEET_STUDY_EPS = (0.1, 0.3)
+FLEET_STUDY_SEEDS = (0, 1)
+FLEET_STUDY_ALGOS = ("balanced_pandas", "pandas_po2")
+# (load index, error index, seed index) of the cells rerun by `simulate`
+FLEET_STUDY_SAMPLES = ((1, 2, 1), (2, 4, 0))
+
+
+def phase_fleet_study(dev, cfg, single_slots_per_s):
+    """`run_study(fleet=True)` for Balanced-PANDAS and power-of-d at phase
+    4's configuration, each arm's 3 x 5 x 2 = 30 cells one batch (counts
+    set to 0 before each and read after: fleet_route = rounds x horizon
+    for Balanced-PANDAS whatever the cell count, 0 for power-of-d).
+    Fatal: a delay not finite, a cell's throughput at loads 0.6 and 0.8
+    off lam by more than 2%, a sampled cell unequal to `simulate` of that
+    cell.  Prints cell-slots/s beside phase 5's one-cell slots/s, then
+    profiles a window of the batched Balanced-PANDAS step."""
+    from repro_torch.core import robustness as rb, simulator as sim
+    from repro_torch.sharding import sim as fleet
+
+    study_cfg = rb.StudyConfig(sim=cfg, loads=FLEET_STUDY_LOADS,
+                               eps_grid=FLEET_STUDY_EPS,
+                               error_mode="per_server",
+                               seeds=FLEET_STUDY_SEEDS)
+    ests = [sim.make_estimates(cfg, "network", 0.0, -1)]
+    ests += [sim.make_estimates(cfg, "per_server", e, sg)
+             for sg in (-1, 1) for e in FLEET_STUDY_EPS]
+    rounds = fleet.FleetConfig().rounds
+    rows = {}
+    for algo in FLEET_STUDY_ALGOS:
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = rb.run_study(study_cfg, algos=(algo,), fleet=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = rounds * cfg.horizon if algo == "balanced_pandas" else 0
+        launches = _check_counts(f"fleet study {algo}",
+                                 {"fleet_route": want})
+        delay, thru = out["delay"][algo], out["throughput"][algo]
+        cells = int(np.prod(delay.shape))
+        row = dict(cells=cells, shape=list(delay.shape), wall_s=wall,
+                   cell_slots_per_s=cells * cfg.horizon / wall,
+                   single_cell_slots_per_s=single_slots_per_s,
+                   launches=launches["fleet_route"],
+                   mean_delay=delay.mean(axis=(1, 2)).tolist(),
+                   throughput_over_lam=(thru.mean(axis=(1, 2))
+                                        / out["lam"]).tolist())
+        row["cell_slots_over_single"] = (row["cell_slots_per_s"]
+                                         / single_slots_per_s)
+        if delay.shape != (3, 5, 2) or not np.isfinite(delay).all():
+            raise AssertionError(f"fleet study {algo}: delays {delay}")
+        for li, load in enumerate(FLEET_STUDY_LOADS):
+            lam = out["lam"][li]
+            off = np.abs(thru[li] - lam) / lam
+            if load <= 0.8 and off.max() > 0.02:
+                raise AssertionError(f"fleet study {algo} at rho {load}: "
+                                     f"throughput {thru[li]} not within 2% "
+                                     f"of {lam}")
+        for li, ei, si in FLEET_STUDY_SAMPLES:
+            one = sim.simulate(algo, cfg, float(out["lam"][li]), ests[ei],
+                               seed=FLEET_STUDY_SEEDS[si], device=dev)
+            got = {"mean_delay": delay, "throughput": thru,
+                   "final_n": out["final_n"][algo]}
+            for key, grid in got.items():
+                if one[key] != float(grid[li, ei, si]):
+                    raise AssertionError(
+                        f"fleet study {algo}: cell {(li, ei, si)} {key} "
+                        f"{grid[li, ei, si]} != simulate's {one[key]}")
+        row["sampled_cells_equal_simulate"] = len(FLEET_STUDY_SAMPLES)
+        rows[algo] = row
+        print(f"fleet study {algo}: {json.dumps(row)}", flush=True)
+
+    cap = out["capacity"]
+    cells = [(s, np.float32(load * cap)) for load in FLEET_STUDY_LOADS
+             for _ in ests for s in FLEET_STUDY_SEEDS]
+    est_t = torch.as_tensor(np.stack([e for _ in FLEET_STUDY_LOADS
+                                      for e in ests
+                                      for _ in FLEET_STUDY_SEEDS]),
+                            device=dev)
+    rows["profile"] = phase_profile(dev, cfg, cells, est_t, slots=16,
+                                    label=f"fleet study N={len(cells)}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -873,10 +1074,30 @@ def phase_bench(dev, prev=None):
     return launches, rows
 
 
-def phase_dense_loop(dev, slots: int = 32):
-    """No host sync in any policy's slot loop (sync debug mode "error"),
-    then the Balanced-PANDAS dense step at the study's 120 cells:
-    steady slots/s and a profiled window (launches a slot, busy share)."""
+DENSE_ONLY = ("blind_pandas", "slo_pandas")   # not in the dense study
+
+
+def _no_sync(step, carry, draw, slots: int):
+    """`slots` calls of ``carry = step(carry, t, draw(t))`` under sync
+    debug mode "error" (the first call outside it)."""
+    carry = step(carry, 0, draw(0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, slots):
+            carry = step(carry, t, draw(t))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def phase_dense_loop(dev, slots: int = 32, fleet_cfg=None):
+    """No host sync in any policy's slot loop (sync debug mode "error"):
+    every registered policy's dense step and, given `fleet_cfg`, the
+    batched fleet steps of Balanced-PANDAS and power-of-d at the fleet
+    study's 30 cells; then the Balanced-PANDAS dense step at the study's
+    120 cells: steady slots/s and a profiled window (launches a slot,
+    busy share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import locality as loc, robustness as rb
@@ -903,19 +1124,36 @@ def phase_dense_loop(dev, slots: int = 32):
                                 cfg.max_arrivals, m, dev)
         return init(), step, src
 
-    for name in rb.RATE_AWARE + rb.RATE_OBLIVIOUS:
+    for name in rb.RATE_AWARE + rb.RATE_OBLIVIOUS + DENSE_ONLY:
         carry, step, src = build(name)
-        carry = step(carry, 0, src.slot(0))   # first use outside the check
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for t in range(1, 24):
-                carry = step(carry, t, src.slot(t))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
+        _no_sync(step, carry, src.slot, 24)
     print("dense slot loop: no host sync in 23 slots of every policy",
           flush=True)
+    if fleet_cfg is not None:
+        from repro_torch.core.rng import DeviceSource
+        from repro_torch.sharding import sim as fleet
+
+        fm = fleet_cfg.topo.num_servers
+        fcap = loc.capacity_hot_rack(fleet_cfg.topo, fleet_cfg.true_rates,
+                                     fleet_cfg.p_hot)
+        fests = [sim.make_estimates(fleet_cfg, "network", 0.0, -1)]
+        fests += [sim.make_estimates(fleet_cfg, "per_server", e, sg)
+                  for sg in (-1, 1) for e in FLEET_STUDY_EPS]
+        fcells = [(s, np.float32(load * fcap), e)
+                  for load in FLEET_STUDY_LOADS for e in range(len(fests))
+                  for s in FLEET_STUDY_SEEDS]
+        est = torch.as_tensor(np.stack([fests[e] for _, _, e in fcells]),
+                              device=dev)
+        for name in FLEET_STUDY_ALGOS:
+            init, fstep = fleet._build_fleet_step(name, fleet_cfg,
+                                                  fleet.FleetConfig(), dev)
+            src = DeviceSource([(s, lam) for s, lam, _ in fcells],
+                               fleet_cfg.max_arrivals, fm, dev,
+                               fleet.candidates(name))
+            _no_sync(lambda c, t, d: fstep(c, t, est, d), init(len(fcells)),
+                     src.slot, 8)
+        print(f"fleet slot loop: no host sync in 7 slots of "
+              f"{FLEET_STUDY_ALGOS} at {len(fcells)} cells", flush=True)
 
     carry, step, src = build("balanced_pandas")
     t = 0
@@ -1812,12 +2050,14 @@ def main(argv=None) -> int:
     prev = load_prev(args.prev)
     prev_route = prev["fleet_route"] if prev else None
     rows = phase_kernels(dev, prev_route)
+    batched_rows = phase_batched_route(dev, prev_route)
     sched_rows = phase_sched_kernels(dev, prev)
     launches, _, (cfg, lam, est_t) = phase_slice(dev)
-    phase_profile(dev, cfg, lam, est_t, prev_fn=prev_route)
+    profile = phase_profile(dev, cfg, [(1, lam)], est_t, prev_fn=prev_route)
+    study_rows = phase_fleet_study(dev, cfg, profile["slots_per_s_steady"])
     quick_launches, _, quick_bad, quick_err = phase_quickstart(dev)
     bench_launches, bench_rows = phase_bench(dev, prev)
-    phase_dense_loop(dev)
+    phase_dense_loop(dev, fleet_cfg=cfg)
     attn_rows, attn_err, attn_build = phase_attention(dev)
     serve_launches, _, _, _ = phase_serving(dev)
     torch.cuda.empty_cache()
@@ -1833,14 +2073,23 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/fleet_route.cu",
         "replaces": "src/repro/kernels/slot_step.py:46",
         "launches": launches["fleet_route"],
-        "mismatches": sum(r["mismatches"] for r in rows.values()),
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "mismatches": (sum(r["mismatches"] for r in rows.values())
+                       + sum(r["mismatches"] + r["single_cell_mismatches"]
+                             for r in batched_rows.values())),
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           list(rows.values()) + list(batched_rows.values())),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None, "device_ms": main_row["device_ms"],
         "prev_ms": main_row["prev_ms"],
         "prev_device_ms": main_row["prev_device_ms"],
-        "topologies": {n: {k: r[k] for k in timed} for n, r in rows.items()}}]
+        "topologies": {n: {k: r[k] for k in timed} for n, r in rows.items()},
+        "batched": {n: {k: r.get(k) for k in (
+            "ms", "device_ms", "one_cell_device_ms", "device_ms_over_n_cells",
+            "plain_ms", "bound_ms", "bound_by", "prev_device_ms")}
+            for n, r in batched_rows.items()},
+        "study_launches": {a: study_rows[a]["launches"]
+                           for a in FLEET_STUDY_ALGOS}}]
     for name, source, replaces in (
             ("wwl_route", "src/repro_torch/kernels/csrc/wwl_route.cu",
              "src/repro/kernels/wwl_route.py:41"),

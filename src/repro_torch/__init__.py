@@ -4,12 +4,14 @@ Laid out module for module like `repro` (the JAX reference, which stays
 unchanged): `repro_torch.core.locality` is the counterpart of
 `repro.core.locality`, and so on.  The port imports neither `jax` nor
 `repro`; only its tests import both.  Ported so far: the dense
-simulator with its five policies and the robustness study
+simulator with the reference's seven policies and the robustness study
 (`core.simulator.simulate`/`sweep`, `core.robustness.run_study`), the
-fleet-scale Balanced-PANDAS path (`sharding.sim` -> the hand-written
-CUDA `fleet_route` kernel), and the CUDA `wwl_route` and
-`maxweight_claim` kernels behind `kernels.ops`; see ROADMAP.md for what
-is still to port.
+fleet-scale path for Balanced-PANDAS and power-of-d, one run or a whole
+(load x error x seed) study batched over cells (`sharding.sim` ->
+`fleet_sweep` -> the hand-written CUDA `fleet_route` kernel), the CUDA
+`wwl_route` and `maxweight_claim` kernels behind `kernels.ops`, and the
+serving engine with its two model kernels; see ROADMAP.md for what is
+still to port.
 
 Entry points take ``device=None``, which means the card (``"cuda"``), and
 raise when none is present; pass ``device="cpu"`` to run the kernels'

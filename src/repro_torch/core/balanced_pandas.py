@@ -168,21 +168,30 @@ def serve_and_schedule(s: PandasState, u_serve: torch.Tensor,
     return schedule_idle(s, done), completions
 
 
-def slot_step(s: PandasState, draws: DenseDraws, types: torch.Tensor,
-              active: torch.Tensor, est: torch.Tensor,
-              true_rates: torch.Tensor, ancestors: torch.Tensor):
-    """One dense slot for N cells: the B arrival lanes routed one after
-    another, then service completions and scheduling.
+def route_lanes(s: PandasState, draws: DenseDraws, types: torch.Tensor,
+                active: torch.Tensor, est: torch.Tensor,
+                ancestors: torch.Tensor) -> PandasState:
+    """The slot's B arrival lanes for N cells, routed one after another
+    (each sees the workloads the earlier lanes left).
 
     types (N, B, 3), active (N, B), est (N, M, K) estimated rates; the
-    draws' route Gumbels are (N, B, M).  Returns (state, completions (N,)).
-    """
+    draws' route Gumbels are (N, B, M)."""
     cell, est_rate, pref = lane_rates(types, est, ancestors)
     resid = _in_service_work(s.serving, est)
     lanes = zip(draws.route.unbind(-2), cell.unbind(-2), est_rate.unbind(-2),
                 pref.unbind(-2), active.to(s.q.dtype).unbind(-1))
     for gumbel, cell_i, rate_i, pref_i, inc in lanes:
         s = _route_min(s, gumbel, cell_i, rate_i, pref_i, inc, est, resid)
+    return s
+
+
+def slot_step(s: PandasState, draws: DenseDraws, types: torch.Tensor,
+              active: torch.Tensor, est: torch.Tensor,
+              true_rates: torch.Tensor, ancestors: torch.Tensor):
+    """One dense slot for N cells: the arrival lanes (`route_lanes`), then
+    service completions and scheduling.  Returns (state, completions
+    (N,))."""
+    s = route_lanes(s, draws, types, active, est, ancestors)
     return serve_and_schedule(s, draws.u_serve, true_rates)
 
 

@@ -1,12 +1,14 @@
 """Online processing-rate estimation (counterpart of
-`repro.core.estimator`; the host-side half, copied: numpy).
+`repro.core.estimator`).
 
 The scheduler observes realized service times per (server, locality-tier)
 and keeps EWMA estimates of the rates (Blind GB-PANDAS, Yekkehkhany &
-Nagi 2020).  The serving engine feeds it one observation per admitted
-request.  The functional `ewma_update`/`ewma_time_update` of the
-reference belong to the blind simulator policy and wait for it (ROADMAP
-Queue 1 item 2).
+Nagi 2020).  Two halves, as in the reference:
+
+  * `ewma_update` / `ewma_time_update` — functional tensor updates, used
+    inside the simulator by the blind policy (`core.blind_pandas`);
+  * `EwmaRateEstimator` — host-side (numpy), fed one observation per
+    admitted request by the serving engine.
 """
 
 from __future__ import annotations
@@ -14,6 +16,47 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+
+def _ewma(old: torch.Tensor, new: torch.Tensor, decay: float):
+    """float32 ``decay * old + (1 - decay) * new`` with the first product
+    fused into the sum (one rounding), as the reference's compiled update
+    computes it: that product is exact in float64 and the sum is rounded
+    once more to float32, which differs from one rounding only on a
+    float32 tie (about 2^-29 of the sums)."""
+    fresh = ((1.0 - decay) * new).to(torch.float64)
+    d = float(np.float32(decay))
+    return (d * old.to(torch.float64) + fresh).to(torch.float32)
+
+
+def ewma_update(est: torch.Tensor, server, tier, service_slots,
+                decay: float = 0.98) -> torch.Tensor:
+    """Functional EWMA update of est (M, K) from one completed task:
+    a new tensor with est[server, tier] moved toward the rate sample
+    1/service_slots (the unbiased sample for geometric service)."""
+    slots = torch.as_tensor(service_slots, device=est.device)
+    sample = 1.0 / torch.clamp(slots.to(torch.float32), min=1.0)
+    out = est.clone()
+    out[server, tier] = _ewma(est[server, tier], sample, decay)
+    return out
+
+
+def ewma_time_update(tbar: torch.Tensor, done: torch.Tensor,
+                     tier: torch.Tensor, service_slots: torch.Tensor,
+                     decay: float = 0.98) -> torch.Tensor:
+    """Masked EWMA of the service TIME, one slot for all servers.
+
+    tbar (..., M, K) EWMA'd service time per (server, tier); done (..., M)
+    bool completions this slot; tier (..., M) tier served (0..K-1);
+    service_slots (..., M) float32 observed completion times.  Like the
+    host estimator, the TIME is averaged and the consumer inverts it
+    (1/E[T] is the consistent rate estimator).  Fixed shapes, no
+    scatter."""
+    upd = _ewma(tbar, service_slots[..., None].expand_as(tbar), decay)
+    tiers = torch.arange(tbar.shape[-1], device=tbar.device)
+    mask = done[..., None] & (tiers == tier[..., None])
+    return torch.where(mask, upd, tbar)
 
 
 @dataclasses.dataclass

@@ -5,8 +5,9 @@ Instead of scanning all M servers per arrival, the router compares the
 weighted-workload scores only over the task's 3 local servers plus ``d``
 servers sampled uniformly without replacement.  Queueing structure,
 service and idle-server scheduling are exactly Balanced-PANDAS'.  The
-candidates come from the draw seam (`core.rng`).  The fleet path's
-`_route_batch_po2` comes with a later slice.
+candidates come from the draw seam (`core.rng`).  The fleet arm is
+`sharding.sim._route_batch_po2` (d uniform candidates a task, with
+replacement, argmin in one snapshot round).
 """
 
 from __future__ import annotations

@@ -185,6 +185,8 @@ _BUILTIN_MODULES = (
     "repro_torch.core.priority",
     "repro_torch.core.fifo",
     "repro_torch.core.pandas_po2",
+    "repro_torch.core.blind_pandas",
+    "repro_torch.core.slo_pandas",
     "repro_torch.core.cluster",
 )
 _builtins_loaded = False

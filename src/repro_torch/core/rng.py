@@ -1,19 +1,26 @@
 """The one seam every random draw of the simulators goes through.
 
-Fleet path.  A `DrawSource` yields, per slot and in this order:
+Fleet path.  A `DrawSource` yields one `SlotDraws` per slot for N cells
+at once (a sweep's (load, error, seed) grid; N = 1 for one run):
 
-    n        -- the truncated-Poisson arrival count, an int64 scalar tensor
-    u_hot    -- (B,) uniforms in [0, 1): task b is hot iff u_hot[b] < p_hot
-    r        -- (B, 3) uniforms for the distinct-3 replica offsets
-    u_serve  -- (M,) uniforms: server m completes iff u_serve[m] < rate_m
+    n        -- (N,) the truncated-Poisson arrival count, int64
+    u_hot    -- (N, B) uniforms in [0, 1): task b is hot iff u_hot < p_hot
+    r        -- (N, B, 3) uniforms for the distinct-3 replica offsets
+    u_serve  -- (N, M) uniforms: server m completes iff u_serve < rate_m
+    u_cand   -- (N, B, d) uniforms of power-of-d's candidates, or None
 
 Bernoullis are ``u < p``, which is how `jax.random.bernoulli` is built, so
 a source that recomputes the reference's uniforms from its key schedule
 (the tests' replay source) drives the port through the reference's exact
-sample path.  The default `DeviceSource` draws from a seeded
-`torch.Generator` on the device: Philox4x32 on CUDA (PyTorch's CPU
-generator is a Mersenne twister).  All draws stay on the device; nothing
-is read back to the host.
+sample path.  The default `DeviceSource` draws from seeded
+`torch.Generator`s on the device (Philox4x32 on CUDA; PyTorch's CPU
+generator is a Mersenne twister): one generator per distinct seed and
+one block a seed a slot, so a cell's draws depend only on its seed and
+the slot, as the reference's keys ``fold_in(PRNGKey(seed), t)`` do.  Its
+load enters only through the count, the inverse CDF of its Poisson law
+at one uniform.  Cells that share a seed share their arrivals across
+loads and errors, and ``fleet_sweep(...)[l, e, s]`` equals
+`fleet_simulate` of that cell exactly.
 
 Dense path.  A `DenseSource` yields one `DenseDraws` per slot for N
 cells at once (the dense simulator's leading (load, error, seed)
@@ -32,7 +39,8 @@ properties of the reference's key schedule:
    ``simulate(..., seed=seeds[s])`` exactly.  Launch cost per slot: one
    `torch.rand` per generator (2 x the number of distinct seeds) plus
    about 15 launches to gather and transform;
-3. nothing is read back to the host inside the slot loop.
+3. nothing is read back to the host inside the slot loop (on both
+   paths).
 """
 
 from __future__ import annotations
@@ -45,11 +53,62 @@ import numpy as np
 import torch
 
 
+def poisson_cdf(lam: float, batch: int) -> np.ndarray:
+    """(batch,) float64 P(N <= k), k = 0..batch-1, of Poisson(lam): a
+    uniform u gives the truncated count min(N, batch) as
+    ``#{k : cdf[k] <= u}``."""
+    k = np.arange(batch)
+    if lam <= 0.0:
+        return np.ones(batch)
+    logpmf = k * math.log(lam) - lam - np.array([math.lgamma(i + 1.0)
+                                                 for i in k])
+    return np.minimum(np.cumsum(np.exp(logpmf)), 1.0)
+
+
+def _cell_cdf(cells, batch: int, device) -> torch.Tensor:
+    """(N, batch) Poisson CDFs of the cells' loads."""
+    return torch.tensor(np.stack([poisson_cdf(float(lam), batch)
+                                  for _, lam in cells]), device=device)
+
+
+def _seed_generators(cells, device, stride: int, offset: int):
+    """One generator per distinct seed s of the cells ``[(seed, lam),
+    ...]``, seeded ``stride * s + offset``, and each cell's index into
+    them (None when cell i draws from generator i)."""
+    seeds = sorted({int(s) for s, _ in cells})
+    gens = []
+    for s in seeds:
+        g = torch.Generator(device=device)
+        g.manual_seed(stride * s + offset)
+        gens.append(g)
+    index = [seeds.index(int(s)) for s, _ in cells]
+    if index == list(range(len(seeds))):
+        return gens, None
+    return gens, torch.tensor(index, device=device)
+
+
+def _cell_block(gens, index: Optional[torch.Tensor], size: int,
+                device) -> torch.Tensor:
+    """(N, size) uniforms: one `torch.rand` block a generator, gathered
+    per cell."""
+    rows = [torch.rand((size,), generator=g, device=device) for g in gens]
+    blk = rows[0][None] if len(rows) == 1 else torch.stack(rows)
+    return blk if index is None else blk[index]
+
+
+# ---------------------------------------------------------------------------
+# Fleet path
+# ---------------------------------------------------------------------------
+
+
 class SlotDraws(NamedTuple):
-    n: torch.Tensor        # () int64 arrivals this slot, <= B
-    u_hot: torch.Tensor    # (B,) float32
-    r: torch.Tensor        # (B, 3) float32
-    u_serve: torch.Tensor  # (M,) float32
+    """One fleet slot's draws for N cells (see the module docstring)."""
+
+    n: torch.Tensor                 # (N,) int64 arrivals, <= B
+    u_hot: torch.Tensor             # (N, B) float32
+    r: torch.Tensor                 # (N, B, 3) float32
+    u_serve: torch.Tensor           # (N, M) float32
+    u_cand: Optional[torch.Tensor] = None  # (N, B, d) float32 (po-d)
 
 
 class DrawSource(abc.ABC):
@@ -61,26 +120,30 @@ class DrawSource(abc.ABC):
 
 
 class DeviceSource(DrawSource):
-    """Draws from one seeded `torch.Generator` on `device`, in slot order."""
+    """Draws for the cells ``[(seed, lam), ...]`` from one generator per
+    distinct seed on `device`.  Per slot each generator draws one block
+    [u_n | u_hot (B) | r (B*3) | u_serve (M) | u_cand (B*cand)], which is
+    gathered per cell; a cell's count is the inverse CDF of its load at
+    u_n.  `cand` is power-of-d's d (0: no candidates)."""
 
-    def __init__(self, seed: int, lam: float, batch: int, num_servers: int,
-                 device):
-        self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
-        self.lam = torch.tensor(float(lam), dtype=torch.float32,
-                                device=self.device)
-        self.batch = batch
-        self.num_servers = num_servers
+    def __init__(self, cells: Sequence[Tuple[int, float]], batch: int,
+                 num_servers: int, device, cand: int = 0):
+        dev = self.device = torch.device(device)
+        self.gens, self.cell_seed = _seed_generators(cells, dev, 1, 0)
+        self.cdf = _cell_cdf(cells, batch, dev)
+        self.batch, self.m, self.cand = batch, num_servers, cand
+        self.size = 1 + 4 * batch + num_servers + batch * cand
 
     def slot(self, t: int) -> SlotDraws:
-        g, dev = self.gen, self.device
-        n = torch.poisson(self.lam, generator=g)
-        n = torch.clamp(n, max=self.batch).to(torch.int64)
-        u_hot = torch.rand((self.batch,), generator=g, device=dev)
-        r = torch.rand((self.batch, 3), generator=g, device=dev)
-        u_serve = torch.rand((self.num_servers,), generator=g, device=dev)
-        return SlotDraws(n, u_hot, r, u_serve)
+        b, m = self.batch, self.m
+        blk = _cell_block(self.gens, self.cell_seed, self.size, self.device)
+        n = (self.cdf <= blk[:, :1].double()).sum(dim=1)
+        u_hot = blk[:, 1:1 + b]
+        r = blk[:, 1 + b:1 + 4 * b].view(-1, b, 3)
+        u_serve = blk[:, 1 + 4 * b:1 + 4 * b + m]
+        u_cand = (blk[:, 1 + 4 * b + m:].view(-1, b, self.cand)
+                  if self.cand else None)
+        return SlotDraws(n, u_hot, r, u_serve, u_cand)
 
 
 # ---------------------------------------------------------------------------
@@ -127,18 +190,6 @@ class DenseSource(abc.ABC):
         """The draws of slot `t` (slots are asked for in increasing order)."""
 
 
-def poisson_cdf(lam: float, batch: int) -> np.ndarray:
-    """(batch,) float64 P(N <= k), k = 0..batch-1, of Poisson(lam): a
-    uniform u gives the truncated count min(N, batch) as
-    ``#{k : cdf[k] <= u}``."""
-    k = np.arange(batch)
-    if lam <= 0.0:
-        return np.ones(batch)
-    logpmf = k * math.log(lam) - lam - np.array([math.lgamma(i + 1.0)
-                                                 for i in k])
-    return np.minimum(np.cumsum(np.exp(logpmf)), 1.0)
-
-
 def gumbel(u: torch.Tensor) -> torch.Tensor:
     """Standard Gumbels from uniforms in [0, 1) (clamped to (tiny, 1))."""
     tiny = torch.finfo(u.dtype).tiny
@@ -153,17 +204,9 @@ class DenseDeviceSource(DenseSource):
     def __init__(self, cells: Sequence[Tuple[int, float]], plan: DrawPlan,
                  batch: int, num_servers: int, device):
         dev = self.device = torch.device(device)
-        seeds = sorted({int(s) for s, _ in cells})
-        self.arr_gens, self.pol_gens = [], []
-        for s in seeds:
-            for gens, salt in ((self.arr_gens, 0), (self.pol_gens, 1)):
-                g = torch.Generator(device=dev)
-                g.manual_seed(2 * s + salt)
-                gens.append(g)
-        self.cell_seed = torch.tensor([seeds.index(int(s)) for s, _ in cells],
-                                      device=dev)
-        self.cdf = torch.tensor(np.stack([poisson_cdf(float(lam), batch)
-                                          for _, lam in cells]), device=dev)
+        self.arr_gens, self.cell_seed = _seed_generators(cells, dev, 2, 0)
+        self.pol_gens, _ = _seed_generators(cells, dev, 2, 1)
+        self.cdf = _cell_cdf(cells, batch, dev)
         self.plan, self.batch, self.m = plan, batch, num_servers
         b, m = batch, num_servers
         # per-slot block layout: arrivals [u_n | u_hot | type Gumbels];
@@ -176,20 +219,17 @@ class DenseDeviceSource(DenseSource):
         self.n_pol = (m + self.n_route + self.n_claim + self.n_perm
                       + self.n_cand)
 
-    def _block(self, gens, size: int) -> torch.Tensor:
-        rows = [torch.rand((size,), generator=g, device=self.device)
-                for g in gens]
-        return torch.stack(rows)[self.cell_seed]          # (N, size)
-
     def slot(self, t: int) -> DenseDraws:
         b, m, plan = self.batch, self.m, self.plan
-        arr = self._block(self.arr_gens, self.n_arr)
+        arr = _cell_block(self.arr_gens, self.cell_seed, self.n_arr,
+                          self.device)
         n = (self.cdf <= arr[:, :1].double()).sum(dim=1)
         u_hot = arr[:, 1:1 + b]
         g_type = gumbel(arr[:, 1 + b:]).view(-1, b, m)
-        pol = self._block(self.pol_gens, self.n_pol)
+        pol = _cell_block(self.pol_gens, self.cell_seed, self.n_pol,
+                          self.device)
         u_serve, rest = pol[:, :m], pol[:, m:]
-        nc = len(self.cell_seed)
+        nc = len(u_hot)
         g = gumbel(rest[:, :self.n_route + self.n_claim])
         route = g[:, :self.n_route].view(nc, b, -1) if plan.route else None
         claim = g[:, self.n_route:].view(nc, m, m) if plan.claim else None

@@ -9,7 +9,10 @@ the data behind Figures 1-6:
   fig5/fig6: the same with parameters HIGHER than real.
 
 Priority and FIFO never consult the rate estimates, so they run the exact
-column only.  The drift, placement, replication, tail-latency and control
+column only.  With ``fleet=True`` (or a topology of at least
+`sharding.sim.FLEET_AUTO_THRESHOLD` servers) the Balanced-PANDAS and
+power-of-d arms run the fleet path, each arm's whole (load x error x
+seed) grid as one batch of cells (`sharding.sim.fleet_sweep`).  The drift, placement, replication, tail-latency and control
 studies of the reference come with later slices of the port and raise
 until then.
 """

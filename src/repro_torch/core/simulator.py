@@ -279,7 +279,7 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
                       telemetry, control):
         from repro_torch.sharding import sim as fleet_sim
         return fleet_sim.fleet_sweep(policy, cfg, lam_grid, est_stack,
-                                     seeds, fleet, device=device)
+                                     seeds, fleet, device=device, rng=rng)
     est_stack = _as_numpy(est_stack)
     seeds = [int(s) for s in np.asarray(seeds).reshape(-1)]
     shape = (len(lam_grid), len(est_stack), len(seeds))

@@ -1,7 +1,8 @@
 // Fused fleet slot-step private routing for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_fleet_route_kernel` of
-// src/repro/kernels/slot_step.py (launched by `fleet_route_pallas`).
+// src/repro/kernels/slot_step.py (launched by `fleet_route_pallas`, which
+// `fleet_sweep` vmaps over the cells of a study).
 // Semantics contract: repro_torch/kernels/ref.py::fleet_route.
 //
 //   W_m   = q[m,0]/est[m,0] + q[m,1]/est[m,1] + ...   (left to right, f32)
@@ -24,6 +25,16 @@
 // (Topology(10008, 6)), 216 at (6, 72).  `Topology.ancestors` builds
 // such tables, and `sharding.sim.make_ctx` checks the table once on the
 // host before it goes to the card.  The plain version takes any table.
+//
+// Cells: a study's N (load x error x seed) cells route in one launch,
+// blockIdx.y the cell and blockIdx.x its tasks (so N is capped by
+// gridDim.y's 65535, not the product).  A cell's servers are the flat
+// ids cell * m + mm of q, serving and est, its tasks cell * b + task of
+// locs and the outputs, both 64-bit (N M K may pass 2^31); the ancestor
+// table and its range search are shared.  The arrays are indexed from
+// one flat server base: moving each pointer to its cell instead made a
+// one-cell launch slower than the one-cell kernel (`chip_smoke.py --prev`
+// times a cell beside it).
 //
 // Design: one warp per task, eight tasks a block of 256 threads.  The
 // private set is small (a few tens to a few hundred servers), so one
@@ -91,10 +102,13 @@ fleet_route_kernel(const int* __restrict__ q, const int* __restrict__ serving,
   const int lane = threadIdx.x & 31;
   const int task = blockIdx.x * kTasks + (threadIdx.x >> 5);
   if (task >= b) return;  // whole warps leave together
+  const long long cell = blockIdx.y;
+  const long long base = cell * m;  // the cell's first server, flat
+  const long long t = cell * b + task;
 
   int loc[3];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) loc[j] = locs[task * 3 + j];
+  for (int j = 0; j < 3; ++j) loc[j] = locs[t * 3 + j];
   int grp[D > 0 ? D : 1][3];
 #pragma unroll
   for (int lvl = 0; lvl < D; ++lvl)
@@ -122,14 +136,15 @@ fleet_route_kernel(const int* __restrict__ q, const int* __restrict__ serving,
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     for (int mm = lo[j] + lane; mm < hi[j]; mm += 32) {
+      const long long g = base + mm;
       float e[K];
 #pragma unroll
-      for (int c = 0; c < K; ++c) e[c] = est[mm * K + c];
-      float w = __fdiv_rn(__int2float_rn(q[mm * K]), e[0]);
+      for (int c = 0; c < K; ++c) e[c] = est[g * K + c];
+      float w = __fdiv_rn(__int2float_rn(q[g * K]), e[0]);
 #pragma unroll
       for (int c = 1; c < K; ++c)
-        w = __fadd_rn(w, __fdiv_rn(__int2float_rn(q[mm * K + c]), e[c]));
-      const int sv = serving[mm];
+        w = __fadd_rn(w, __fdiv_rn(__int2float_rn(q[g * K + c]), e[c]));
+      const int sv = serving[g];
       const int ri = min(max(sv - 1, 0), K - 1);
       float er = e[0];
 #pragma unroll
@@ -171,18 +186,18 @@ fleet_route_kernel(const int* __restrict__ q, const int* __restrict__ serving,
     }
   }
   if (lane == 0) {
-    server_out[task] = best_i;
-    tier_out[task] = best_t;
-    score_out[task] = best_s;
+    server_out[t] = best_i;
+    tier_out[t] = best_t;
+    score_out[t] = best_s;
   }
 }
 
 template <int D>
 cudaError_t launch(const int* q, const int* serving, const float* est,
-                   const int* anc, const int* locs, int m, int b, int* server,
-                   int* tier, float* score, cudaStream_t stream) {
-  const int blocks = (b + kTasks - 1) / kTasks;
-  fleet_route_kernel<D><<<blocks, kThreads, 0, stream>>>(
+                   const int* anc, const int* locs, int m, int b, int n,
+                   int* server, int* tier, float* score, cudaStream_t stream) {
+  const dim3 grid((b + kTasks - 1) / kTasks, n);
+  fleet_route_kernel<D><<<grid, kThreads, 0, stream>>>(
       q, serving, est, anc, locs, m, b, server, tier, score);
   return cudaGetLastError();
 }
@@ -190,17 +205,19 @@ cudaError_t launch(const int* q, const int* serving, const float* est,
 }  // namespace
 
 // Plain C entry point for ctypes.  Every array is a contiguous device
-// pointer: q (m, depth+2) int32, serving (m,) int32, est (m, depth+2)
-// float32, anc (depth, m) int32 meeting the precondition above, locs
-// (b, 3) int32; outputs server (b,) int32, tier (b,) int32, score (b,)
-// float32.  Returns the cudaError_t of the launch (0 on success); depth
-// must be 0..4 and b, m >= 1.
+// pointer: q (n, m, depth+2) int32, serving (n, m) int32, est (n, m,
+// depth+2) float32, anc (depth, m) int32 meeting the precondition above
+// and shared by the n cells, locs (n, b, 3) int32; outputs server (n, b)
+// int32, tier (n, b) int32, score (n, b) float32.  Returns the
+// cudaError_t of the launch (0 on success); depth must be 0..4, b, m >= 1
+// and n in 1..65535.
 extern "C" int fleet_route_launch(const void* q, const void* serving,
                                   const void* est, const void* anc,
                                   const void* locs, int m, int depth, int b,
-                                  void* server, void* tier, void* score,
-                                  void* stream) {
-  if (m < 1 || b < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                  int n, void* server, void* tier,
+                                  void* score, void* stream) {
+  if (m < 1 || b < 1 || n < 1 || n > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* qi = static_cast<const int*>(q);
   const auto* si = static_cast<const int*>(serving);
   const auto* ef = static_cast<const float*>(est);
@@ -212,11 +229,16 @@ extern "C" int fleet_route_launch(const void* q, const void* serving,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (depth) {
-    case 0: err = launch<0>(qi, si, ef, ai, li, m, b, so, to, sc, st); break;
-    case 1: err = launch<1>(qi, si, ef, ai, li, m, b, so, to, sc, st); break;
-    case 2: err = launch<2>(qi, si, ef, ai, li, m, b, so, to, sc, st); break;
-    case 3: err = launch<3>(qi, si, ef, ai, li, m, b, so, to, sc, st); break;
-    case 4: err = launch<4>(qi, si, ef, ai, li, m, b, so, to, sc, st); break;
+    case 0: err = launch<0>(qi, si, ef, ai, li, m, b, n, so, to, sc, st);
+      break;
+    case 1: err = launch<1>(qi, si, ef, ai, li, m, b, n, so, to, sc, st);
+      break;
+    case 2: err = launch<2>(qi, si, ef, ai, li, m, b, n, so, to, sc, st);
+      break;
+    case 3: err = launch<3>(qi, si, ef, ai, li, m, b, n, so, to, sc, st);
+      break;
+    case 4: err = launch<4>(qi, si, ef, ai, li, m, b, n, so, to, sc, st);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -57,7 +57,8 @@ def fleet_route(q: torch.Tensor, serving: torch.Tensor, est: torch.Tensor,
     is accepted).  Depth 0 (K = 2) runs natively: only the three locals
     are private, which is what the reference's dilated depth-1 table
     gives after its tier collapse.  On the card q and serving must be
-    int32 (the simulator state's type) and est float32.
+    int32 (the simulator state's type) and est float32.  A leading cell
+    axis on q, serving, est and task_locals routes N cells in one launch.
     """
     anc = ref._as_anc(server_anc)
     if not q.is_cuda:

@@ -29,6 +29,10 @@ def fleet_route(q: torch.Tensor, serving: torch.Tensor,
     server_anc:  (D,M)  int     ancestor table (legacy (M,) rack map ok)
     task_locals: (B,3)  int     local servers per task
 
+    With a leading cell axis (q, est (N,M,K), serving (N,M), task_locals
+    (N,B,3); the table shared) each cell is routed as above and the
+    outputs are (N,B).
+
     W_m is the left-to-right f32 tier sum of q/est plus 1/est at the
     in-service class; each task then argmins W_m / rate - rate * 1e-6
     (f32, no fused multiply-add) over its *private* servers — tier < K-1;
@@ -36,6 +40,10 @@ def fleet_route(q: torch.Tensor, serving: torch.Tensor,
     remote pool by water-filling.  Ties go to the lowest server index.
     Returns (server (B,) int32, tier (B,) int32, score (B,) f32).
     """
+    if q.ndim == 3:
+        cells = [fleet_route(*x, server_anc, locs)
+                 for x, locs in zip(zip(q, serving, est_rates), task_locals)]
+        return tuple(torch.stack(out) for out in zip(*cells))
     anc = _as_anc(server_anc).long()
     d, m = anc.shape
     est = est_rates.to(torch.float32)

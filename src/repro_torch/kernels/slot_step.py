@@ -19,6 +19,10 @@ all B x M pairs.  That needs every row of the table non-decreasing with
 nested groups (`check_anc_ranges`); `sharding.sim.make_ctx` checks its
 table once on the host, and `ref.fleet_route` takes any table.
 
+A study's cells route in one launch: with a leading cell axis on q,
+serving, est and locs (the table shared), the kernel's blockIdx.y is the
+cell, the counterpart of `fleet_sweep`'s vmap over `pl.pallas_call`.
+
 Semantics contract: `ref.fleet_route`.  `fleet_route_cuda` takes CUDA
 tensors only and raises on anything else; `ops.fleet_route` is the
 dispatching entry point.
@@ -35,6 +39,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import LAUNCHES
 
 MAX_DEPTH = 4  # template instantiations in csrc/fleet_route.cu
+MAX_CELLS = 65535  # gridDim.y
 
 _fn = None
 
@@ -43,7 +48,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("fleet_route").fleet_route_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
         _fn = fn
@@ -81,35 +86,45 @@ def fleet_route_cuda(q: torch.Tensor, serving: torch.Tensor,
     q (M, K) int32, serving (M,) int32, est (M, K) float32, anc (D, M)
     int32 with K = D + 2, locs (B, 3) int32, all contiguous on one card.
     Returns (server (B,) int32, tier (B,) int32, score (B,) float32).
+    With a leading cell axis (q, est (N, M, K), serving (N, M), locs (N,
+    B, 3); anc shared) the N cells route in one launch and the outputs
+    are (N, B).
 
     Precondition (not checked here, on the card): `anc` passes
     `check_anc_ranges`, as every `Topology.ancestors` table does.  The
     kernel finds a task's private set from the top row alone, so a table
     that breaks it gives wrong routes, not an error.
     """
-    m, k = q.shape
+    lead = tuple(q.shape[:-2])
+    m, k = q.shape[-2:]
+    n = int(np.prod(lead))
     depth = anc.shape[0]
-    b = locs.shape[0]
+    b = locs.shape[-2]
+    if len(lead) > 1 or not 1 <= n <= MAX_CELLS:
+        raise ValueError(f"fleet_route_cuda: need at most one cell axis of "
+                         f"1..{MAX_CELLS} cells, got q of shape "
+                         f"{tuple(q.shape)}")
     if k != depth + 2 or not 0 <= depth <= MAX_DEPTH:
         raise ValueError(f"fleet_route_cuda: need K = depth + 2 with depth "
                          f"in 0..{MAX_DEPTH}, got K={k}, depth={depth}")
     if m < 1 or b < 1:
         raise ValueError(f"fleet_route_cuda: need M, B >= 1, got {m}, {b}")
     dev = q.device
-    for name, x, dtype, shape in (("q", q, torch.int32, (m, k)),
-                                  ("serving", serving, torch.int32, (m,)),
-                                  ("est", est, torch.float32, (m, k)),
+    for name, x, dtype, shape in (("q", q, torch.int32, lead + (m, k)),
+                                  ("serving", serving, torch.int32,
+                                   lead + (m,)),
+                                  ("est", est, torch.float32, lead + (m, k)),
                                   ("anc", anc, torch.int32, (depth, m)),
-                                  ("locs", locs, torch.int32, (b, 3))):
+                                  ("locs", locs, torch.int32, lead + (b, 3))):
         _build.check_arg("fleet_route_cuda", name, x, dtype, shape, dev)
-    server = torch.empty((b,), dtype=torch.int32, device=dev)
-    tier = torch.empty((b,), dtype=torch.int32, device=dev)
-    score = torch.empty((b,), dtype=torch.float32, device=dev)
+    server = torch.empty(lead + (b,), dtype=torch.int32, device=dev)
+    tier = torch.empty(lead + (b,), dtype=torch.int32, device=dev)
+    score = torch.empty(lead + (b,), dtype=torch.float32, device=dev)
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), serving.data_ptr(), est.data_ptr(),
-                 anc.data_ptr(), locs.data_ptr(), m, depth, b,
+                 anc.data_ptr(), locs.data_ptr(), m, depth, b, n,
                  server.data_ptr(), tier.data_ptr(), score.data_ptr(),
                  stream)
     if err != 0:

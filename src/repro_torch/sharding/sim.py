@@ -3,36 +3,43 @@
 Port of `repro.sharding.sim`: the same discrete-time model and metrics
 keys as the dense simulator, with O(B + M·depth) work per slot.
 
+* **Cells** — every state tensor carries a leading cell axis N: the
+  (load x error x seed) grid of `fleet_sweep`, the counterpart of the
+  reference's vmap of its fleet chunk (N = 1 for `fleet_simulate`).  One
+  slot advances every cell with the same launches, each launch N cells
+  wide; each cell's arithmetic is the one-cell arithmetic, so a sweep
+  cell equals `fleet_simulate` of that cell bit for bit.
 * **Arrivals** — O(B) distinct-3 sampler (uniform-offset trick) instead
   of (B, M) Gumbel top-k; same task-type law as the dense path.
-* **Routing** — one workload snapshot per round.  The private phase (every
-  tier better than remote) is either the fused CUDA kernel
-  (`kernels.ops.fleet_route`) or the exact per-level segment-min
-  (`_private_route_segmin`); both equal the dense oracle
-  `kernels.ref.fleet_route` bit for bit, ties to the lowest index.
+* **Routing** — one workload snapshot per round.  Balanced-PANDAS's
+  private phase (every tier better than remote) is either the fused CUDA
+  kernel (`kernels.ops.fleet_route`, one launch for all cells) or the
+  exact per-level segment-min (`_private_route_segmin`); both equal the
+  dense oracle `kernels.ref.fleet_route` bit for bit, ties to the lowest
+  index.  Power-of-d (`_route_batch_po2`) argmins over each task's three
+  locals and d uniform candidates at once.
 * **The remote pool** — solved as a water-filling fixed point: server m
   enters the pool at score p_m = W_m/r_m - r_m*1e-6 and each absorbed
-  task raises it by d_m = 1/r_m^2; the water level is bisected, and the
-  r-th private claimant of a server stays private only while
+  task raises it by d_m = 1/r_m^2; each cell's water level is bisected,
+  and the r-th private claimant of a server stays private only while
   s_priv + r/rate^2 <= y (the rank clamp).  `FleetConfig.rounds` retry
   passes let collision overflow land on its next-best private option.
-* **Randomness** — every draw comes from a `core.rng.DrawSource`, in the
-  order n, u_hot, r, u_serve per slot; the replay source of the tests
+* **Randomness** — every draw comes from a `core.rng.DrawSource`, one
+  `SlotDraws` for all cells a slot; the replay source of the tests
   recomputes the reference's draws, which makes the whole carry equal to
   the reference's after every slot.
 
 The slot loop runs on the host, one slot per iteration, with no host
 read of a device value inside it (no `.item()`, no Python branch on a
 tensor), so chunks of slots can later be captured in CUDA graphs.
-Supported: Balanced-PANDAS, static scenario, uniform placement, static
-replication, no telemetry.  `pandas_po2` (`_route_batch_po2`) and
-`fleet_sweep` come with a later slice and raise until then.
+Supported: Balanced-PANDAS and power-of-d, static scenario, uniform
+placement, static replication, no telemetry.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,8 +47,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import balanced_pandas as bp
 from repro_torch.core import locality as loc
-from repro_torch.core.policy import PolicyLike, policy_name
+from repro_torch.core.policy import PolicyLike, make_policy, policy_name
 from repro_torch.core.rng import DeviceSource, DrawSource, SlotDraws
+from repro_torch.core.simulator import _as_numpy
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.slot_step import check_anc_ranges
 
@@ -50,10 +58,10 @@ from repro_torch.kernels.slot_step import check_anc_ranges
 FLEET_AUTO_THRESHOLD = 1024
 
 _SUPPORTED_POLICIES = ("balanced_pandas", "pandas_po2")
-_LATER = "comes with a later slice of the port"
 
-# carry = (q (M,K) int32, serving (M,) int32, mean_n f32, n_meas f32,
-#          completions int32), the reference's fleet carry
+# carry = (q (N,M,K) int32, serving (N,M) int32, mean_n (N,) f32,
+#          n_meas (N,) f32, completions (N,) int32): the reference's fleet
+#          carry with a leading cell axis
 Carry = Tuple[torch.Tensor, ...]
 
 
@@ -152,24 +160,25 @@ def fleet_supported(policy_like: PolicyLike, cfg, scenario=None,
 
 def _sample_arrivals(draws: SlotDraws, ctx: FleetCtx, p_hot: torch.Tensor,
                      batch: int):
-    """(types (B,3) int32 sorted, active (B,) bool) — the reference's
-    arrival law (truncated Poisson count; hot tasks replica-set inside
-    rack 0, the rest uniform) from this slot's uniforms."""
+    """(types (..., B, 3) int32 sorted, active (..., B) bool) — the
+    reference's arrival law (truncated Poisson count; hot tasks
+    replica-set inside rack 0, the rest uniform) from this slot's
+    uniforms, for any leading cell dimensions of the draws."""
     dev = draws.u_hot.device
-    active = torch.arange(batch, device=dev) < draws.n
+    active = torch.arange(batch, device=dev) < draws.n[..., None]
     hot = draws.u_hot < p_hot
     size = torch.where(hot, ctx.hot_rack_size, ctx.num_servers
                        ).to(torch.float32)
     r = draws.r
-    x0 = torch.minimum(torch.floor(r[:, 0] * size), size - 1)
-    x1 = torch.minimum(torch.floor(r[:, 1] * (size - 1)), size - 2)
+    x0 = torch.minimum(torch.floor(r[..., 0] * size), size - 1)
+    x1 = torch.minimum(torch.floor(r[..., 1] * (size - 1)), size - 2)
     x1 = x1 + (x1 >= x0)
     lo, hi = torch.minimum(x0, x1), torch.maximum(x0, x1)
-    x2 = torch.minimum(torch.floor(r[:, 2] * (size - 2)), size - 3)
+    x2 = torch.minimum(torch.floor(r[..., 2] * (size - 2)), size - 3)
     x2 = x2 + (x2 >= lo)
     x2 = x2 + (x2 >= hi)
-    types = torch.stack([x0, x1, x2], dim=1).to(torch.int32)
-    return torch.sort(types, dim=1).values, active
+    types = torch.stack([x0, x1, x2], dim=-1).to(torch.int32)
+    return torch.sort(types, dim=-1).values, active
 
 
 # ---------------------------------------------------------------------------
@@ -179,21 +188,30 @@ def _sample_arrivals(draws: SlotDraws, ctx: FleetCtx, p_hot: torch.Tensor,
 
 def _segment_argmin(score: torch.Tensor, gid: torch.Tensor, ngroups: int,
                     m: int):
-    """Per-group (min, lowest index achieving it) by scatter-reduce amin."""
+    """Per-group (min, lowest server index achieving it) by scatter-reduce
+    amin; `score` and `gid` are (N, M), the group ids already distinct
+    across cells."""
     dev = score.device
+    flat_gid = gid.reshape(-1)
     gmin = torch.full((ngroups,), float("inf"), dtype=score.dtype,
-                      device=dev).scatter_reduce(0, gid, score, "amin")
+                      device=dev).scatter_reduce(0, flat_gid,
+                                                 score.reshape(-1), "amin")
     hit = score == gmin[gid]
-    sid = torch.arange(score.shape[0], device=dev)
+    sid = torch.arange(m, device=dev).expand_as(score)
     gidx = torch.full((ngroups,), m, dtype=torch.int64, device=dev
-                      ).scatter_reduce(0, gid,
-                                       torch.where(hit, sid, m), "amin")
+                      ).scatter_reduce(0, flat_gid,
+                                       torch.where(hit, sid, m).reshape(-1),
+                                       "amin")
     return gmin, gidx
 
 
 def _private_route_segmin(w: torch.Tensor, est: torch.Tensor, ctx: FleetCtx,
                           locs: torch.Tensor):
     """Exact private argmin per task from per-level group minima.
+
+    w (..., M), est (..., M, K), locs (..., B, 3) for any leading cell
+    dimensions; each cell's group ids are offset past the previous
+    cell's, so one scatter per level serves every cell.
 
     Level l's candidate scores every member of a local's level-l group at
     the tier-(l+1) rate.  A member whose true tier is shallower scores
@@ -204,42 +222,56 @@ def _private_route_segmin(w: torch.Tensor, est: torch.Tensor, ctx: FleetCtx,
     lowest-index argmin exactly, cross-tier ties included.
     """
     m = ctx.num_servers
-    locs = locs.long()
-    e0 = est[:, 0]
-    sc_loc = w[locs] / e0[locs] - e0[locs] * 1e-6            # (B, 3)
-    best_v = sc_loc.min(dim=1).values
-    hit = sc_loc == best_v[:, None]
-    best_i = torch.where(hit, locs, m).min(dim=1).values
+    lead = w.shape[:-1]
+    w = w.reshape(-1, m)
+    nc = w.shape[0]
+    est = est.reshape(nc, m, -1)
+    locs = locs.reshape(nc, -1, 3).long()
+    cell = torch.arange(nc, device=w.device)[:, None, None]
+    flat = locs.reshape(nc, -1)
+    w_l = torch.gather(w, 1, flat).view_as(locs)
+    e_l = torch.gather(est[..., 0], 1, flat).view_as(locs)
+    sc_loc = w_l / e_l - e_l * 1e-6                          # (N, B, 3)
+    best_v = torch.amin(sc_loc, dim=-1)
+    hit = sc_loc == best_v[..., None]
+    best_i = torch.amin(torch.where(hit, locs, m), dim=-1)
     best_t = torch.zeros_like(best_i)
     for lvl in range(ctx.depth):
-        rate = est[:, lvl + 1]
-        sc = w / rate - rate * 1e-6                          # (M,)
-        gmin, gidx = _segment_argmin(sc, ctx.gids[lvl],
-                                     ctx.group_counts[lvl], m)
-        tg = ctx.gids[lvl][locs]                             # (B, 3)
+        rate = est[..., lvl + 1]
+        sc = w / rate - rate * 1e-6                          # (N, M)
+        ng = ctx.group_counts[lvl]
+        gmin, gidx = _segment_argmin(sc, ctx.gids[lvl] + cell[:, 0] * ng,
+                                     nc * ng, m)
+        tg = ctx.gids[lvl][locs] + cell * ng                 # (N, B, 3)
         cand_v = gmin[tg]
         cand_i = gidx[tg]
-        cv = cand_v.min(dim=1).values
-        chit = cand_v == cv[:, None]
-        ci = torch.where(chit, cand_i, m).min(dim=1).values
+        cv = torch.amin(cand_v, dim=-1)
+        chit = cand_v == cv[..., None]
+        ci = torch.amin(torch.where(chit, cand_i, m), dim=-1)
         better = (cv < best_v) | ((cv == best_v) & (ci < best_i))
         best_v = torch.where(better, cv, best_v)
         best_i = torch.where(better, ci, best_i)
         best_t = torch.where(better, lvl + 1, best_t)
-    return best_i.to(torch.int32), best_t.to(torch.int32), best_v
+    shape = lead + best_v.shape[-1:]
+    return (best_i.to(torch.int32).view(shape),
+            best_t.to(torch.int32).view(shape), best_v.view(shape))
 
 
 def _water_level(p, d, demand_fn, hi0, batch: int, iters: int):
-    """Smallest y with sum_m c_m(y) >= demand(y), by bisection.
+    """Per cell, the smallest y with sum_m c_m(y) >= demand(y), by
+    bisection.
 
-    c_m(y) = clip(ceil((y - p_m)/d_m), 0, B).  demand_fn must be
-    non-increasing in y; returns the upper end (capacity >= demand
+    p, d (N, M); c_m(y) = clip(ceil((y - p_m)/d_m), 0, B).  demand_fn maps
+    (N, 1) levels to (N, 1) demands and must be non-increasing in y; hi0
+    is (N, 1).  Returns the (N, 1) upper ends (capacity >= demand
     guaranteed there).  All on the device: no host read per iteration."""
-    lo = p.min()
-    hi = torch.maximum(p.max(), hi0) + batch * d.max()
+    lo = torch.amin(p, dim=-1, keepdim=True)
+    hi = (torch.maximum(torch.amax(p, dim=-1, keepdim=True), hi0)
+          + batch * torch.amax(d, dim=-1, keepdim=True))
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
-        cap = torch.clamp(torch.ceil((mid - p) / d), 0.0, float(batch)).sum()
+        cap = torch.clamp(torch.ceil((mid - p) / d), 0.0, float(batch)
+                          ).sum(dim=-1, keepdim=True)
         ok = cap >= demand_fn(mid)
         lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
     return hi
@@ -247,21 +279,25 @@ def _water_level(p, d, demand_fn, hi0, batch: int, iters: int):
 
 def _add_at(q: torch.Tensor, srv: torch.Tensor, tier: torch.Tensor,
             inc: torch.Tensor) -> torch.Tensor:
-    """q with inc[b] added at (srv[b], tier[b]) (integer, exact)."""
-    k = q.shape[1]
-    flat = srv.long() * k + tier.long()
-    return q.reshape(-1).index_add(0, flat, inc.to(q.dtype)).reshape(q.shape)
+    """q (N, M, K) with inc[c, b] added at flat server srv[c, b] (that
+    is c * M + server) and tier tier[c, b] (integer, exact)."""
+    flat = (srv * q.shape[-1] + tier).view(-1)
+    return q.view(-1).index_add(0, flat, inc.to(q.dtype).view(-1)
+                                ).view(q.shape)
 
 
 def _route_batch_pandas(s: bp.PandasState, est, ctx: FleetCtx, locs, active,
                         fc: FleetConfig, use_kernel: bool):
-    """One slot of Balanced-PANDAS fleet routing: `fc.rounds` retry passes
-    of (private argmin + rank clamp) with the workload recomputed between
-    passes, then one pool water-fill for whatever is left."""
-    m, k = ctx.num_servers, ctx.num_tiers
-    batch = locs.shape[0]
+    """One slot of Balanced-PANDAS fleet routing for N cells: `fc.rounds`
+    retry passes of (private argmin + rank clamp) with the workload
+    recomputed between passes, then one pool water-fill for whatever is
+    left.  locs (N, B, 3), active (N, B), est (N, M, K)."""
+    nc, m, k = s.q.shape
+    batch = locs.shape[-2]
     dev = locs.device
-    ar = torch.arange(batch, device=dev)
+    cell_m = torch.arange(nc, device=dev)[:, None] * m   # flat server base
+    ar = torch.arange(nc * batch, device=dev)
+    est2 = est.reshape(nc * m, k)
     pending = active
     for r in range(fc.rounds):
         w = bp.workload(s, est)
@@ -272,48 +308,85 @@ def _route_batch_pandas(s: bp.PandasState, est, ctx: FleetCtx, locs, active,
             best_i, best_t, best_v = _private_route_segmin(w, est, ctx, locs)
 
         # pool (remote tier) water-fill parameters from the same snapshot
-        pr = est[:, k - 1]
+        pr = est[..., k - 1]
         p = w / pr - pr * 1e-6
         d = 1.0 / (pr * pr)
         s_priv = torch.where(pending, best_v, -3e38)  # a scalar: no copy
 
         def demand(y, pending=pending, best_v=best_v):
-            return (pending & (best_v > y)).to(torch.float32).sum()
+            return (pending & (best_v > y)).to(torch.float32
+                                               ).sum(dim=-1, keepdim=True)
 
-        y1 = _water_level(p, d, demand, s_priv.max(), batch, fc.fill_iters)
+        hi0 = torch.amax(s_priv, dim=-1, keepdim=True)
+        y1 = _water_level(p, d, demand, hi0, batch, fc.fill_iters)
 
         # private rank clamp: the r-th claimant of a server stays private
-        # only while its filled score is still under the water level
+        # only while its filled score is still under the water level; one
+        # stable sort of the flat server ids ranks every cell's claimants
         go_raw = pending & (best_v <= y1)
-        key_m = torch.where(go_raw, best_i.long(), m)
+        flat_i = best_i.long() + cell_m
+        key_m = torch.where(go_raw, flat_i, nc * m).reshape(-1)
         order = torch.argsort(key_m, stable=True)
         sk = key_m[order]
         first = torch.searchsorted(sk, sk, side="left")
-        rank = torch.empty_like(ar).index_put_((order,), ar - first)
-        e_at = est[best_i.long(), best_t.long()]
-        stay = go_raw & (best_v + rank.to(torch.int32) / (e_at * e_at) <= y1)
+        rank = torch.empty_like(ar).index_put_((order,), ar - first
+                                               ).view(nc, batch)
+        e_at = est2[flat_i, best_t.long()]
+        stay = go_raw & (best_v + rank.to(torch.int32) / (e_at * e_at)
+                         <= y1)
 
         if r < fc.rounds - 1:
             # commit this pass's winners; losers retry against updated W
-            s = bp.PandasState(q=_add_at(s.q, best_i, best_t, stay),
+            s = bp.PandasState(q=_add_at(s.q, flat_i, best_t, stay),
                                serving=s.serving)
             pending = pending & ~stay
 
     # final pass: pool assignment at the re-raised level
     pool = pending & ~stay
-    n_pool = pool.to(torch.float32).sum()
-    y2 = _water_level(p, d, lambda y: n_pool, s_priv.max(), batch,
-                      fc.fill_iters)
+    n_pool = pool.to(torch.float32).sum(dim=-1, keepdim=True)
+    y2 = _water_level(p, d, lambda y: n_pool, hi0, batch, fc.fill_iters)
     caps = torch.clamp(torch.ceil((y2 - p) / d), 0.0, float(batch)
                        ).to(torch.int64)
-    cum = torch.cumsum(caps, dim=0)
-    pool_rank = torch.cumsum(pool.to(torch.int64), dim=0) - 1
+    cum = torch.cumsum(caps, dim=-1)
+    pool_rank = torch.cumsum(pool.to(torch.int64), dim=-1) - 1
     pool_srv = torch.clamp(torch.searchsorted(cum, pool_rank, side="right"),
                            0, m - 1)
 
-    srv = torch.where(stay, best_i.long(), pool_srv)
+    srv = torch.where(stay, flat_i, pool_srv + cell_m)
     tier = torch.where(stay, best_t.long(), k - 1)
     return bp.PandasState(q=_add_at(s.q, srv, tier, pending),
+                          serving=s.serving)
+
+
+def _route_batch_po2(s: bp.PandasState, est, ctx: FleetCtx, locs, active,
+                     u_cand: torch.Tensor):
+    """One snapshot round of power-of-d fleet routing for N cells: each
+    task argmins over {3 locals} and {d uniform candidates, floor(u * M)}
+    directly (remote candidates allowed: no pool is needed, the d samples
+    spread load by construction).  A candidate's tier is the deepest
+    level whose group it shares with a local (0 for a local); the argmin
+    takes the first of equal scores, as `jnp.argmin` does."""
+    nc, m, k = s.q.shape
+    w = bp.workload(s, est)
+    cand = torch.clamp(torch.floor(u_cand * m), max=m - 1).long()
+    lk = locs.long()
+    cset = torch.cat([lk, cand], dim=-1)                    # (N, B, 3+d)
+    tier = torch.full(cset.shape, k - 1, dtype=torch.int64,
+                      device=cset.device)
+    for lvl in range(ctx.depth - 1, -1, -1):
+        row = ctx.gids[lvl]
+        share = (row[cset][..., None] == row[lk][..., None, :]).any(dim=-1)
+        tier = torch.where(share, lvl + 1, tier)
+    tier = torch.where((cset[..., None] == lk[..., None, :]).any(dim=-1),
+                       0, tier)
+    flat = cset + torch.arange(nc, device=cset.device)[:, None, None] * m
+    rate = est.reshape(nc * m, k)[flat, tier]
+    wc = w.reshape(-1)[flat]
+    score = wc / rate - rate * 1e-6
+    j = torch.argmin(score, dim=-1, keepdim=True)
+    return bp.PandasState(q=_add_at(s.q, torch.gather(flat, -1, j)[..., 0],
+                                    torch.gather(tier, -1, j)[..., 0],
+                                    active),
                           serving=s.serving)
 
 
@@ -324,16 +397,15 @@ def _route_batch_pandas(s: bp.PandasState, est, ctx: FleetCtx, locs, active,
 
 def _build_fleet_step(policy_like: PolicyLike, cfg, fc: FleetConfig,
                       device):
-    """Returns (init() -> carry, step(carry, t, est, draws) -> carry), the
-    counterpart of the reference's `_build_fleet_chunk` at one slot.
+    """Returns (init(n_cells=1) -> carry, step(carry, t, est, draws) ->
+    carry), the counterpart of the reference's `_build_fleet_chunk` at one
+    slot, vmapped over cells.
 
-    carry = (q (M,K) int32, serving (M,) int32, mean_n f32, n_meas f32,
-    completions int32); `step` advances slot `t` with this slot's draws.
+    carry = (q (N,M,K) int32, serving (N,M) int32, mean_n (N,) f32,
+    n_meas (N,) f32, completions (N,) int32); `step` advances slot `t` of
+    every cell with this slot's draws and the cells' (N,M,K) estimates.
     """
     name = policy_name(policy_like)
-    if name == "pandas_po2":
-        raise NotImplementedError(f"the pandas_po2 fleet step "
-                                  f"(_route_batch_po2) {_LATER}")
     if name not in _SUPPORTED_POLICIES:
         raise ValueError(f"policy {name!r} has no fleet step "
                          f"(supported: {_SUPPORTED_POLICIES})")
@@ -347,12 +419,12 @@ def _build_fleet_step(policy_like: PolicyLike, cfg, fc: FleetConfig,
     use_kernel = (dev.type == "cuda") if fc.use_kernel is None \
         else fc.use_kernel
 
-    def init() -> Carry:
+    def init(n_cells: int = 1) -> Carry:
         f32 = dict(dtype=torch.float32, device=dev)
-        return (torch.zeros((m, k), dtype=torch.int32, device=dev),
-                torch.zeros((m,), dtype=torch.int32, device=dev),
-                torch.zeros((), **f32), torch.zeros((), **f32),
-                torch.zeros((), dtype=torch.int32, device=dev))
+        return (torch.zeros((n_cells, m, k), dtype=torch.int32, device=dev),
+                torch.zeros((n_cells, m), dtype=torch.int32, device=dev),
+                torch.zeros((n_cells,), **f32), torch.zeros((n_cells,), **f32),
+                torch.zeros((n_cells,), dtype=torch.int32, device=dev))
 
     @torch.inference_mode()  # no autograd bookkeeping: less host time a op
     def step(carry: Carry, t: int, est: torch.Tensor,
@@ -360,7 +432,11 @@ def _build_fleet_step(policy_like: PolicyLike, cfg, fc: FleetConfig,
         q, serving, mean_n, n_meas, compl = carry
         s = bp.PandasState(q, serving)
         types, active = _sample_arrivals(draws, ctx, p_hot, batch)
-        s = _route_batch_pandas(s, est, ctx, types, active, fc, use_kernel)
+        if name == "pandas_po2":
+            s = _route_batch_po2(s, est, ctx, types, active, draws.u_cand)
+        else:
+            s = _route_batch_pandas(s, est, ctx, types, active, fc,
+                                    use_kernel)
         s, compl_t = bp.serve_and_schedule(s, draws.u_serve, true_k)
         n = bp.num_in_system(s).to(torch.float32)
         in_w = float(t >= warmup)
@@ -373,17 +449,29 @@ def _build_fleet_step(policy_like: PolicyLike, cfg, fc: FleetConfig,
     return init, step
 
 
+def candidates(policy_like: PolicyLike) -> int:
+    """Uniform candidates a task draws per slot on the fleet path: the
+    power-of-d policy's d, else 0."""
+    if policy_name(policy_like) != "pandas_po2":
+        return 0
+    return int(make_policy(policy_like).d)
+
+
 def carry_from_reference(arrays, device=None) -> Carry:
     """The port's carry from the reference's fleet carry ``(q, serving,
-    mean_n, n_meas, completions)`` given as numpy, so both implementations
-    can start from one mid-run state."""
+    mean_n, n_meas, completions)`` given as numpy (one run, or vmapped
+    over cells), so both implementations can start from one mid-run
+    state."""
     dev = resolve_device(device)
     q, serving, mean_n, n_meas, compl = (np.asarray(a) for a in arrays)
+    if q.ndim == 2:   # one run: a cell axis of 1
+        q, serving = q[None], serving[None]
+    cells = lambda x, dtype: torch.as_tensor(  # noqa: E731
+        x.astype(dtype).reshape(-1), device=dev)
     return (torch.as_tensor(q.astype(np.int32), device=dev),
             torch.as_tensor(serving.astype(np.int32), device=dev),
-            torch.tensor(float(mean_n), dtype=torch.float32, device=dev),
-            torch.tensor(float(n_meas), dtype=torch.float32, device=dev),
-            torch.tensor(int(compl), dtype=torch.int32, device=dev))
+            cells(mean_n, np.float32), cells(n_meas, np.float32),
+            cells(compl, np.int32))
 
 
 def _finalize(carry_np, lam_total) -> Dict[str, Any]:
@@ -400,33 +488,58 @@ def _finalize(carry_np, lam_total) -> Dict[str, Any]:
     }
 
 
+def _fleet_run(policy: PolicyLike, cfg, cells: Sequence[Tuple[int, float]],
+               est_cells: np.ndarray, fleet: FleetLike, device,
+               rng: Optional[DrawSource]) -> Dict[str, np.ndarray]:
+    """Runs the cells ``[(seed, lam), ...]`` with (N, M, K) estimates as
+    one batch; returns (N,) metric arrays."""
+    dev = resolve_device(device)
+    init, step = _build_fleet_step(policy, cfg, as_fleet_config(fleet), dev)
+    est_t = torch.as_tensor(est_cells, device=dev).contiguous()
+    if rng is None:
+        rng = DeviceSource(cells, cfg.max_arrivals, cfg.topo.num_servers,
+                           dev, candidates(policy))
+    carry = init(len(cells))
+    for t in range(cfg.horizon):
+        carry = step(carry, t, est_t, rng.slot(t))
+    lam = np.asarray([lam for _, lam in cells], np.float32)
+    return _finalize(tuple(x.cpu().numpy() for x in carry), lam)
+
+
 def fleet_simulate(policy: PolicyLike, cfg, lam_total: float, est,
                    seed: int = 0, fleet: FleetLike = None, device=None,
                    rng: Optional[DrawSource] = None) -> Dict[str, Any]:
     """Fleet-path analogue of `core.simulator.simulate` (static scenario,
-    uniform placement).  Same metrics keys; scalars come back as floats.
+    uniform placement): a one-cell `fleet_sweep`.  Same metrics keys;
+    scalars come back as floats.
 
-    `rng` replaces the default `DeviceSource(seed, ...)` (the tests pass
-    a source that replays the reference's draws)."""
+    `rng` replaces the default `DeviceSource([(seed, lam_total)], ...)`
+    (the tests pass a source that replays the reference's draws)."""
     if lam_total < 0:
         raise ValueError(f"lam_total must be >= 0, got {lam_total}")
-    dev = resolve_device(device)
-    fc = as_fleet_config(fleet)
-    init, step = _build_fleet_step(policy, cfg, fc, dev)
-    if not isinstance(est, torch.Tensor):
-        est = torch.from_numpy(np.array(est, np.float32))
-    est_t = est.to(device=dev, dtype=torch.float32).contiguous()
-    if rng is None:
-        rng = DeviceSource(seed, np.float32(lam_total), cfg.max_arrivals,
-                           cfg.topo.num_servers, dev)
-    carry = init()
-    for t in range(cfg.horizon):
-        carry = step(carry, t, est_t, rng.slot(t))
-    out = _finalize(tuple(x.cpu().numpy() for x in carry), lam_total)
-    return {k: float(v) for k, v in out.items()}
+    out = _fleet_run(policy, cfg, [(int(seed), np.float32(lam_total))],
+                     _as_numpy(est)[None], fleet, device, rng)
+    return {k: float(v[0]) for k, v in out.items()}
 
 
 def fleet_sweep(policy: PolicyLike, cfg, lam_grid, est_stack, seeds,
-                fleet: FleetLike = None, device=None):
-    """(load x error x seed) grids as a batch dimension."""
-    raise NotImplementedError(f"fleet_sweep {_LATER}")
+                fleet: FleetLike = None, device=None,
+                rng: Optional[DrawSource] = None) -> Dict[str, np.ndarray]:
+    """Fleet-path analogue of `core.simulator.sweep`: (L, E, S) metrics.
+
+    lam_grid (L,), est_stack (E, M, K), seeds (S,).  The grid runs as one
+    batch of N = L*E*S cells, cell (l, e, s) at flat index
+    ``(l*E + e)*S + s`` (the reference's order); a cell equals
+    `fleet_simulate` at its load, estimates and seed, bit for bit.  `rng`
+    gives the N cells' draws in that order."""
+    lam_grid = np.asarray(lam_grid, np.float32).reshape(-1)
+    if np.any(lam_grid < 0):
+        raise ValueError(f"lam_grid must be >= 0, got {lam_grid}")
+    est_stack = _as_numpy(est_stack)
+    seeds = [int(s) for s in np.asarray(seeds).reshape(-1)]
+    shape = (len(lam_grid), len(est_stack), len(seeds))
+    grid = [(lam, e, s) for lam in lam_grid
+            for e in range(shape[1]) for s in seeds]
+    out = _fleet_run(policy, cfg, [(s, lam) for lam, _, s in grid],
+                     est_stack[[e for _, e, _ in grid]], fleet, device, rng)
+    return {k: np.asarray(v).reshape(shape) for k, v in out.items()}

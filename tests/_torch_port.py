@@ -14,37 +14,43 @@ from repro_torch.core.rng import DenseDraws, DenseSource, DrawSource, SlotDraws
 
 
 class JaxReplay(DrawSource):
-    """The reference fleet chunk's draws (`repro.sharding.sim`), per slot:
-    key_t = fold_in(PRNGKey(seed), t); k_arr, k_algo = split(key_t);
-    k_n, k_t = split(k_arr); k_hot, k_u = split(k_t);
-    _, k_serve = split(k_algo)."""
+    """The reference fleet chunk's draws (`repro.sharding.sim`) for the
+    cells ``[(seed, lam), ...]``, vmapped over them as `fleet_sweep` runs
+    them, per slot: key_t = fold_in(PRNGKey(seed), t);
+    k_arr, k_algo = split(key_t); k_n, k_t = split(k_arr);
+    k_hot, k_u = split(k_t); k_route, k_serve = split(k_algo); with
+    ``d`` > 0 also power-of-d's u_cand = uniform(k_route, (B, d))."""
 
-    def __init__(self, seed, lam, batch, num_servers):
-        base = jax.random.PRNGKey(jnp.asarray(seed, jnp.uint32))
-        lam = jnp.float32(lam)
+    def __init__(self, cells, batch, num_servers, d=0):
+        self._seeds = jnp.asarray([s for s, _ in cells], jnp.uint32)
+        self._lams = jnp.asarray([lam for _, lam in cells], jnp.float32)
 
-        def draws(t):
+        def draws(seed, lam, t):
+            base = jax.random.PRNGKey(seed)
             k_arr, k_algo = jax.random.split(jax.random.fold_in(base, t))
             k_n, k_t = jax.random.split(k_arr)
             n = jnp.minimum(jax.random.poisson(k_n, lam), batch)
             k_hot, k_u = jax.random.split(k_t)
-            _, k_serve = jax.random.split(k_algo)
-            return (n, jax.random.uniform(k_hot, (batch,)),
-                    jax.random.uniform(k_u, (batch, 3)),
-                    jax.random.uniform(k_serve, (num_servers,)))
+            k_route, k_serve = jax.random.split(k_algo)
+            out = (n, jax.random.uniform(k_hot, (batch,)),
+                   jax.random.uniform(k_u, (batch, 3)),
+                   jax.random.uniform(k_serve, (num_servers,)))
+            if d:
+                out += (jax.random.uniform(k_route, (batch, d)),)
+            return out
 
-        self._draws = jax.jit(draws)
+        self._draws = jax.jit(jax.vmap(draws, (0, 0, None)))
 
     def slot(self, t):
-        n, u_hot, r, u_serve = (np.asarray(x)
-                                for x in self._draws(jnp.int32(t)))
-        return SlotDraws(torch.tensor(int(n)), torch.tensor(u_hot),
-                         torch.tensor(r), torch.tensor(u_serve))
+        out = [torch.from_numpy(np.array(x))
+               for x in self._draws(self._seeds, self._lams, jnp.int32(t))]
+        return SlotDraws(out[0].long(), *out[1:])
 
 
 # how each dense policy splits its per-slot key k_algo (reference modules)
 _FAMILY = {"balanced_pandas": "pandas", "pandas_po2": "po2",
-           "jsq_maxweight": "claim", "priority": "claim", "fifo": "fifo"}
+           "jsq_maxweight": "claim", "priority": "claim", "fifo": "fifo",
+           "blind_pandas": "pandas", "slo_pandas": "pandas"}
 
 
 def _slot_keys(seed, t):

@@ -326,3 +326,45 @@ def test_cuda_kernel_matches_plain_version(m, groups, rates):
         plain = ref.fleet_route(args[0], args[1], est, anc, args[2])
         for a, b in zip(out, plain):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_cuda_wrapper_refuses_two_cell_axes():
+    """One leading cell axis at most (the kernel's blockIdx.y)."""
+    q = torch.zeros((2, 2, 24, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one cell axis"):
+        slot_step.fleet_route_cuda(q, q[..., 0], q.float(),
+                                   torch.zeros((1, 24), dtype=torch.int32),
+                                   torch.zeros((2, 2, 5, 3),
+                                               dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,groups,rates", TOPOS + RAGGED,
+                         ids=IDS + RAGGED_IDS)
+def test_cuda_batched_kernel_matches_plain_and_single_cells(m, groups,
+                                                            rates):
+    """N cells in one launch equal the plain version and N one-cell
+    launches, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    anc = torch.as_tensor(np.array(loc.Topology(m, groups).ancestors),
+                          device=dev)
+    for n in (1, 2, 7):
+        cells = [_fuzz_state(rng, m, len(rates)) for _ in range(n)]
+        q, serving, locs = (torch.as_tensor(np.stack(x), device=dev)
+                            for x in zip(*cells))
+        est = torch.as_tensor(np.stack([_est(m, rates)] * n), device=dev)
+        before = ops.LAUNCHES["fleet_route"]
+        out = ops.fleet_route(q, serving, est, anc, locs)
+        assert ops.LAUNCHES["fleet_route"] == before + 1
+        plain = ref.fleet_route(q, serving, est, anc, locs)
+        for a, b in zip(out, plain):
+            assert a.shape == (n, locs.shape[1])
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for c in range(n):
+            one = ops.fleet_route(q[c], serving[c], est[c], anc, locs[c])
+            for a, b in zip(one, out):
+                assert torch.equal(a.view(torch.int32),
+                                   b[c].view(torch.int32))

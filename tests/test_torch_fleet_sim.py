@@ -49,7 +49,9 @@ def _np(carry):
 
 
 def _assert_carry_equal(port, ref, t, arm):
+    """The port's one-cell carry against the reference's carry."""
     for i, (a, b) in enumerate(zip(_np(port), ref)):
+        a = a[0]
         assert a.dtype == b.dtype, (t, arm, i, a.dtype, b.dtype)
         if not np.array_equal(a, b):
             raise AssertionError(f"slot {t}, {arm}: carry field {i} differs")
@@ -68,8 +70,8 @@ def test_replay_carry_identical_every_slot(m, groups, rates):
             "balanced_pandas", cfg, fs.FleetConfig(use_kernel=use_kernel),
             "cpu")
         arms[use_kernel] = [step, pinit()]
-    src = JaxReplay(seed, lam, cfg.max_arrivals, m)
-    est_j, est_t = jnp.asarray(est), torch.from_numpy(est.copy())
+    src = JaxReplay([(seed, lam)], cfg.max_arrivals, m)
+    est_j, est_t = jnp.asarray(est), torch.from_numpy(est.copy())[None]
     rc = init()
     for t in range(cfg.horizon):
         rc = chunk(rc, jnp.int32(t), jnp.float32(lam), est_j,
@@ -100,8 +102,8 @@ def test_carry_from_reference_resumes_mid_run():
                                    "cpu")
     pc = fs.carry_from_reference(_np(rc), device="cpu")
     _assert_carry_equal(pc, _np(rc), 60, "converted")
-    src = JaxReplay(seed, lam, cfg.max_arrivals, 36)
-    est_t = torch.from_numpy(est.copy())
+    src = JaxReplay([(seed, lam)], cfg.max_arrivals, 36)
+    est_t = torch.from_numpy(est.copy())[None]
     for t in range(60, 120):
         rc = chunk(rc, jnp.int32(t), *args)
         pc = step(pc, t, est_t, src.slot(t))

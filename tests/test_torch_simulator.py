@@ -31,7 +31,7 @@ def test_replay_simulate_equals_reference_metrics():
                               fleet=rfs.FleetConfig(chunk=50, unroll=1))
     got = sim.simulate("balanced_pandas", cfg, lam, est, seed=seed,
                        fleet=True, device="cpu",
-                       rng=JaxReplay(seed, lam, cfg.max_arrivals, m))
+                       rng=JaxReplay([(seed, lam)], cfg.max_arrivals, m))
     assert got == want
 
 
@@ -137,13 +137,6 @@ def test_unported_paths_raise_naming_their_slice():
         with pytest.raises(NotImplementedError, match=slice_name):
             sim.sweep("balanced_pandas", cfg, [5.0], est[None], [0],
                       device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sim.simulate("pandas_po2", cfg, 5.0, est, fleet=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fs.fleet_sweep("balanced_pandas", cfg, [5.0], est[None], [0])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sim.sweep("balanced_pandas", cfg, [5.0], est[None], [0], fleet=True,
-                  device="cpu")
     with pytest.raises(ValueError, match="unsupported"):
         sim.simulate("fifo", cfg, 5.0, est, fleet=True, device="cpu")
     with pytest.raises(ValueError, match="lam_total"):
@@ -152,11 +145,10 @@ def test_unported_paths_raise_naming_their_slice():
     with pytest.raises(ValueError, match="lam_grid"):
         sim.sweep("balanced_pandas", cfg, [-0.5], est[None], [0],
                   device="cpu")
-    # the dense path, which raised before this slice, now runs every
-    # registered policy
-    assert available_policies() == ("balanced_pandas", "fifo",
-                                    "jsq_maxweight", "pandas_po2",
-                                    "priority")
+    # the dense path runs every registered policy: the reference's seven
+    assert available_policies() == ("balanced_pandas", "blind_pandas",
+                                    "fifo", "jsq_maxweight", "pandas_po2",
+                                    "priority", "slo_pandas")
     for name in available_policies():
         out = sim.simulate(name, cfg, 5.0, est, fleet=False, device="cpu")
         assert np.isfinite(out["mean_delay"]) and out["throughput"] > 0
