@@ -6,8 +6,10 @@
 Needs one NVIDIA H100 (sm_90a) and nvcc.  With --prev, DIR holds the
 parent tree's kernel sources (csrc/): its fleet_route, wwl_route and
 maxweight kernels are built with the same flags, held against the plain
-versions and timed beside this tree's on the same inputs, and the fleet
-slots/s is measured with each fleet_route in turn.  Phases, each fatal
+versions and timed beside this tree's on the same inputs, the fleet
+slots/s is measured with each fleet_route in turn, and its float32
+flash_attention and ssd kernels (CUDA cores) are timed beside this
+tree's at the float32 rows of phases 3b and 3c.  Phases, each fatal
 on failure:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
@@ -71,18 +73,25 @@ on failure:
 3b. (run after 8) flash_attention: the bf16 kernel's ptxas summary
    (registers, shared memory, spills) and its `HGMMA` count in the
    built library's SASS (fatal if 0: bf16 must run on the tensor
-   cores); the CUDA kernels against their plain version `ref.mha` at the
-   8 cases of tests/test_kernels_attention.py in float32 (atol/rtol
-   2e-5, CUDA-core kernel) and bf16 (2e-2, and every row within 1% of
-   its largest value, tensor-core kernel), the float32 kernel timed at
-   the first case; then in bf16 at the serving slice's prefill shape of
-   every bucket (B 1, Hq 32, Hkv 2, T 32/64/128, D 128, causal) and at
-   T = 8192, each timed beside its plain version, one
+   cores), the same for every float32 tensor-core instantiation (split
+   TF32, fatal at 0), and the TF32 probe (what one `wgmma` .tf32 makes
+   of a raw float32 operand, and a split product's error; fatal if
+   neither is as expected); the CUDA kernels against their plain version
+   `ref.mha` at the 8 cases of tests/test_kernels_attention.py in
+   float32 (atol/rtol 2e-5) and bf16 (2e-2, and every row within 1% of
+   its largest value); then in bf16 at the serving slice's prefill shape
+   of every bucket (B 1, Hq 32, Hkv 2, T 32/64/128, D 128, causal) and
+   at T = 8192, each timed beside its plain version, one
    `scaled_dot_product_attention` call (the library yardstick, used
    nowhere in the port) and its bound, with the share of the bound
    reached, the kernel's device time by `torch.profiler` at the serving
    shapes (where CUDA events time the host's enqueue) and the host time
-   of encoding the TMA tensor maps;
+   of encoding the TMA tensor maps; then float32 at the launcher's
+   shape, chatglm3-6b's full-width prefill (T 128), T = 8192 and the 8
+   cases, on the attention layer's strided views, each held to 2e-5 and
+   timed by events and on the device beside its plain version, SDPA and
+   its bound (and, with --prev, the parent's CUDA-core kernel on the
+   same inputs, its error recorded);
 9. the serving slice: chatglm3-6b at full width (28 layers, d_model
    4096, bf16, random weights from a seed) through
    `ServingEngine.run_until_drained` with the `EngineConfig()` defaults
@@ -91,21 +100,26 @@ on failure:
    tokens, counts set to 0 before and read after (flash_attention = 28
    x prefills), every logits tensor finite; one prefill through
    impl="pallas" against impl="xla" (last real row within 3.5% of its
-   largest logit), each forward free of host syncs (sync debug mode
-   "error"); prefill ms, decode tokens/s and the
-   device's busy share over a profiled window of decode steps;
-3c. (run after 9) ssd: the bf16 tensor-core kernel's ptxas summary and
-   its `HGMMA` count per instantiation (fatal at 0); the CUDA SSD scan
-   against its plain version `ref.ssd` at the 4 cases of
-   tests/test_kernels_ssd.py in float32 (atol/rtol 3e-4, recurrent
-   kernel) and bf16 (3e-2, and every row within 1% of its largest value,
-   tensor-core kernel; the final state, float32, within 3e-4), two calls
-   threaded through `init_state` against one, bf16 at T = 1, 17 and 129
-   from a nonzero state at mamba2-1.3b's head widths, then in bf16 at
-   its prefill shape of every bucket (B 1, T 32/64/128, H 64, P 64,
-   N 128) and at T = 8192, each timed beside its plain version and the
-   recurrent kernel (by CUDA events and, by `torch.profiler`, on the
-   device), with its bound;
+   largest logit; the same weights in float32 within
+   `SERVE_F32_LOGIT_TOL`, and a deliberately wrong attention, one key
+   past the causal edge, must read beyond that limit), each forward free
+   of host syncs (sync debug mode "error"); prefill ms, decode tokens/s
+   and the device's busy share over a profiled window of decode steps;
+3c. (run after 9) ssd: the bf16 and the float32 tensor-core kernels'
+   ptxas summaries and `HGMMA` counts per instantiation (fatal at 0);
+   the CUDA SSD scan against its plain version `ref.ssd` at the 4 cases
+   of tests/test_kernels_ssd.py in float32 (atol/rtol 3e-4) and bf16
+   (3e-2, and every row within 1% of its largest value; the final
+   state, float32, within 3e-4), two calls threaded through
+   `init_state` against one, bf16 at T = 1, 17 and 129 from a nonzero
+   state at mamba2-1.3b's head widths, then in bf16 at its prefill shape
+   of every bucket (B 1, T 32/64/128, H 64, P 64, N 128) and at T =
+   8192, each timed beside its plain version and the recurrent kernel
+   (by CUDA events and, by `torch.profiler`, on the device), with its
+   bound; then float32 at the launcher's shape, the full-width prefill
+   (T 128), T = 8192 and the 4 cases, b and c as views into one buffer,
+   held to 3e-4 and timed beside the recurrent kernel, the plain version
+   and the bound (and, with --prev, the parent's recurrent kernel);
 11. the Mamba serving slice: mamba2-1.3b at full width (48 layers,
    d_model 2048, bf16, random weights from a seed) through the same
    engine, defaults and 16 requests as phase 9: ssd = 48 x prefills,
@@ -119,10 +133,13 @@ on failure:
    a profiled decode window;
 10. the launcher: `python -m repro_torch.launch.serve` with its
    defaults (the smoke config, on the card), then with `--arch
-   mamba2_13b`, counts set to 0 before and read after each; then the
-   float32 `flash_attention` and `ssd` kernels at the largest shape the
-   launcher gave each, against their plain versions, timed by events
-   and on the device, with the bound (and SDPA for attention).
+   mamba2_13b`, counts set to 0 before and read after each; then at the
+   largest shape the launcher gave the float32 `flash_attention` and
+   `ssd`, one call must be one launch of the float32 tensor-core kernel
+   and nothing else (`torch.profiler`'s record of the host's runtime
+   calls: no copy, no set, every recorded device activity that kernel),
+   and each is held against its plain version and timed by events and on
+   the device, with the bound (and SDPA for attention).
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -147,6 +164,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 dense, tensor cores
+TF32_OPS_PER_S = 494.7e12   # H100 SXM TF32 dense, tensor cores
+# float32-exact work on the tensor cores: three TF32 products a product
+# (split TF32, csrc/split_tf32.cuh), about 165 TFLOP/s, 2.5x the CUDA
+# cores' 67: the least time the card needs for a float32 product
+F32_SPLIT_OPS_PER_S = TF32_OPS_PER_S / 3
 M_FLEET, B_FLEET = 10008, 5474
 M_BENCH, B_BENCH = 65536, 8192      # benchmarks/bench_kernels.py, full width
 M_QUICK, B_QUICK = 1024, 128        # examples/quickstart.py, layer 2
@@ -247,6 +269,15 @@ PREV_KERNELS = {"fleet_route": ("fleet_route", "fleet_route_launch", 5, 4),
 FLEET_ROUTE_CELLS_ARG = rb"fleet_route_launch\([^)]*\bint n,"
 
 
+# an earlier tree's model kernels: (source, C entry point, its argument
+# types), each called with contiguous tensors, as that tree's wrappers
+# passed them (before the float32 kernels took strides)
+PREV_MODEL_KERNELS = {
+    "flash_attention": ("flash_attention", "flash_attention_launch",
+                        ["p"] * 4 + ["i"] * 7 + ["f", "i", "i", "f", "p"]),
+    "ssd": ("ssd_scan", "ssd_scan_launch", ["p"] * 7 + ["i"] * 6 + ["p"])}
+
+
 def load_prev(prev_dir):
     """{kernel: an earlier tree's launch function} from `prev_dir`'s
     fleet_route.cu, wwl_route.cu and maxweight.cu (and its headers),
@@ -256,7 +287,10 @@ def load_prev(prev_dir):
     wrapper's `_fn`: where a source's entry point takes no scratch
     pointer (the earlier all-pairs kernels), it is dropped,
     and where its `fleet_route` takes no cell count (a tree from before
-    the cell axis: one cell a launch), so is the count, which must be 1."""
+    the cell axis: one cell a launch), so is the count, which must be 1.
+    Its flash_attention.cu and ssd_scan.cu, built alongside, give
+    "flash_attention" and "ssd": the earlier float32 kernels on the CUDA
+    cores (`_prev_attention`, `_prev_ssd`)."""
     import ctypes
     import glob
     import hashlib
@@ -270,7 +304,9 @@ def load_prev(prev_dir):
     headers = b"".join(open(h, "rb").read() for h in
                        sorted(glob.glob(os.path.join(prev_dir, "*.cuh"))))
     procs = {}
-    for name, (source, _, _, _) in PREV_KERNELS.items():
+    sources = {n: v[0] for n, v in PREV_KERNELS.items()}
+    sources.update({n: v[0] for n, v in PREV_MODEL_KERNELS.items()})
+    for name, source in sources.items():
         src = os.path.join(prev_dir, f"{source}.cu")
         text = open(src, "rb").read()
         digest = hashlib.sha256(text + headers).hexdigest()[:16]
@@ -281,10 +317,19 @@ def load_prev(prev_dir):
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
     for name, (out, scratch, cells, proc) in procs.items():
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the parent's {name}:\n{log}")
+        if name in PREV_MODEL_KERNELS:
+            _, entry, args = PREV_MODEL_KERNELS[name]
+            fn = getattr(ctypes.CDLL(str(out)), entry)
+            fn.argtypes = [types[a] for a in args]
+            fn.restype = ctypes.c_int
+            fns[name] = (_prev_attention if name == "flash_attention"
+                         else _prev_ssd)(fn)
+            continue
         _, entry, before, after = PREV_KERNELS[name]
         fn = getattr(ctypes.CDLL(str(out)), entry)
         fn.argtypes = ([ctypes.c_void_p] * before
@@ -296,6 +341,39 @@ def load_prev(prev_dir):
         else:
             fns[name] = fn if scratch else _without_scratch(fn)
     return fns
+
+
+def _prev_attention(raw):
+    """The earlier float32 attention kernel (CUDA cores, route 0) called
+    on contiguous float32 q, k, v as `ops.flash_attention` takes them."""
+    def call(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
+        b, hq, tq, d = q.shape
+        out = torch.empty_like(q)
+        err = raw(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, hq, k.shape[1], tq, k.shape[2], d, 0,
+                  float(d ** -0.5 if scale is None else scale),
+                  int(causal), int(window), float(softcap),
+                  torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's flash_attention: cudaError "
+                               f"{err}")
+        return out
+    return call
+
+
+def _prev_ssd(raw):
+    """The earlier float32 SSD kernel (recurrent, route 0) called on
+    contiguous float32 x, a, b, c and h0."""
+    def call(x, a, b, c, h0):
+        bsz, t, h, p = x.shape
+        y, h_final = torch.empty_like(x), torch.empty_like(h0)
+        err = raw(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                  h0.data_ptr(), y.data_ptr(), h_final.data_ptr(), bsz, t, h,
+                  p, b.shape[-1], 0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's ssd_scan: cudaError {err}")
+        return y, h_final
+    return call
 
 
 def _one_cell(raw):
@@ -1220,14 +1298,22 @@ LONG_T = 8192     # a long prefill, timed beside the serving buckets
 # runs read 0.017 (0.086 of 5.06); the limit is about twice that.  A
 # kernel that lets each row see one key past the causal edge reads 0.57.
 SERVE_LOGIT_TOL = 0.035
+# the same for chatglm3-6b in float32 (the split-TF32 kernel on the
+# tensor cores against the plain route): a sound run reads 2.3e-6 (1.17e-5
+# of 5.05) and the limit is about 8x that; the kernel that lets each row
+# see one key past the causal edge (`attention_fault_reading`) reads 0.57
+SERVE_F32_LOGIT_TOL = 2e-5
 
 
 def _attn_bound(shape, causal, window, dtype):
     """(bound_ms, bound_by, bytes, flops) of attention on these inputs:
     q, k, v read once and o written once over the HBM rate, against
     4 D flops for every kept (query, key) pair of every (batch, head)
-    over the peak rate of the dtype (bf16 tensor cores, float32 CUDA
-    cores)."""
+    over the dtype's peak rate on the tensor cores: bf16's, and for
+    float32 the split-TF32 rate (`F32_SPLIT_OPS_PER_S`, three TF32
+    products a float32 product), above the CUDA cores' 67 TFLOP/s, so
+    that no float32 kernel on the tensor cores can read over 100% of
+    it."""
     b, hq, hkv, tq, tk, d = shape
     qpos = np.arange(tq) + (tk - tq)
     hi = np.minimum(tk, qpos + 1) if causal else np.full(tq, tk)
@@ -1236,7 +1322,7 @@ def _attn_bound(shape, causal, window, dtype):
     flops = 4 * d * pairs * b * hq
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = esize * (2 * b * hq * tq * d + 2 * b * hkv * tk * d)
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_SPLIT_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -1405,19 +1491,177 @@ def attn_build_report() -> dict:
         [f"D={d}{cap}" for d in HEAD_DIMS for cap in ("", " softcap")])
 
 
-def phase_attention(dev):
-    """flash_attention's build report (`attn_build_report`), then the
-    kernels against their plain version at the attention test cases
-    (float32 and bf16; float32 timed at the first), then in bf16 at the
-    slice's prefill shape of every bucket and at T = 8192, timed beside
-    the plain version and SDPA.  Returns (timed rows, max |error|, the
-    build report)."""
+TF32_KERNEL = "attention_tf32_kernel"   # float32, split TF32 (wgmma)
+F32_CORE_KERNEL = "attention_f32_kernel"   # float32, the CUDA cores
+
+
+def attn_tf32_build_report() -> dict:
+    """`_build_report` of the float32 tensor-core kernel, per head dim it
+    takes and softcap ("D=128", "D=128 softcap"): fatal where one has no
+    `HGMMA` (off the tensor cores)."""
+    from repro_torch.kernels.flash_attention import TF32_HEAD_DIMS
+
+    return _build_report(
+        "flash_attention", TF32_KERNEL, r"ILi(\d+)ELb([01])E",
+        lambda g: f"D={g.group(1)}" + (" softcap" if g.group(2) == "1"
+                                       else ""),
+        [f"D={d}{cap}" for d in TF32_HEAD_DIMS for cap in ("", " softcap")])
+
+
+# the probe's rows (row i of a, times b's row 0 = e_0): a raw float32
+# above half a TF32 ulp, at a tie with an even and an odd last kept bit,
+# negative, below half an ulp, and an exact TF32 value
+TF32_PROBE_VALUES = (1 + 2 ** -11 + 2 ** -12, 1 + 2 ** -11, 1 + 3 * 2 ** -11,
+                     -(1 + 2 ** -11 + 2 ** -12), 1 + 2 ** -12, 1 + 2 ** -10)
+TF32_PROBE_MODES = {   # what each conversion reads for the values above
+    "truncate": (1.0, 1.0, 1 + 2 ** -10, -1.0, 1.0, 1 + 2 ** -10),
+    "nearest-even": (1 + 2 ** -10, 1.0, 1 + 2 ** -9, -(1 + 2 ** -10), 1.0,
+                     1 + 2 ** -10),
+    "nearest-away": (1 + 2 ** -10, 1 + 2 ** -10, 1 + 2 ** -9,
+                     -(1 + 2 ** -10), 1.0, 1 + 2 ** -10)}
+
+
+def tf32_probe_report(dev) -> dict:
+    """The TF32 probe (`flash_attention.tf32_probe`, one `wgmma` .tf32
+    product of raw float32 operands): which conversion the tensor cores
+    apply to a float32 that is not a TF32 value, and the error of a
+    product of random operands split as the float32 kernels split them
+    (`split_tf32.cuh`: three products) against float64.  Fatal unless
+    the readings are one of `TF32_PROBE_MODES` and the split product is
+    within 2^-20 of the largest |product| (a single product: about
+    2^-10)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    a = torch.zeros((64, 8))
+    b = torch.zeros((32, 8))
+    b[0, 0] = 1.0
+    for i, x in enumerate(TF32_PROBE_VALUES):
+        a[i, 0] = x
+    got = fa.tf32_probe(a.to(dev), b.to(dev))[:len(TF32_PROBE_VALUES), 0]
+    read = tuple(float(x) for x in got.cpu())
+    mode = next((m for m, want in TF32_PROBE_MODES.items() if read == want),
+                None)
+    gen = torch.Generator().manual_seed(0)
+    ra, rb = torch.randn((64, 8), generator=gen), torch.randn((32, 8),
+                                                              generator=gen)
+
+    def rna(x):  # cvt.rna.tf32.f32
+        return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    (ah, al), (bh, bl) = ((rna(x), rna(x - rna(x))) for x in (ra, rb))
+    split = sum(fa.tf32_probe(u.to(dev), w.to(dev)).cpu().double()
+                for u, w in ((al, bh), (ah, bl), (ah, bh)))
+    one = fa.tf32_probe(ra.to(dev), rb.to(dev)).cpu().double()
+    exact = ra.double() @ rb.double().T
+    scale = float(exact.abs().max())
+    report = dict(readings=read, raw_float32=mode,
+                  split_rel_err=float((split - exact).abs().max()) / scale,
+                  one_product_rel_err=float((one - exact).abs().max())
+                  / scale)
+    print(f"tf32 probe: {json.dumps(report)}", flush=True)
+    if mode is None or not report["split_rel_err"] <= 2 ** -20:
+        raise AssertionError(f"tf32 probe: unexpected readings {report}")
+    return report
+
+
+def attn_f32_shapes():
+    """(name, (B, Hq, Hkv, Tq, Tk, D), causal, window, softcap, reps,
+    plain reps) of the timed float32 shapes: the launcher's (the smoke
+    config's heads at T = 16), chatglm3-6b's full-width prefill at the
+    largest bucket, the same at T = 8192, then the test cases."""
+    from repro_torch.configs import registry
+    from repro_torch.serve.engine import EngineConfig
+
+    smoke = registry.get_smoke_config(SERVE_ARCH)
+    cfg = registry.get_config(SERVE_ARCH)
+    heads = (1, cfg.num_heads, cfg.num_kv_heads)
+    t = max(EngineConfig().prefill_buckets)
+    return ([("launcher", (1, smoke.num_heads, smoke.num_kv_heads, 16, 16,
+                           smoke.head_dim), True, 0, 0.0, 50, 5),
+             (f"prefill_{t}", heads + (t, t, cfg.head_dim), True, 0, 0.0,
+              50, 5),
+             ("long", heads + (LONG_T, LONG_T, cfg.head_dim), True, 0, 0.0,
+              3, 1)]
+            + [(f"case{i}", c[:6], *c[6:], 10, 2)
+               for i, c in enumerate(ATTN_CASES)])
+
+
+def attn_f32_rows(dev, prev_fn=None) -> dict:
+    """float32 `flash_attention` at `attn_f32_shapes`, its inputs in the
+    attention layer's layout ((B, H, T, D) views of (B, T, H, D)
+    storage), against its plain version (2e-5, fatal): times by events
+    and on the device, the plain version's and, causal without window or
+    softcap, one SDPA call's, with the bound; with `prev_fn` (the
+    parent's CUDA-core kernel, `_prev_attention`) the same times of that
+    kernel on contiguous copies of the inputs and its error (recorded,
+    not fatal)."""
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+
+    gen = torch.Generator(dev).manual_seed(1)
+    rows = {}
+    for name, shape, causal, window, cap, reps, plain_reps in \
+            attn_f32_shapes():
+        b, hq, hkv, tq, tk, d = shape
+        q = torch.randn((b, tq, hq, d), generator=gen,
+                        device=dev).transpose(1, 2)
+        k, v = (torch.randn((b, tk, hkv, d), generator=gen,
+                            device=dev).transpose(1, 2) for _ in range(2))
+        opts = dict(causal=causal, window=window, softcap=cap,
+                    scale=d ** -0.5)
+        fn = lambda: ops.flash_attention(q, k, v, **opts)  # noqa: E731
+        plain = ref.mha(q, k, v, **opts)
+        err, _ = _attn_check(f"float32 {name}", fn(), plain, torch.float32)
+        tc = fa.route(torch.float32, d) == fa.F32_TENSOR_CORES
+        bound = _attn_bound(shape, causal, window, torch.float32)
+        sdpa = causal and not window and not cap and tq == tk
+        row = dict(shape=list(shape), dtype="f32",
+                   route="tensor cores" if tc else "CUDA cores",
+                   max_abs_err=err, ms=_time_ms(fn, reps),
+                   device_ms=_device_ms(fn, TF32_KERNEL if tc
+                                        else F32_CORE_KERNEL, reps),
+                   plain_ms=_time_ms(lambda: ref.mha(q, k, v, **opts),
+                                     plain_reps),
+                   library_ms=(_time_ms(_sdpa_fn(q, k, v, d ** -0.5), reps)
+                               if sdpa else None),
+                   bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
+                   flops=bound[3])
+        if prev_fn is not None:
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
+            pfn = lambda: prev_fn(qc, kc, vc, **opts)  # noqa: E731
+            perr = float((pfn() - plain).abs().max())
+            row.update(prev_max_abs_err=perr,
+                       prev_within_limit=bool(torch.allclose(
+                           pfn(), plain, atol=ATTN_TOL[torch.float32],
+                           rtol=ATTN_TOL[torch.float32])),
+                       prev_ms=_time_ms(pfn, reps),
+                       prev_device_ms=_device_ms(pfn, F32_CORE_KERNEL, reps))
+            del qc, kc, vc, pfn
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        timed = row["device_ms"] or row["ms"]
+        row["bound_share"] = row["bound_ms"] / timed
+        rows[name] = row
+        print(f"flash_attention f32 {name}: {json.dumps(row)}", flush=True)
+        del q, k, v, fn, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_attention(dev, prev_fn=None):
+    """flash_attention's build reports (`attn_build_report`,
+    `attn_tf32_build_report`) and the TF32 probe, then the kernels
+    against their plain version at the attention test cases (float32 and
+    bf16), then in bf16 at the slice's prefill shape of every bucket and
+    at T = 8192, timed beside the plain version and SDPA, then float32 at
+    `attn_f32_shapes` (`attn_f32_rows`, with the parent's kernel beside
+    it given `prev_fn`).  Returns (timed rows, max |error|, the build
+    reports, the float32 rows, the probe's report)."""
     from repro_torch.kernels import flash_attention as fa, ops, ref
 
     build = attn_build_report()
+    build.update({f"f32 {n}": r for n, r in attn_tf32_build_report().items()})
+    probe = tf32_probe_report(dev)
     rng = np.random.default_rng(0)
     max_err = max_rel = 0.0
-    f32_row = None
     for case in ATTN_CASES:
         b, hq, hkv, tq, tk, d, causal, window, cap = case
         host = [rng.normal(size=s).astype(np.float32)
@@ -1431,24 +1675,10 @@ def phase_attention(dev):
             max_err = max(max_err, err)
             if dtype == torch.bfloat16:
                 max_rel = max(max_rel, rel)
-            elif f32_row is None:   # the float32 kernel, timed once
-                shape = (b, hq, hkv, tq, tk, d)
-                bound = _attn_bound(shape, causal, window, dtype)
-                f32_row = dict(
-                    shape=list(shape), dtype="f32", max_abs_err=err,
-                    ms=_time_ms(lambda: ops.flash_attention(q, k, v, **opts),
-                                50),
-                    plain_ms=_time_ms(lambda: ref.mha(q, k, v, **opts), 20),
-                    library_ms=_time_ms(_sdpa_fn(q, k, v, d ** -0.5), 50),
-                    bound_ms=bound[0], bound_by=bound[1], flops=bound[3])
-                f32_row["tflops"] = f32_row["flops"] / f32_row["ms"] / 1e9
-                f32_row["bound_share"] = f32_row["bound_ms"] / f32_row["ms"]
-                print(f"flash_attention f32 {case}: {json.dumps(f32_row)}",
-                      flush=True)
     print(f"flash_attention: {len(ATTN_CASES)} test cases x (float32, bf16) "
           f"within tolerance, max_abs_err {max_err:.3g}, bf16 worst row "
           f"{max_rel:.3g} of its max (limit {BF16_ROW_REL})", flush=True)
-    rows = {"f32": f32_row}
+    rows = {}
     gen = torch.Generator(dev).manual_seed(0)
     for name, shape, reps, plain_reps in attn_shapes():
         b, hq, hkv, tq, tk, d = shape
@@ -1482,8 +1712,10 @@ def phase_attention(dev):
         print(f"flash_attention {name}: {json.dumps(row)}", flush=True)
         del q, k, v, lib_fn
         torch.cuda.empty_cache()
-    return (rows, max([max_err] + [r["max_abs_err"] for r in rows.values()]),
-            build)
+    f32_rows = attn_f32_rows(dev, prev_fn)
+    return (rows, max([max_err] + [r["max_abs_err"] for r in rows.values()]
+                      + [r["max_abs_err"] for r in f32_rows.values()]),
+            build, f32_rows, probe)
 
 
 # ---------------------------------------------------------------------------
@@ -1526,8 +1758,8 @@ def _ssd_bound(shape, dtype):
     of L = min(128, T): per (batch, chunk) C B^T, 2 L^2 N flops shared by
     the heads; per (batch, chunk, head) scores X (2 L^2 P), C state^T
     (2 L P N) and the state update X^T (w B) (2 L P N); elementwise decay
-    work not counted; over the dtype's peak rate (bf16 tensor cores,
-    float32 CUDA cores)."""
+    work not counted; over the dtype's peak rate on the tensor cores
+    (bf16's; float32's split-TF32 rate, `F32_SPLIT_OPS_PER_S`)."""
     bsz, t, h, p, n = shape
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = (esize * (2 * bsz * t * h * p + 2 * bsz * t * n)
@@ -1536,7 +1768,7 @@ def _ssd_bound(shape, dtype):
     chunks = -(-t // lt)
     flops = bsz * chunks * (2 * lt * lt * n
                             + h * (2 * lt * lt * p + 4 * lt * p * n))
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_SPLIT_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -1572,16 +1804,17 @@ SSD_EDGES = (1, 17, 129)            # bf16 lengths around a chunk of 64
 
 
 def _ssd_recurrent():
-    """Within the block, bf16 calls take the recurrent kernel (the one
-    every bf16 call took before the tensor-core kernel), for timing beside the
-    tensor-core kernel."""
+    """Within the block, calls take the recurrent kernel of their dtype
+    (the one every call took before the tensor-core kernels), for timing
+    beside the tensor-core kernels."""
     from repro_torch.kernels import ssd_scan
 
     route = ssd_scan.route
 
     def recurrent(dtype, p, n):
-        rt = route(dtype, p, n)
-        return ssd_scan.RECURRENT_BF16 if rt == ssd_scan.TENSOR_CORES else rt
+        return {ssd_scan.TENSOR_CORES: ssd_scan.RECURRENT_BF16,
+                ssd_scan.TENSOR_CORES_F32: ssd_scan.RECURRENT_F32}.get(
+                    route(dtype, p, n), route(dtype, p, n))
 
     return mock.patch.object(ssd_scan, "route", recurrent)
 
@@ -1597,16 +1830,119 @@ def ssd_build_report() -> dict:
                          [f"N={n}" for n in (8, 16, 32, 64, 128)])
 
 
-def phase_ssd(dev):
-    """ssd's build report (`ssd_build_report`), then the kernel against
-    its plain version at the SSD test cases (float32 and bf16), the
-    init-state split and the bf16 edges T = 1, 17, 129 at mamba2-1.3b's
-    widths, then in bf16 at the slice's prefill shape of every bucket
-    and at T = 8192, timed beside the plain version and the recurrent
-    kernel (by CUDA events and on the device), with its bound."""
+SSD_TF32_KERNEL = "ssd_tf32_kernel"  # float32, split TF32 (wgmma)
+
+
+def ssd_tf32_build_report() -> dict:
+    """`_build_report` of the float32 tensor-core kernel per N: fatal
+    where one has no `HGMMA`."""
+    return _build_report("ssd_scan", SSD_TF32_KERNEL, r"ILi(\d+)E",
+                         lambda g: f"N={g.group(1)}",
+                         [f"N={n}" for n in (8, 16, 32, 64, 128)])
+
+
+def ssd_f32_shapes():
+    """(name, (B, T, H, P, N), reps, plain reps) of the timed float32
+    shapes: the launcher's (the smoke config's heads at T = 16),
+    mamba2-1.3b's full-width prefill at the largest bucket, the same at
+    T = 8192, then the test cases."""
+    from repro_torch.configs import registry
+    from repro_torch.serve.engine import EngineConfig
+
+    def heads(cfg):
+        ssm = cfg.ssm
+        return (ssm.num_heads(cfg.d_model), ssm.head_dim, ssm.d_state)
+
+    full = heads(registry.get_config(MAMBA_ARCH))
+    t = max(EngineConfig().prefill_buckets)
+    return ([("launcher", (1, 16) + heads(registry.get_smoke_config(
+                MAMBA_ARCH)), 50, 3),
+             (f"prefill_{t}", (1, t) + full, 50, 3),
+             ("long", (1, LONG_T) + full, 5, 1)]
+            + [(f"case{i}", c, 10, 2) for i, c in enumerate(SSD_CASES)])
+
+
+def ssd_f32_rows(dev, prev_fn=None) -> dict:
+    """float32 `ssd` at `ssd_f32_shapes`, b and c as views into one
+    buffer (as `mamba_block` passes them) and the initial state as the
+    served prefill passes it (zeros; the test cases a random one),
+    against its plain version (3e-4 on y and the final state, fatal):
+    times by events and on the device, this tree's recurrent kernel on
+    the same inputs, the plain version's, the bound; with `prev_fn` (the
+    parent's recurrent kernel, `_prev_ssd`) its times on contiguous
+    copies and its error (recorded, not fatal)."""
+    from repro_torch.kernels import ops, ref, ssd_scan
+
+    gen = torch.Generator(dev).manual_seed(2)
+    rows = {}
+    for name, shape, reps, plain_reps in ssd_f32_shapes():
+        bsz, t, h, p, n = shape
+        x, a, b, c = _ssd_inputs(gen, shape, torch.float32, dev)
+        conv = torch.cat([x.new_zeros((bsz, t, 8)), b, c], -1)
+        b, c = conv[..., 8:8 + n], conv[..., 8 + n:]
+        h0 = (torch.randn((bsz, h, p, n), generator=gen, device=dev) * 0.1
+              if name.startswith("case") else
+              torch.zeros((bsz, h, p, n), device=dev))
+        fn = lambda: ops.ssd(x, a, b, c, init_state=h0)  # noqa: E731
+        plain = ref.ssd(x, a, b, c, init_state=h0)
+        err, _ = _ssd_check(f"float32 {name}", fn(), plain, torch.float32)
+        tc = ssd_scan.route(torch.float32, p, n) == ssd_scan.TENSOR_CORES_F32
+        bound = _ssd_bound(shape, torch.float32)
+        row = dict(shape=list(shape), dtype="f32",
+                   route="tensor cores" if tc else "recurrent",
+                   max_abs_err=err, ms=_time_ms(fn, reps),
+                   device_ms=_device_ms(fn, SSD_TF32_KERNEL if tc
+                                        else SSD_REC_KERNEL, reps),
+                   plain_ms=_time_ms(lambda: ref.ssd(x, a, b, c,
+                                                     init_state=h0),
+                                     plain_reps),
+                   library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+                   bytes=bound[2], flops=bound[3])
+        with _ssd_recurrent():
+            rec_err, _ = _ssd_check(f"float32 {name} recurrent", fn(), plain,
+                                    torch.float32)
+            row.update(recurrent_max_abs_err=rec_err,
+                       recurrent_ms=_time_ms(fn, reps),
+                       recurrent_device_ms=_device_ms(fn, SSD_REC_KERNEL,
+                                                      reps))
+        if prev_fn is not None:
+            xc, bc, cc = (v.contiguous() for v in (x, b, c))
+            pfn = lambda: prev_fn(xc, a, bc, cc, h0)  # noqa: E731
+            py, ph = pfn()
+            tol = SSD_TOL[torch.float32]
+            row.update(prev_max_abs_err=max(
+                           float((py - plain[0]).abs().max()),
+                           float((ph - plain[1]).abs().max())),
+                       prev_within_limit=bool(
+                           torch.allclose(py, plain[0], atol=tol, rtol=tol)
+                           and torch.allclose(ph, plain[1], atol=tol,
+                                              rtol=tol)),
+                       prev_ms=_time_ms(pfn, reps),
+                       prev_device_ms=_device_ms(pfn, SSD_REC_KERNEL, reps))
+            del xc, bc, cc, pfn, py, ph
+        timed = row["device_ms"] or row["ms"]
+        row["bound_share"] = row["bound_ms"] / timed
+        row["tflops"] = row["flops"] / timed / 1e9
+        rows[name] = row
+        print(f"ssd f32 {name}: {json.dumps(row)}", flush=True)
+        del x, a, b, c, conv, h0, fn, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ssd(dev, prev_fn=None):
+    """ssd's build reports (`ssd_build_report`, `ssd_tf32_build_report`),
+    then the kernels against their plain version at the SSD test cases
+    (float32 and bf16), the init-state split and the bf16 edges T = 1,
+    17, 129 at mamba2-1.3b's widths, then in bf16 at the slice's prefill
+    shape of every bucket and at T = 8192, timed beside the plain version
+    and the recurrent kernel (by CUDA events and on the device), with its
+    bound, then float32 at `ssd_f32_shapes` (`ssd_f32_rows`, with the
+    parent's kernel beside it given `prev_fn`)."""
     from repro_torch.kernels import ops, ref, ssd_scan
 
     build = ssd_build_report()
+    build.update({f"f32 {n}": r for n, r in ssd_tf32_build_report().items()})
     gen = torch.Generator(dev).manual_seed(0)
     max_err = max_rel = 0.0
     for case in SSD_CASES:
@@ -1677,8 +2013,10 @@ def phase_ssd(dev):
         print(f"ssd {name}: {json.dumps(row)}", flush=True)
         del x, a, b, c, h0, fn
         torch.cuda.empty_cache()
-    return rows, max([max_err] + [r["max_abs_err"] for r in rows.values()]), \
-        build
+    f32_rows = ssd_f32_rows(dev, prev_fn)
+    return (rows, max([max_err] + [r["max_abs_err"] for r in rows.values()]
+                      + [r["max_abs_err"] for r in f32_rows.values()]),
+            build, f32_rows)
 
 
 def _profile_window(dev, fn, steps: int) -> dict:
@@ -1711,7 +2049,8 @@ def _profile_window(dev, fn, steps: int) -> dict:
 # the kernel-route vs plain-route prefill logits in the served dtype and
 # (None: not run) in float32
 SERVE_ROUTES = {
-    SERVE_ARCH: ("pallas", "flash_attention", SERVE_LOGIT_TOL, None),
+    SERVE_ARCH: ("pallas", "flash_attention", SERVE_LOGIT_TOL,
+                 SERVE_F32_LOGIT_TOL),
     MAMBA_ARCH: ("pallas_ssd", "ssd", MAMBA_LOGIT_TOL, MAMBA_F32_LOGIT_TOL)}
 
 
@@ -1823,7 +2162,36 @@ def phase_serving(dev, arch=SERVE_ARCH):
                                  device=dev)
         compare["float32"] = prefill_compare(dev, cfg32, params32, ecfg,
                                              reqs[0].prompt, impl, f32_tol)
+        if kernel == "flash_attention":
+            compare["float32_fault"] = attention_fault_reading(
+                dev, cfg32, params32, ecfg, reqs[0].prompt, f32_tol)
+        del params32
+        torch.cuda.empty_cache()
     return launches, run, compare, decode
+
+
+def attention_fault_reading(dev, cfg, params, ecfg, prompt, logit_tol):
+    """`prefill_compare` with a deliberately wrong attention: every row
+    sees one key past its causal edge (k and v given one more key, zero
+    at the end, so the kernel's offset Tk - Tq is 1).  Its share must
+    exceed `logit_tol`, or the limit cannot see such a fault (fatal)."""
+    from repro_torch.kernels import ops
+
+    real = ops.flash_attention
+
+    def one_past(q, k, v, **opts):
+        def pad(x):
+            return torch.cat([x, x.new_zeros(x.shape[:2] + (1,)
+                                             + x.shape[3:])], 2)
+        return real(q, pad(k), pad(v), **opts)
+
+    with mock.patch.object(ops, "flash_attention", one_past):
+        got = prefill_compare(dev, cfg, params, ecfg, prompt, "pallas",
+                              math.inf)
+    if not got["share"] > logit_tol:
+        raise AssertionError(f"a kernel one key past the causal edge reads "
+                             f"{got['share']}, within the limit {logit_tol}")
+    return got
 
 
 def ssd_ab(eng, reqs) -> dict:
@@ -1936,11 +2304,42 @@ def decode_window(dev, eng, ecfg, reqs) -> dict:
     return decode
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def _launches_of(fn, calls: int = 20) -> dict:
+    """What `calls` calls of `fn` asked of the card, from torch.profiler's
+    record of the host's CUDA runtime calls (which it keeps whole, where
+    it sometimes drops device records of a window): kernel launches,
+    copies and sets, and the names of the device activities it did
+    record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e.name for e in events if e.device_type == DeviceType.CPU]
+    return dict(
+        launches=sum(n in LAUNCH_CALLS for n in host),
+        copies=sum(n.startswith(("cudaMemcpy", "cudaMemset")) for n in host),
+        device=sorted({e.name for e in events
+                       if e.device_type == DeviceType.CUDA}))
+
+
 def _launcher_row(name, calls, dev_kernel):
     """The kernel at the largest shape the launcher gave it (the smoke
-    config, float32): its error against the plain version, times by
-    events and on the device, the plain version's, the bound and, for
-    attention without window or softcap, one SDPA call."""
+    config, float32): 20 calls are 20 kernel launches, no copy or set,
+    and every device activity the profiler records is `dev_kernel`
+    (fatal), then its error against the plain version, times by events
+    and on the device, the plain version's, the bound and, for attention
+    without window or softcap, one SDPA call."""
     from repro_torch.kernels import ops, ref
 
     args, kwargs = max(calls, key=lambda c: c[0][0].numel())
@@ -1968,8 +2367,18 @@ def _launcher_row(name, calls, dev_kernel):
         bound = _ssd_bound(shape, dtype)
         err = _ssd_check(f"launcher {shape}", kernel(), plain(), dtype)[0]
         library = None
+    calls_profiled = 20
+    seen = _launches_of(kernel, calls_profiled)
+    if (seen["launches"] != calls_profiled or seen["copies"]
+            or not all(dev_kernel in d for d in seen["device"])):
+        raise AssertionError(f"{name} at the launcher's shape {shape}: "
+                             f"{calls_profiled} calls made {seen}, want "
+                             f"one launch of {dev_kernel} a call and no "
+                             f"copy")
     row = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
-               calls=len(calls), max_abs_err=err,
+               calls=len(calls),
+               launches_a_call=seen["launches"] / calls_profiled,
+               max_abs_err=err,
                ms=_time_ms(kernel, KERNEL_REPS),
                device_ms=_device_ms(kernel, dev_kernel, KERNEL_REPS),
                plain_ms=_time_ms(plain, PLAIN_REPS), bound_ms=bound[0],
@@ -1982,10 +2391,11 @@ def _launcher_row(name, calls, dev_kernel):
 
 def phase_launcher(dev):
     """`python -m repro_torch.launch.serve` with its defaults (the smoke
-    config on the card), then with `--arch mamba2_13b`, counts set to 0
-    before and read after each; each kernel's calls are recorded, and the
-    kernel is then timed at the largest shape the launcher gave it
-    (`_launcher_row`)."""
+    config on the card, float32), then with `--arch mamba2_13b`, counts
+    set to 0 before and read after each; each kernel's calls are
+    recorded, and at the largest shape the launcher gave it a call is
+    checked to be one launch of the float32 tensor-core kernel and
+    nothing else, then timed (`_launcher_row`)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -2013,10 +2423,16 @@ def phase_launcher(dev):
     got[MAMBA_ARCH] = _check_counts("launcher --arch mamba2_13b",
                                     {"ssd": layers * 16})
     rows = {"flash_attention": _launcher_row(
-                "flash_attention", seen["flash_attention"],
-                "attention_f32_kernel"),
-            "ssd": _launcher_row("ssd", seen["ssd"], SSD_REC_KERNEL)}
+                "flash_attention", seen["flash_attention"], TF32_KERNEL),
+            "ssd": _launcher_row("ssd", seen["ssd"], SSD_TF32_KERNEL)}
     return got, rows
+
+
+# the keys of a float32 row in the kernels line
+F32_ROW_KEYS = ("shape", "route", "max_abs_err", "ms", "device_ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_share", "prev_ms", "prev_device_ms",
+                "prev_max_abs_err")
 
 
 def main(argv=None) -> int:
@@ -2058,10 +2474,12 @@ def main(argv=None) -> int:
     quick_launches, _, quick_bad, quick_err = phase_quickstart(dev)
     bench_launches, bench_rows = phase_bench(dev, prev)
     phase_dense_loop(dev, fleet_cfg=cfg)
-    attn_rows, attn_err, attn_build = phase_attention(dev)
+    attn_rows, attn_err, attn_build, attn_f32, probe = phase_attention(
+        dev, prev and prev["flash_attention"])
     serve_launches, _, _, _ = phase_serving(dev)
     torch.cuda.empty_cache()
-    ssd_rows, ssd_err, ssd_build = phase_ssd(dev)
+    ssd_rows, ssd_err, ssd_build, ssd_f32 = phase_ssd(
+        dev, prev and prev["ssd"])
     mamba_launches, _, _, _ = phase_serving(dev, MAMBA_ARCH)
     torch.cuda.empty_cache()
     _, launcher_rows = phase_launcher(dev)
@@ -2132,9 +2550,9 @@ def main(argv=None) -> int:
         "long": {k: attn_rows["long"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-        "f32": {k: attn_rows["f32"][k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+        "f32": {n: {k: r.get(k) for k in F32_ROW_KEYS}
+                for n, r in attn_f32.items()},
+        "tf32_probe": probe,
         "launcher": launcher_rows["flash_attention"],
         "hgmma": {n: r["hgmma"] for n, r in attn_build.items()}})
     main_ssd = ssd_rows[max((k for k in ssd_rows if k != "long"),
@@ -2157,6 +2575,9 @@ def main(argv=None) -> int:
         "buckets": {n: {k: r[k] for k in ("ms", "device_ms", "recurrent_ms",
                                           "recurrent_device_ms")}
                     for n, r in ssd_rows.items()},
+        "f32": {n: {k: r.get(k) for k in F32_ROW_KEYS
+                    + ("recurrent_ms", "recurrent_device_ms")}
+                for n, r in ssd_f32.items()},
         "launcher": launcher_rows["ssd"],
         "ptxas": {n: {k: r.get(k) for k in ("registers", "spill_stores",
                                             "hgmma")}

@@ -11,7 +11,8 @@ Nothing is built or loaded when this module is imported.
 `LAUNCHES` counts launches per kernel: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernel.  `check_arg` is the wrappers' shared
-argument check.
+argument check (contiguous, or with contiguous 16-byte aligned rows for
+a kernel that takes strides).
 """
 
 from __future__ import annotations
@@ -45,9 +46,11 @@ LAUNCHES: Dict[str, int] = {"fleet_route": 0, "wwl_route": 0,
 
 
 def check_arg(kernel: str, name: str, x: torch.Tensor, dtype: torch.dtype,
-              shape, device=None) -> None:
-    """Raise unless `x` is a contiguous CUDA tensor of `dtype` and `shape`
-    (and on `device`, when given)."""
+              shape, device=None, strided: bool = False) -> None:
+    """Raise unless `x` is a CUDA tensor of `dtype` and `shape` (and on
+    `device`, when given) that is contiguous or, with `strided`, whose
+    rows are contiguous and 16-byte aligned (`rows_aligned`; the kernel
+    takes the other strides)."""
     if not x.is_cuda:
         raise ValueError(f"{kernel}: {name} must be a CUDA tensor, "
                          f"got device {x.device}")
@@ -58,8 +61,24 @@ def check_arg(kernel: str, name: str, x: torch.Tensor, dtype: torch.dtype,
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {name} must have shape "
                          f"{tuple(shape)}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
+    if strided:
+        if not rows_aligned(x):
+            raise ValueError(f"{kernel}: {name} must have a contiguous last "
+                             f"axis and 16-byte aligned rows, got strides "
+                             f"{x.stride()} at {x.data_ptr() % 16} bytes "
+                             f"past 16")
+    elif not x.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def rows_aligned(x: torch.Tensor) -> bool:
+    """Whether a kernel that takes strides can read `x` 16 bytes at a
+    time: a contiguous last axis, every other stride a multiple of 16
+    bytes and the first element 16-byte aligned."""
+    esize = x.element_size()
+    return ((x.shape[-1] <= 1 or x.stride(-1) == 1)
+            and all(s * esize % 16 == 0 for s in x.stride()[:-1])
+            and x.data_ptr() % 16 == 0)
 
 
 def nvcc() -> str:

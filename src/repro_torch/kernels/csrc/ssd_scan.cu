@@ -6,19 +6,23 @@
 // contract: repro_torch/kernels/ref.py::ssd.
 //
 //   x (B, T, H, P), b and c (B, T, N) in one type (float32 or bf16),
-//   a (B, T, H) float32 log-decay <= 0, h0 (B, H, P, N) float32;
-//   for every (batch, head), in order over t:
+//   a (B, T, H) float32 log-decay <= 0, h0 (B, H, P, N) float32 (or none,
+//   zeros, for the chunked kernels); for every (batch, head), in order
+//   over t:
 //     h_t = exp(a_t) h_{t-1} + x_t (outer) b_t,   y_t = h_t c_t;
 //   y (B, T, H, P) in x's type, hT = h_T (B, H, P, N) float32.
 //
-// Two kernels, chosen by the caller (`ssd_scan_launch`'s route code; the
-// rule lives in ssd_scan.py's `ssd_cuda`): bf16 with P a multiple of 8
-// up to 64 and N a multiple of 8 runs the chunked form on the tensor
-// cores (`ssd_tc_kernel`); float32, and bf16 shapes outside that (TMA
-// needs rows of a multiple of 16 bytes), run the recurrent form on the
-// CUDA cores (`ssd_scan_kernel`).  TF32 keeps about 10 mantissa bits,
-// too few for float32's 3e-4 tolerance, so float32 stays on the CUDA
-// cores.  Nothing falls back on an error: a launch returns its error.
+// Three kernels, chosen by the caller (`ssd_scan_launch`'s route code; the
+// rule lives in ssd_scan.py's `route`): P a multiple of 8 up to 64 and N
+// a multiple of 8 run the chunked form on the tensor cores, bf16 in
+// `ssd_tc_kernel`, float32 as split TF32 in `ssd_tf32_kernel`; other
+// shapes (N = 4, P over 64) run the recurrent form on the CUDA cores
+// (`ssd_scan_kernel`).  One TF32 product keeps about 11 significant bits,
+// too few for float32's 3e-4 limit; a split one (hi hi + hi lo + lo hi,
+// split_tf32.cuh) keeps about 21, which meets it.  The float32 chunked
+// kernel reads x, b and c at any strides with the last axis contiguous
+// (b and c with rows 16-byte aligned).  Nothing falls back on an error:
+// a launch returns its error.
 //
 // bf16 design (the tensor cores).  Within a chunk of L = 64 steps the
 // output is a masked (L, L) product and only the chunk-to-chunk state is
@@ -68,9 +72,46 @@
 // limit at T = 8192 for 7% of the time.  So the only bf16 roundings are
 // the inputs' and y's own; sums and the state are float32.
 //
-// float32 design (the CUDA cores, the recurrent form).  Each row p of a
-// head's (P, N) state evolves on its own: row p at step t needs only
-// x[t, p], the step's decay and the shared b_t and c_t.  So the TPU's
+// float32 design (split TF32 on the tensor cores, `ssd_tf32_kernel`).
+// The bf16 kernel's chunked form, L = 64, one block a (batch, head), a
+// state warpgroup and an output warpgroup, with every product split TF32
+// (three `wgmma` m64n64k8 .tf32 a product: lo hi, hi lo, hi hi) and all
+// sums and the state float32.  `wgmma` takes no transpose for .tf32, so
+// every shared operand is K-major, and the operands are laid out for it:
+//   * the output warpgroup takes S = C B^T and Z = C h^T with C and B as
+//     stored (rows t, K-major over N) and h's copy (rows p, over N),
+//     S' = S exp(lcum_t - lcum_u) (u <= t) split in registers into A
+//     fragments, and y = exp(lcum_t) Z + S' X with X stored transposed,
+//     X^T (rows p, over the chunk's steps in `tf32::kperm` order, which
+//     lets the accumulator's S' be an A fragment without a shuffle);
+//   * the state warpgroup keeps h^T (rows n, in N / 64 blocks of 64;
+//     columns p) and adds (w o B)^T X with (w o B)^T built in registers as
+//     A fragments from the B tile (hi + lo, times w_u = exp(total -
+//     lcum_u), split again), against the same X^T: one transposed copy of
+//     X a chunk serves both products, and no transposed B is stored;
+//     then it writes h's copy for the next chunk's Z (rows p, over n).
+// A producer warpgroup copies the raw float32 of C, B and X from the
+// caller's strides (`mamba_block`'s b and c are views into the
+// convolution's output) straight to where each hi goes, by `cp.async` (no
+// register holds them): C and B 16 bytes at a time, X one value at a time
+// into X^T, 4 steps of a column p a thread that `kperm` puts side by
+// side; then it splits them in place, 16 bytes at a time (hi there, lo
+// into the lo tile).  Each tile is released on its own barrier, so the
+// next chunk's C goes in while this chunk's y and state products run.
+// The producer sets the pace: loading through registers held 64-160
+// values a thread and spilled, and 4-byte copies and splits took 1.57 ms
+// at T = 8192 against this form's 1.16 ms (`chip_smoke.py` phase 3c, on
+// an H100 80GB HBM3 at 700 W).
+// Shared memory is the limit: at N = 128 the split C and B are 64 KB
+// each, X^T 32 KB and h's copy 64 KB, 224 KB of the 227 KB a block can
+// have, so there is one buffer of each (the bf16 kernel has a 2-stage
+// ring and two state copies).  Every exponent is <= 0 and a ragged last
+// chunk carries a = 0 and b = 0 past T, as in the bf16 kernel.
+//
+// The recurrent form (the CUDA cores; float32 and bf16 at the shapes the
+// chunked kernels do not take).  Each row p of a head's (P, N) state
+// evolves on its own: row p at step t needs only x[t, p], the step's
+// decay and the shared b_t and c_t.  So the TPU's
 // sequential chunk grid becomes a loop over t inside a block that owns
 // ROWS rows of the state of one (batch, head); blocks never exchange
 // anything, and a grid of (P / ROWS, H, B) puts 256 blocks in flight at
@@ -95,7 +136,9 @@
 // form, about 2 L P + 4 P N flops a step and head with C B^T shared by
 // the heads (flops / 989 TFLOP/s in bf16).  mamba2-1.3b's prefill
 // (T <= 128: 6 MB, 1.9 us) and a long prefill (T = 8192: 145 MB, 43 us)
-// are both bound by bytes.  On an H100 80GB HBM3 at 700 W the recurrent
+// are both bound by bytes in bf16; in float32 (three TF32 products a
+// product at 494.7 TFLOP/s, about 165 TFLOP/s) a long prefill is bound
+// by operations (0.16 ms).  On an H100 80GB HBM3 at 700 W the recurrent
 // kernel, which ran bf16 too before the chunked one, takes 1.99 ms at
 // T = 8192 (46x the bound) and the chunked one 0.32-0.34 ms (PERF.md row
 // 5 has both kernels' times).  The chunked kernel's grid is H x B blocks
@@ -111,6 +154,8 @@
 #include <cstdint>
 #include <math.h>
 #include <stddef.h>
+
+#include "split_tf32.cuh"
 
 namespace {
 
@@ -910,7 +955,7 @@ ssd_tc_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int hh = 0; hh < 2; ++hh) {
           const int p = st.r0 + 8 * hh, n = 64 * a0 + 8 * j + st.cq;
           float2 v = make_float2(0.0f, 0.0f);
-          if (p < p_dim && n < N)
+          if (h0 != nullptr && p < p_dim && n < N)
             v = *reinterpret_cast<const float2*>(h0 + (hrow + p) * N + n);
           st.h[a0][4 * j + 2 * hh] = v.x;
           st.h[a0][4 * j + 2 * hh + 1] = v.y;
@@ -1078,27 +1123,571 @@ int dispatch(int n, const void* x, const void* a, const void* b,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// float32: the chunked SSD form as split TF32 on the tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+
+namespace tfc {
+
+using tc::ex2;
+using tc::kAll;
+using tc::kLog2e;
+using tc::mbar_arrive;
+using tc::mbar_init;
+using tc::mbar_wait;
+using tc::set_smem_once;
+using tc::smem_u32;
+using tf32::kLine;
+
+// Element strides of x (batch, time, head) and of b and c (batch, time),
+// the last axis of each contiguous.
+struct Strides {
+  long long x[3], b[2], c[2];
+};
+
+constexpr int kL = 64;          // steps a chunk
+constexpr int kWG = 128;
+constexpr int kThreads = 3 * kWG;   // state, output, producer warpgroups
+
+template <int N>
+struct Shape {
+  static constexpr int kLines = N < 32 ? 1 : N / 32;   // 32-float lines of N
+  static constexpr int kKSteps = N / 8;                // k8 steps over N
+  static constexpr int kMB = N < 64 ? 1 : N / 64;      // 64-row blocks of h^T
+  // bytes of one part (hi or lo): C or B (L rows t x N), X^T (64 rows p x
+  // L steps), the state's copy (64 rows p x N)
+  static constexpr int kCBytes = kL * kLine * kLines;
+  static constexpr int kXBytes = 64 * kLine * (kL / 32);
+  static constexpr int kHBytes = 64 * kLine * kLines;
+  static constexpr int kTiles = 2 * (2 * kCBytes + kXBytes + kHBytes);
+  // tiles, prefix sums (2 warpgroups x 2 buffers x L), 8 barriers, and
+  // room to align the base to 1024 bytes
+  static constexpr int kSmem = kTiles + 16 * kL + 8 * 8 + 1024;
+  static_assert(kSmem <= 232448, "over the shared memory of a block");
+};
+
+template <int N>
+struct Smem {
+  using S = Shape<N>;
+  uint32_t base;   // shared-space address, 1024-byte aligned
+  uint8_t* ptr;    // the same byte, generic
+  __device__ uint32_t c(int part) const { return base + part * S::kCBytes; }
+  __device__ uint32_t b(int part) const {
+    return base + (2 + part) * S::kCBytes;
+  }
+  __device__ uint32_t x(int part) const {
+    return base + 4 * S::kCBytes + part * S::kXBytes;
+  }
+  __device__ uint32_t h(int part) const {
+    return base + 4 * S::kCBytes + 2 * S::kXBytes + part * S::kHBytes;
+  }
+  __device__ float* lcum(int wg, int buf) const {
+    return reinterpret_cast<float*>(ptr + S::kTiles) + (2 * wg + buf) * kL;
+  }
+  __device__ uint32_t bar(int i) const {
+    return base + S::kTiles + 16 * kL + 8 * i;
+  }
+  // C, B, X^T of a chunk and the state's copy: written (full), released
+  // (empty)
+  __device__ uint32_t c_full() const { return bar(0); }
+  __device__ uint32_t c_empty() const { return bar(1); }
+  __device__ uint32_t b_full() const { return bar(2); }
+  __device__ uint32_t b_empty() const { return bar(3); }
+  __device__ uint32_t x_full() const { return bar(4); }
+  __device__ uint32_t x_empty() const { return bar(5); }
+  __device__ uint32_t h_full() const { return bar(6); }
+  __device__ uint32_t h_empty() const { return bar(7); }
+};
+
+// A consumer warpgroup's place in the accumulator layout (rows r0 and
+// r0 + 8, columns 8 j + cq + {0, 1}), its own prefix sums and barrier:
+// `tc::Warpgroup`'s.
+template <int N>
+struct Warpgroup {
+  Smem<N> sm;
+  int wg, tid, r0, cq;
+
+  __device__ void init(const Smem<N>& smem, int which, int t) {
+    sm = smem;
+    wg = which;
+    tid = t;
+    r0 = 16 * (tid / 32) + (tid % 32) / 4;
+    cq = 2 * (tid % 4);
+  }
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(kWG) : "memory");
+  }
+  __device__ __forceinline__ float lcum(int k, int t) const {
+    const float* l = sm.lcum(wg, k & 1);
+    return l[t] + (t >= 32 ? l[31] : 0.0f);
+  }
+  __device__ __forceinline__ void scan(float av, int k) const {
+    float v = av * kLog2e;
+    const int lane = tid & 31;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(kAll, v, o);
+      if (lane >= o) v += u;
+    }
+    if (tid < kL) sm.lcum(wg, k & 1)[tid] = v;
+  }
+};
+
+__device__ __forceinline__ void reg_fence(uint32_t (&d)[kL / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < kL / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
+}
+
+// The state warpgroup: h^T (N rows n in blocks of 64, 64 columns p) in its
+// accumulators, chunk by chunk h^T <- exp(total) h^T + (w o B)^T X, with
+// (w o B)^T built in registers as A fragments from the B tile and X^T's
+// steps in `kperm` order; then h's copy (rows p, K-major over n) for the
+// output warpgroup's C h^T.
+template <int N>
+struct StateWG : Warpgroup<N> {
+  using S = Shape<N>;
+  float h[S::kMB][32];
+
+  // (n, p) of accumulator entry i of block mb
+  __device__ __forceinline__ int row(int mb, int i) const {
+    return 64 * mb + this->r0 + 8 * ((i >> 1) & 1);
+  }
+  __device__ __forceinline__ int col(int i) const {
+    return 8 * (i >> 2) + this->cq + (i & 1);
+  }
+
+  __device__ __forceinline__ void store_state() {
+    const Smem<N>& sm = this->sm;
+#pragma unroll
+    for (int mb = 0; mb < S::kMB; ++mb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int n = row(mb, i);
+        const uint32_t at = tf32::sw(col(i), n, 64);
+        if (n < N) tf32::store_split(sm.h(0) + at, sm.h(1) + at, h[mb][i]);
+      }
+  }
+
+  __device__ __forceinline__ void chunk(int k) {
+    const Smem<N>& sm = this->sm;
+    const float total = this->lcum(k, kL - 1);
+    // w_u = exp(total - lcum_u) at this thread's steps u = 8 j + cq (+1)
+    float w[kL / 8][2];
+#pragma unroll
+    for (int j = 0; j < kL / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        w[j][e] = ex2(fminf(total - this->lcum(k, 8 * j + this->cq + e),
+                            0.0f));
+    const float decay = ex2(total);
+#pragma unroll
+    for (int mb = 0; mb < S::kMB; ++mb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) h[mb][i] *= decay;
+      // A = (w o B)^T rows n, k = steps: (n, u0), (n + 8, u0), (n, u1),
+      // (n + 8, u1) with u0 = 8 j + cq, u1 = u0 + 1 (kperm positions t
+      // and t + 4)
+      uint32_t ah[kL / 8][4], al[kL / 8][4];
+      const uint32_t bh = tf32::opaque(sm.b(0)), bl = tf32::opaque(sm.b(1));
+#pragma unroll
+      for (int j = 0; j < kL / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = 64 * mb + this->r0 + 8 * (r & 1);
+          const int u = 8 * j + this->cq + (r >> 1);
+          const uint32_t at = tf32::sw(u, n, kL);
+          const float bv = n < N ? tf32::load_shared(bh + at) +
+                                       tf32::load_shared(bl + at)
+                                 : 0.0f;
+          tf32::split(w[j][r >> 1] * bv, ah[j][r], al[j][r]);
+        }
+      const uint64_t xh = tf32::desc_here(sm.x(0));
+      const uint64_t xl = tf32::desc_here(sm.x(1));
+      tf32::fence();
+#pragma unroll
+      for (int j = 0; j < kL / 8; ++j)
+        tf32::mma3_rs<64>(h[mb], ah[j], al[j], tf32::kstep(xh, j, 64),
+                          tf32::kstep(xl, j, 64));
+      tf32::commit();
+      tf32::wait<0>();
+      tf32::reg_fence(h[mb]);
+      reg_fence(ah);
+      reg_fence(al);
+    }
+  }
+};
+
+// The output warpgroup: S = C B^T and Z = C h^T (the state entering the
+// chunk, from its copy), S' and y = exp(lcum_t) Z + S' X, S' split in
+// registers into A fragments against X^T's `kperm` order.
+template <int N>
+struct OutputWG : Warpgroup<N> {
+  using S = Shape<N>;
+  float sacc[32];    // S = C B^T, then S'
+  float yacc[32];    // C h^T, then y
+  uint32_t ph[kL / 8][4], pl[kL / 8][4];
+
+  __device__ __forceinline__ void chunk(int k, int t0, int t_len,
+                                        float* __restrict__ y,
+                                        size_t y_row, int y_stride,
+                                        int p_dim) {
+    const Smem<N>& sm = this->sm;
+    const uint32_t par = k & 1;
+    mbar_wait(sm.c_full(), par);
+    mbar_wait(sm.b_full(), par);
+    mbar_wait(sm.h_full(), par);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = yacc[i] = 0.0f;
+    const uint64_t ch = tf32::desc_here(sm.c(0));
+    const uint64_t cl = tf32::desc_here(sm.c(1));
+    const uint64_t bh = tf32::desc_here(sm.b(0));
+    const uint64_t bl = tf32::desc_here(sm.b(1));
+    const uint64_t hh = tf32::desc_here(sm.h(0));
+    const uint64_t hl = tf32::desc_here(sm.h(1));
+    tf32::fence();
+#pragma unroll
+    for (int i = 0; i < S::kKSteps; ++i)
+      tf32::mma3_ss<64>(sacc, tf32::kstep(ch, i, kL), tf32::kstep(cl, i, kL),
+                        tf32::kstep(bh, i, kL), tf32::kstep(bl, i, kL), i);
+#pragma unroll
+    for (int i = 0; i < S::kKSteps; ++i)
+      tf32::mma3_ss<64>(yacc, tf32::kstep(ch, i, kL), tf32::kstep(cl, i, kL),
+                        tf32::kstep(hh, i, 64), tf32::kstep(hl, i, 64), i);
+    tf32::commit();
+    tf32::wait<0>();
+    tf32::reg_fence(sacc);
+    tf32::reg_fence(yacc);
+    mbar_arrive(sm.h_empty());
+    mbar_arrive(sm.c_empty());
+    mbar_arrive(sm.b_empty());
+
+    float lr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) lr[hh] = this->lcum(k, this->r0 + 8 * hh);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      const int t = this->r0 + 8 * hh, u = 8 * (i >> 2) + this->cq + (i & 1);
+      const float dec = ex2(fminf(lr[hh] - this->lcum(k, u), 0.0f));
+      sacc[i] = u <= t ? sacc[i] * dec : 0.0f;
+      yacc[i] *= ex2(lr[hh]);
+    }
+#pragma unroll
+    for (int j = 0; j < kL / 8; ++j)
+      tf32::frag(sacc[4 * j], sacc[4 * j + 1], sacc[4 * j + 2],
+                 sacc[4 * j + 3], ph[j], pl[j]);
+
+    mbar_wait(sm.x_full(), par);
+    const uint64_t xh = tf32::desc_here(sm.x(0));
+    const uint64_t xl = tf32::desc_here(sm.x(1));
+    tf32::fence();
+#pragma unroll
+    for (int j = 0; j < kL / 8; ++j)
+      tf32::mma3_rs<64>(yacc, ph[j], pl[j], tf32::kstep(xh, j, 64),
+                        tf32::kstep(xl, j, 64));
+    tf32::commit();
+    tf32::wait<0>();
+    tf32::reg_fence(yacc);
+    reg_fence(ph);
+    reg_fence(pl);
+    mbar_arrive(sm.x_empty());
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = t0 + this->r0 + 8 * hh;
+      if (t >= t_len) continue;
+      float* yr = y + (y_row + size_t(t)) * y_stride;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int p = 8 * c + this->cq;
+        if (p < p_dim)
+          *reinterpret_cast<float2*>(yr + p) =
+              make_float2(yacc[4 * c + 2 * hh], yacc[4 * c + 2 * hh + 1]);
+      }
+    }
+  }
+};
+
+// The producer warpgroup's tiles of a chunk (C and B: rows t, K-major over
+// N; X^T: rows p, steps in `kperm` order): raw float32 copied from the
+// caller's strides straight to where their hi goes (`cp.async`, no
+// register; zeros past T and past P), then split in place: hi there, lo in
+// the lo tile.  C and B rows go 16 bytes at a time (4 columns); X goes to
+// X^T one value at a time, 4 steps of a column p a thread, the 4 that
+// `kperm` puts side by side (steps 8 g + o, + 2, + 4, + 6, o = 0 or 1), so
+// that its split is 16 bytes at a time too.  A thread splits exactly what
+// it copied, so needs no barrier between the two.
+template <int N>
+struct Producer {
+  static constexpr int C4 = N / 4;            // 16-byte chunks of a row
+  static constexpr int RC = kWG / C4;         // C or B rows a pass
+  static constexpr int CQ = kL * C4 / kWG;    // C or B chunks a thread
+  static constexpr int XQ = 64 * (kL / 4) / kWG;   // X^T quads a thread
+  Smem<N> sm;
+  const float* cb;   // this block's batch (and head) origins
+  const float* bo;
+  const float* xb;
+  int ct, bt, xt;    // time strides
+  int tid, t_len, p_dim;
+
+  // C or B of chunk k into the tile at `hi`, once `empty` is released
+  // (from chunk 1 on); one copy group
+  __device__ __forceinline__ void copy_cb(const float* src, int ts,
+                                          uint32_t hi, uint32_t empty,
+                                          int k) const {
+    if (k > 0) mbar_wait(empty, (k - 1) & 1);
+    const int t0 = k * kL, c = 4 * (tid % C4), r0 = tid / C4;
+    int off = (t0 + r0) * ts + c;
+#pragma unroll
+    for (int i = 0; i < CQ; ++i) {
+      const bool in = t0 + r0 + RC * i < t_len;
+      tf32::copy16(hi + tf32::sw(r0 + RC * i, c, kL), src + (in ? off : 0),
+                   in);
+      off += RC * ts;
+    }
+    tf32::copy_commit();
+  }
+  __device__ __forceinline__ void split_cb(uint32_t hi, uint32_t lo,
+                                           uint32_t full) const {
+    const int c = 4 * (tid % C4), r0 = tid / C4;
+#pragma unroll
+    for (int i = 0; i < CQ; ++i) {
+      const uint32_t at = tf32::sw(r0 + RC * i, c, kL);
+      tf32::split4_in_place(hi + at, lo + at);
+    }
+    tf32::proxy_fence();
+    mbar_arrive(full);
+  }
+  __device__ __forceinline__ void copy_x(int k) const {
+    if (k > 0) mbar_wait(sm.x_empty(), (k - 1) & 1);
+    const int t0 = k * kL, p = tid % 64, q0 = tid / 64;
+#pragma unroll
+    for (int i = 0; i < XQ; ++i) {
+      const int q = q0 + 2 * i, u = 8 * (q >> 1) + (q & 1);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const bool in = t0 + u + 2 * m < t_len && p < p_dim;
+        tf32::copy4(sm.x(0) + tf32::sw(p, 4 * q + m, 64),
+                    xb + (in ? (t0 + u + 2 * m) * xt + p : 0), in);
+      }
+    }
+    tf32::copy_commit();
+  }
+  __device__ __forceinline__ void split_x() const {
+    const int p = tid % 64, q0 = tid / 64;
+#pragma unroll
+    for (int i = 0; i < XQ; ++i) {
+      const uint32_t at = tf32::sw(p, 4 * (q0 + 2 * i), 64);
+      tf32::split4_in_place(sm.x(0) + at, sm.x(1) + at);
+    }
+    tf32::proxy_fence();
+    mbar_arrive(sm.x_full());
+  }
+
+  // chunk k: C, B and X copied, each split once its group has landed
+  __device__ __forceinline__ void chunk(int k) const {
+    copy_cb(cb, ct, sm.c(0), sm.c_empty(), k);
+    copy_cb(bo, bt, sm.b(0), sm.b_empty(), k);
+    tf32::copy_wait<1>();
+    split_cb(sm.c(0), sm.c(1), sm.c_full());
+    copy_x(k);
+    tf32::copy_wait<1>();
+    split_cb(sm.b(0), sm.b(1), sm.b_full());
+    tf32::copy_wait<0>();
+    split_x();
+  }
+};
+
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                const float* __restrict__ b, const float* __restrict__ c,
+                const float* __restrict__ h0, float* __restrict__ y,
+                float* __restrict__ hT, Strides st, int t_len, int heads,
+                int p_dim) {
+  using S = Shape<N>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const Smem<N> sm{base, smem_raw + (base - raw)};
+
+  const int hd = blockIdx.x, bb = blockIdx.y;
+  const int chunks = (t_len + kL - 1) / kL;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.c_full(), kWG);       // every producer thread
+    mbar_init(sm.b_full(), kWG);
+    mbar_init(sm.x_full(), kWG);
+    mbar_init(sm.c_empty(), kWG);      // the output warpgroup
+    mbar_init(sm.b_empty(), 2 * kWG);  // both consumer warpgroups
+    mbar_init(sm.x_empty(), 2 * kWG);
+    mbar_init(sm.h_full(), kWG);       // the state warpgroup
+    mbar_init(sm.h_empty(), kWG);      // the output warpgroup
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWG, tid = threadIdx.x % kWG;
+  if (wg == 2) {
+    // producer warpgroup (`Producer`); 80 registers a thread go to the
+    // consumers (40 each)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 88;\n");
+    const Producer<N> pr{sm, c + bb * st.c[0], b + bb * st.b[0],
+                         x + bb * st.x[0] + hd * st.x[2], int(st.c[1]),
+                         int(st.b[1]), int(st.x[1]), tid, t_len, p_dim};
+    for (int k = 0; k < chunks; ++k) pr.chunk(k);
+    return;
+  }
+
+  // a of step t of chunk k (0 past T), one step a thread of 0..63
+  auto load_a = [&](int k) {
+    const int t = k * kL + tid;
+    return tid < kL && t < t_len ? a[(size_t(bb) * t_len + t) * heads + hd]
+                                 : 0.0f;
+  };
+  const size_t hrow = (size_t(bb) * heads + hd) * p_dim;
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
+    StateWG<N> sw;
+    sw.init(sm, 0, tid);
+    // the state from h0 (none: zeros; rows p < P, n < N, the rest 0)
+#pragma unroll
+    for (int mb = 0; mb < S::kMB; ++mb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int n = sw.row(mb, i), p = sw.col(i);
+        sw.h[mb][i] = h0 != nullptr && p < p_dim && n < N
+                          ? h0[(hrow + p) * N + n]
+                          : 0.0f;
+      }
+    sw.store_state();   // C_0 h0^T
+    tf32::proxy_fence();
+    mbar_arrive(sm.h_full());
+    sw.scan(load_a(0), 0);
+    sw.sync();
+    for (int k = 0; k < chunks; ++k) {
+      const float a_next = load_a(k + 1);   // in flight during the chunk
+      mbar_wait(sm.b_full(), k & 1);
+      mbar_wait(sm.x_full(), k & 1);
+      sw.chunk(k);
+      mbar_arrive(sm.b_empty());
+      mbar_arrive(sm.x_empty());
+      if (k + 1 < chunks) {
+        // the state entering chunk k + 1, once C_k h^T has read the copy
+        mbar_wait(sm.h_empty(), k & 1);
+        sw.store_state();
+        tf32::proxy_fence();
+        mbar_arrive(sm.h_full());
+      }
+      sw.scan(a_next, k + 1);
+      sw.sync();
+    }
+#pragma unroll
+    for (int mb = 0; mb < S::kMB; ++mb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int n = sw.row(mb, i), p = sw.col(i);
+        if (p < p_dim && n < N) hT[(hrow + p) * N + n] = sw.h[mb][i];
+      }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
+    OutputWG<N> out;
+    out.init(sm, 1, tid);
+    out.scan(load_a(0), 0);
+    out.sync();
+    const size_t y_row = size_t(bb) * t_len;
+    const int y_stride = heads * p_dim;
+    float* yh = y + size_t(hd) * p_dim;
+    for (int k = 0; k < chunks; ++k) {
+      const float a_next = load_a(k + 1);
+      out.chunk(k, k * kL, t_len, yh, y_row, y_stride, p_dim);
+      out.scan(a_next, k + 1);
+      out.sync();
+    }
+  }
+}
+
+template <int N>
+int launch(const void* x, const void* a, const void* b, const void* c,
+           const void* h0, void* y, void* hT, const Strides& st, int batch,
+           int t_len, int heads, int p_dim, cudaStream_t stream) {
+  constexpr auto kernel = ssd_tf32_kernel<N>;
+  const cudaError_t err = set_smem_once<kernel>(Shape<N>::kSmem);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<dim3(heads, batch), kThreads, Shape<N>::kSmem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(c),
+      static_cast<const float*>(h0), static_cast<float*>(y),
+      static_cast<float*>(hT), st, t_len, heads, p_dim);
+  return int(cudaGetLastError());
+}
+
+int dispatch(int n, const void* x, const void* a, const void* b,
+             const void* c, const void* h0, void* y, void* hT,
+             const Strides& st, int batch, int t_len, int heads, int p_dim,
+             cudaStream_t s) {
+  if (p_dim < 8 || p_dim > 64 || p_dim % 8 != 0)
+    return int(cudaErrorInvalidValue);
+  switch (n) {
+    case 8:
+      return launch<8>(x, a, b, c, h0, y, hT, st, batch, t_len, heads, p_dim,
+                       s);
+    case 16:
+      return launch<16>(x, a, b, c, h0, y, hT, st, batch, t_len, heads,
+                        p_dim, s);
+    case 32:
+      return launch<32>(x, a, b, c, h0, y, hT, st, batch, t_len, heads,
+                        p_dim, s);
+    case 64:
+      return launch<64>(x, a, b, c, h0, y, hT, st, batch, t_len, heads,
+                        p_dim, s);
+    case 128:
+      return launch<128>(x, a, b, c, h0, y, hT, st, batch, t_len, heads,
+                         p_dim, s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tfc
+
 }  // namespace
 
 // Plain C interface for ctypes.  route: 0 float32 and 1 bfloat16 on the
 // recurrent kernel (CUDA cores), 2 bfloat16 on the chunked kernel (tensor
-// cores; P a multiple of 8 up to 64, N one of 8, 16, 32, 64, 128, and x,
-// b, c 16-byte aligned).  x, b, c and y are in the route's type; a, h0
-// and hT are float32.  Returns the cudaError_t of the launch (0 on
-// success).
+// cores; x, b, c 16-byte aligned), 3 float32 on the chunked kernel as
+// split TF32 (tensor cores).  Routes 2 and 3 take P a multiple of 8 up to
+// 64 and N one of 8, 16, 32, 64, 128.  x, b, c and y are in the route's
+// type; a, h0 and hT are float32.  Route 3 reads x, b and c at
+// `strides`: 7 element strides, x's (batch, time, head) then b's and c's
+// (batch, time), the last axis of each contiguous; the other routes take
+// them contiguous and do not read `strides`.  a, y, h0 and hT are
+// contiguous; on routes 2 and 3 h0 may be null (a zero initial state).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int ssd_scan_launch(const void* x, const void* a, const void* b,
                                const void* c, const void* h0, void* y,
-                               void* hT, int batch, int t_len, int heads,
-                               int p_dim, int n, int route, void* stream) {
+                               void* hT, const long long* strides, int batch,
+                               int t_len, int heads, int p_dim, int n,
+                               int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2)
+    return tc::dispatch(n, x, a, b, c, h0, y, hT, batch, t_len, heads, p_dim,
+                        s);
   if (route == 0)
     return dispatch<float>(n, x, a, b, c, h0, y, hT, batch, t_len, heads,
                            p_dim, s);
   if (route == 1)
     return dispatch<__nv_bfloat16>(n, x, a, b, c, h0, y, hT, batch, t_len,
                                    heads, p_dim, s);
-  if (route == 2)
-    return tc::dispatch(n, x, a, b, c, h0, y, hT, batch, t_len, heads, p_dim,
-                        s);
+  if (route == 3) {
+    const tfc::Strides st{{strides[0], strides[1], strides[2]},
+                          {strides[3], strides[4]},
+                          {strides[5], strides[6]}};
+    return tfc::dispatch(n, x, a, b, c, h0, y, hT, st, batch, t_len, heads,
+                         p_dim, s);
+  }
   return int(cudaErrorInvalidValue);
 }

@@ -7,15 +7,17 @@ from the card to the plain version.  `LAUNCHES` counts kernel launches,
 one key per kernel.  Depth 0 (K = 2) runs natively in every scheduling
 kernel: no padding and no dilated ancestor table.  `flash_attention`
 needs no padding either: the kernel masks its ragged tiles itself, and
-neither does `ssd`: its kernels stop at T (the chunked one reads zeros
-past T through its TMA boxes).
+neither does `ssd`: its kernels stop at T (the chunked ones read zeros
+past T).  The float32 tensor-core kernels of both take the models'
+strided views as they are, so such a call on the card is one launch
+and no copy.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref, ssd_scan
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.maxweight import maxweight_claim_cuda
@@ -85,6 +87,12 @@ def maxweight_claim(queues: torch.Tensor, queue_anc: torch.Tensor,
                                 _i32(ia), _f32(est_rates))
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x itself when its rows are contiguous and 16-byte aligned (a float32
+    tensor-core kernel takes the other strides), else a contiguous copy."""
+    return x if _build.rows_aligned(x) else x.contiguous()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float | None = None):
@@ -92,15 +100,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D).  See `ref.mha` for the
     semantics.  The reference's `block_q`/`block_k`/`interpret` options
-    have no counterpart: the CUDA kernel's tiling is fixed.
+    have no counterpart: the CUDA kernels' tiling is fixed.  On the card
+    bf16 inputs are made contiguous (the TMA maps); float32 ones go as
+    they are, and the result is a view of (B, Tq, Hq, D) storage.
     """
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if not q.is_cuda:
         return ref.mha(q, k, v, causal=causal, window=window,
                        softcap=softcap, scale=scale)
-    return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal=causal, window=window,
-                                softcap=softcap, scale=scale)
+    return _attention_card(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale)
+
+
+def _attention_card(q, k, v, **opts):
+    """The card's half of `flash_attention`: bf16 made contiguous, float32
+    passed as it is (`_rows`)."""
+    prep = torch.Tensor.contiguous if q.dtype == torch.bfloat16 else _rows
+    return flash_attention_cuda(prep(q), prep(k), prep(v), **opts)
 
 
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -111,17 +127,28 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     dtype; init_state: (B, H, P, N) or None (zeros).  Returns (y in x's
     dtype, final state float32).  `block_t` is the reference's chunk
     length (the Pallas kernel's `L`), which neither version here takes:
-    on the card bf16 runs the chunked form with its own fixed chunk of
-    `ssd_scan.TC_CHUNK` = 64 steps on the tensor cores and float32 the
-    recurrent form step by step (`ssd_scan.route` says which), and the
-    plain version is the sequential recurrence.  The results agree
-    within tolerance whatever the split (tests/test_torch_ssd.py).
+    on the card the chunked form runs with its own fixed chunk of
+    `ssd_scan.TC_CHUNK` = 64 steps on the tensor cores, and shapes it
+    does not take run the recurrent form step by step (`ssd_scan.route`
+    says which); the plain version is the sequential recurrence.  The
+    results agree within tolerance whatever the split
+    (tests/test_torch_ssd.py).  The float32 tensor-core kernel takes x, b
+    and c as they are and a missing initial state as none, not as zeros;
+    the others take them contiguous (the bf16 chunked kernel's TMA
+    maps).
     """
     del block_t  # each kernel chunks by its own fixed length: see above
     if not x.is_cuda:
         return ref.ssd(x, a, b, c, init_state)
-    h0 = (torch.zeros((x.shape[0], x.shape[2], x.shape[3], b.shape[-1]),
-                      dtype=torch.float32, device=x.device)
-          if init_state is None else _f32(init_state))
-    return ssd_cuda(x.contiguous(), _f32(a), b.contiguous(), c.contiguous(),
-                    h0)
+    return _ssd_card(x, a, b, c, init_state)
+
+
+def _ssd_card(x, a, b, c, init_state):
+    """The card's half of `ssd`: inputs of the float32 tensor-core kernel
+    passed as they are (`_rows`), the other kernels' made contiguous, a
+    missing initial state as None."""
+    strided = (ssd_scan.route(x.dtype, x.shape[-1], b.shape[-1])
+               == ssd_scan.TENSOR_CORES_F32)
+    prep = _rows if strided else torch.Tensor.contiguous
+    h0 = None if init_state is None else _f32(init_state)
+    return ssd_cuda(prep(x), _f32(a), prep(b), prep(c), h0)

@@ -1,6 +1,6 @@
 """Shared by the port's tests: the replays of the reference's draws (fleet
-and dense paths), and a fixture that keeps torch to one intra-op
-thread."""
+and dense paths), a fixture that keeps torch to one intra-op thread, and
+the TF32 rounding of the float32 tensor-core kernels' models."""
 
 import functools
 
@@ -148,3 +148,11 @@ def single_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def tf32_round(x):
+    """x rounded to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero: `cvt.rna.tf32.f32`, as the float32 tensor-core kernels
+    form each hi and lo (csrc/split_tf32.cuh)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)

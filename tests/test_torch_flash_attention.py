@@ -9,11 +9,20 @@ tests/test_kernels_attention.py: 2e-5 in float32 (the same float32
 arithmetic in another order), 2e-2 in bfloat16 (one bf16 rounding of the
 output, 2^-8 relative, on values of order 1).
 
+On the card float32 runs as split TF32 on the tensor cores: each
+operand enters as TF32 hi + lo (`cvt.rna`) and each product as three.
+A plain model of that arithmetic (`_split_tf32_model`: the kernel's
+tiles, its online softmax and its roundings, float32 sums) is held here
+to the float32 limit against the JAX oracle and the Pallas kernel, and
+a model with one TF32 product is shown to miss it.
+
 The `cuda`-marked tests need only the port, so on a machine with the
 card and no JAX they run alone:
 `PYTHONPATH=src python -m pytest --noconftest -m cuda
 tests/test_torch_flash_attention.py`.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -26,6 +35,7 @@ try:  # the JAX reference, which the CPU tests compare against
 
     from repro.kernels import ops as rops, ref as rref
     from _torch_port import single_torch_thread  # noqa: F401
+    from _torch_port import tf32_round as _tf32
 except ModuleNotFoundError:  # the port alone: only the cuda tests run
     jnp = rops = rref = None
 
@@ -55,6 +65,67 @@ def _inputs(case, seed):
 
 def _opts(case):
     return dict(causal=case[6], window=case[7], softcap=case[8])
+
+
+# -------------------------------------------- the split-TF32 kernel's model --
+
+LOG2E = 1.4426950408889634
+NEG_INF = -2.0e38   # the kernels' running-max start
+
+
+def _mm(a, b, products):
+    """a @ b as the kernel's tensor cores take it: three TF32 products of
+    the hi + lo splits (`products` 3), or one product of the operands
+    rounded to TF32 once (`products` 1); float32 sums."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _split_tf32_model(q, k, v, *, causal, window, softcap, scale,
+                      products=3):
+    """The float32 tensor-core kernel's arithmetic in plain PyTorch: key
+    tiles of its BK (32 at D = 128, else 64) in order; S = Q K^T and
+    O += P V through `_mm`; the online softmax in log2 units as the
+    kernel keeps it (the max over the raw logits, p = 2^(x u - max u),
+    u = scale log2 e; under softcap the capped logit times log2 e and
+    u = 1); a row that keeps no key gives 0."""
+    b, hq, tq, d = q.shape
+    g = hq // k.shape[1]
+    k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    tk = k.shape[2]
+    bk = 32 if d == 128 else 64
+    qpos = torch.arange(tq)[:, None] + (tk - tq)
+    u = 1.0 if softcap > 0 else scale * LOG2E
+    m = torch.full((b, hq, tq, 1), NEG_INF)
+    l = torch.zeros((b, hq, tq, 1))
+    o = torch.zeros((b, hq, tq, d))
+    for k0 in range(0, tk, bk):
+        s = _mm(q, k[:, :, k0:k0 + bk].transpose(-1, -2), products)
+        if softcap > 0:
+            s = softcap * torch.tanh(s * scale / softcap) * LOG2E
+        kpos = torch.arange(k0, min(k0 + bk, tk))[None, :]
+        keep = torch.ones_like(qpos - kpos, dtype=torch.bool)
+        if causal:
+            keep &= kpos <= qpos
+        if window > 0:
+            keep &= kpos > qpos - window
+        s = torch.where(keep, s, -torch.inf)
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s * u - mx * u)
+        alpha = torch.where(m > NEG_INF, torch.exp2((m - mx) * u), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _mm(p, v[:, :, k0:k0 + bk], products)
+        m = mx
+    return o / torch.where(l == 0, 1.0, l)
+
+
+# the cases the float32 kernel takes (D != 256), then a mid length at
+# chatglm3-6b's head width
+TF32_CASES = [c for c in CASES + EXTRA if c[5] in fa.TF32_HEAD_DIMS] + [
+    (1, 4, 2, 320, 320, 128, True, 0, 0.0)]
 
 
 @pytest.mark.parametrize("case", CASES + EXTRA)
@@ -133,6 +204,85 @@ def test_cuda_wrapper_raises_on_cpu_tensors_and_bad_head_dims():
         fa.flash_attention_cuda(q[:, :3], k, v, **opts)
 
 
+@pytest.mark.parametrize("case", TF32_CASES)
+def test_split_tf32_model_matches_reference(case):
+    """The float32 kernel's split-TF32 arithmetic keeps every output
+    within the float32 limit (2e-5) of `ref.mha`, of the JAX oracle and
+    of the Pallas kernel in interpret mode."""
+    q, k, v = _inputs(case, sum(case[:6]) + 11)
+    opts = _opts(case)
+    got = _split_tf32_model(*(torch.tensor(x) for x in (q, k, v)),
+                            scale=case[5] ** -0.5, **opts)
+    want = {"ref.mha": ref.mha(*(torch.tensor(x) for x in (q, k, v)),
+                               **opts).numpy(),
+            "JAX oracle": np.asarray(rref.mha(q, k, v, **opts)),
+            "Pallas": np.asarray(rops.flash_attention(q, k, v, **opts))}
+    for name, w in want.items():
+        np.testing.assert_allclose(got.numpy(), w, atol=2e-5, rtol=2e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", [TF32_CASES[0], TF32_CASES[-1]])
+def test_one_tf32_product_model_misses_the_limit(case):
+    """With one TF32 product (each operand rounded to TF32 once, the
+    kinder of rounding and truncation) the same arithmetic misses 2e-5
+    by far, so the split is needed."""
+    q, k, v = (torch.tensor(x) for x in _inputs(case, sum(case[:6]) + 11))
+    opts = dict(_opts(case), scale=case[5] ** -0.5)
+    one = _split_tf32_model(q, k, v, products=1, **opts)
+    err = float((one - ref.mha(q, k, v, **opts)).abs().max())
+    assert err > 10 * 2e-5
+
+
+def test_route_sends_float32_by_head_dim():
+    """bf16 always to the tensor cores; float32 to the split-TF32 kernel
+    at every head dim but 256 (the gemma configs at full width), which
+    takes the CUDA-core kernel; chatglm3-6b and codeqwen1.5-7b at full
+    width and every smoke config land on the tensor cores in float32."""
+    from repro_torch.configs import registry
+
+    for d in fa.HEAD_DIMS:
+        assert fa.route(torch.bfloat16, d) == fa.BF16_TENSOR_CORES
+        want = (fa.F32_CUDA_CORES if d == 256 else fa.F32_TENSOR_CORES)
+        assert fa.route(torch.float32, d) == want
+    for arch in ("chatglm3_6b", "codeqwen15_7b", "gemma2_2b", "gemma3_1b"):
+        for get in (registry.get_config, registry.get_smoke_config):
+            d = get(arch).head_dim
+            want = (fa.F32_CUDA_CORES if arch.startswith("gemma")
+                    and get is registry.get_config else fa.F32_TENSOR_CORES)
+            assert fa.route(torch.float32, d) == want, (arch, d)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.route(torch.float16, 64)
+
+
+def test_float32_views_reach_the_kernel_uncopied():
+    """The card's half of `ops.flash_attention` hands the attention
+    layer's (B, H, T, D) views of (B, T, H, D) storage to the float32
+    kernel as they are (the same tensors), and bf16 ones as contiguous
+    copies (its TMA maps); a tensor whose last axis is strided is
+    copied."""
+    seen = []
+
+    def record(q, k, v, **opts):
+        seen.append((q, k, v))
+        return q
+
+    base = torch.zeros((1, 16, 4, 8))
+    view = base.transpose(1, 2)
+    with mock.patch.object(ops, "flash_attention_cuda", record):
+        ops._attention_card(view, view, view, causal=True, window=0,
+                            softcap=0.0, scale=0.5)
+        assert all(x is view for x in seen[-1])
+        bf = view.to(torch.bfloat16)
+        ops._attention_card(bf, bf, bf, causal=True, window=0, softcap=0.0,
+                            scale=0.5)
+        assert all(x.is_contiguous() for x in seen[-1])
+        odd = torch.zeros((1, 4, 16, 16))[..., ::2]
+        ops._attention_card(odd, odd, odd, causal=True, window=0,
+                            softcap=0.0, scale=0.5)
+        assert all(x.stride(-1) == 1 for x in seen[-1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES + EXTRA)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
@@ -190,3 +340,26 @@ def test_cuda_fully_masked_rows_give_zero(dtype, tol):
                                ref.mha(q, k, v, **_opts(case)).float(),
                                atol=tol, rtol=tol)
 
+
+
+# float32 on the tensor cores at the attention layer's layout: q, k, v as
+# (B, H, T, D) views of (B, T, H, D) storage, at the launcher's shape and
+# chatglm3-6b's full-width prefill (B 1, Hq 32, Hkv 2, D 128), and a
+# ragged length; one launch a call, the output a view of (B, T, H, D)
+# storage, within 2e-5 of the plain version.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 2, 16, 8), (1, 32, 2, 128, 128),
+                                   (1, 32, 2, 200, 128), (2, 4, 2, 77, 64)])
+def test_cuda_float32_kernel_on_strided_views(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    b, hq, hkv, t, d = shape
+    assert fa.route(torch.float32, d) == fa.F32_TENSOR_CORES
+    gen = torch.Generator("cuda").manual_seed(t)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device="cuda")
+               .transpose(1, 2) for h in (hq, hkv, hkv))
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(out, ref.mha(q, k, v), atol=2e-5, rtol=2e-5)

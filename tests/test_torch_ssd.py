@@ -12,10 +12,16 @@ rounding of outputs of order 1, 2^-8 relative).  On the card bf16 runs
 the chunked form on the tensor cores, which rounds three more things to
 bf16; a plain model of those rounding points is held here to the same
 limits, and each bf16 row to 1% of its largest value (`BF16_ROW_REL`
-of chip_smoke.py).  The `cuda`-marked tests need only the port: on a
+of chip_smoke.py).  float32 runs the same chunked form as split TF32
+(every product three TF32 products of hi + lo splits, float32 sums): a
+plain model of it is held to the float32 limit against the JAX oracle
+and the Pallas kernel, and a model with one TF32 product is shown to
+miss it.  The `cuda`-marked tests need only the port: on a
 machine with the card and no JAX, `PYTHONPATH=src python -m pytest
 --noconftest -m cuda tests/test_torch_ssd.py`.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -30,6 +36,7 @@ try:  # the JAX reference, which the CPU tests compare against
     from repro.kernels import ops as rops, ref as rref
     from repro.models import ssm_ops as rssm
     from _torch_port import single_torch_thread  # noqa: F401
+    from _torch_port import tf32_round as _tf32
 except ModuleNotFoundError:  # the port alone: only the cuda tests run
     jnp = rops = rref = rssm = None
 
@@ -123,6 +130,51 @@ def _chunked_bf16_model(x, a, b, c, h0, chunk=ssd_scan.TC_CHUNK):
     return torch.cat(ys, 1).to(x.dtype), h
 
 
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm(a, b, products):
+    """a @ b as three TF32 products of the hi + lo splits (`products` 3)
+    or one product of the operands rounded once (1); float32 sums."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if products == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _chunked_tf32_model(x, a, b, c, h0, chunk=ssd_scan.TC_CHUNK,
+                        products=3):
+    """The float32 tensor-core kernel's arithmetic in plain PyTorch: per
+    chunk, with lcum the prefix sum of a and total its last, S = C B^T,
+    Z = C h^T (h from its copy), S' = S exp(lcum_t - lcum_u) for u <= t,
+    y = exp(lcum_t) Z + S' X, and h^T <- exp(total) h^T + (w o B)^T X
+    with w_u = exp(total - lcum_u) and B taken back from its split tile
+    (hi + lo) before w o B is split again; every product through `_mm`,
+    every exponent clamped at 0."""
+    h = h0.float().clone()                                   # (B, H, P, N)
+    ys = []
+    for t0 in range(0, x.shape[1], chunk):
+        xs = x[:, t0:t0 + chunk].float().permute(0, 2, 1, 3)  # (B, H, l, P)
+        bs, cs = (v[:, t0:t0 + chunk].float() for v in (b, c))  # (B, l, N)
+        lcum = torch.cumsum(a[:, t0:t0 + chunk].float(), 1).transpose(1, 2)
+        total = lcum[..., -1:]                                  # (B, H, 1)
+        l = xs.shape[2]
+        s = _mm(cs, bs.transpose(1, 2), products)[:, None]     # (B, 1, l, l)
+        decay = torch.exp(torch.clamp(lcum[..., :, None] - lcum[..., None, :],
+                                      max=0))                   # (B, H, l, l)
+        sp = torch.where(torch.tril(torch.ones(l, l, dtype=torch.bool)),
+                         s * decay, torch.zeros(()))
+        z = _mm(cs[:, None], h.transpose(-1, -2), products)    # (B, H, l, P)
+        ys.append(torch.exp(lcum)[..., None] * z + _mm(sp, xs, products))
+        w = torch.exp(torch.clamp(total - lcum, max=0))        # (B, H, l)
+        wb = w[..., None] * sum(_split(bs))[:, None]           # (B, H, l, N)
+        h = (torch.exp(total)[..., None] * h
+             + _mm(wb.transpose(-1, -2), xs, products).transpose(-1, -2))
+    return torch.cat(ys, 2).permute(0, 2, 1, 3), h
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CASES)
 def test_ssd_matches_reference(case, dtype):
@@ -190,23 +242,89 @@ def test_chunked_bf16_model_matches_reference(case):
 
 
 def test_route_sends_bf16_to_the_tensor_cores():
-    """bf16 at every Mamba-2 width the port serves takes the tensor-core
-    kernel; float32 and bf16 rows of 4 elements (not a multiple of 16
-    bytes, which TMA needs) take the recurrent one."""
+    """bf16 and float32 at every Mamba-2 width the port serves take the
+    chunked kernel on the tensor cores (`TENSOR_CORES`,
+    `TENSOR_CORES_F32`); N = 4, P over 64 or not a multiple of 8 take the
+    recurrent one (bf16 rows of 4 elements are not a multiple of 16
+    bytes, which TMA needs; float32's products step over N by 8)."""
     from repro_torch.configs import registry
 
     for get in (registry.get_config, registry.get_smoke_config):
         cfg = get("mamba2_13b")
         p, n = cfg.ssm.head_dim, cfg.ssm.d_state
         assert ssd_scan.route(torch.bfloat16, p, n) == ssd_scan.TENSOR_CORES
-        assert ssd_scan.route(torch.float32, p, n) == ssd_scan.RECURRENT_F32
+        assert (ssd_scan.route(torch.float32, p, n)
+                == ssd_scan.TENSOR_CORES_F32)
     for p, n in ((8, 8), (16, 32), (32, 16), (64, 64), (64, 128)):
         assert ssd_scan.route(torch.bfloat16, p, n) == ssd_scan.TENSOR_CORES
-    for p, n in ((4, 4), (8, 4), (4, 8), (128, 128)):
+        assert (ssd_scan.route(torch.float32, p, n)
+                == ssd_scan.TENSOR_CORES_F32)
+    for p, n in ((4, 4), (8, 4), (4, 8), (128, 128), (12, 16)):
         assert (ssd_scan.route(torch.bfloat16, p, n)
                 == ssd_scan.RECURRENT_BF16)
+        assert ssd_scan.route(torch.float32, p, n) == ssd_scan.RECURRENT_F32
     with pytest.raises(TypeError, match="dtype"):
         ssd_scan.route(torch.float16, 64, 128)
+
+
+@pytest.mark.parametrize("case", CASES + MAMBA_CASES)
+def test_chunked_tf32_model_matches_reference(case):
+    """The float32 tensor-core kernel's split-TF32 arithmetic keeps y and
+    the final state within float32's 3e-4 of `ref.ssd`, of the JAX
+    oracle and of the Pallas kernel in interpret mode, from a nonzero
+    initial state."""
+    arrays = _inputs(case, seed=6)
+    x, a, b, c = _torch(arrays, torch.float32)
+    h0 = torch.from_numpy(np.random.default_rng(8).normal(
+        size=case[:1] + case[2:]).astype(np.float32)) * 0.1
+    y, h = _chunked_tf32_model(x, a, b, c, h0)
+    tol = TOL["float32"]
+    jx, jh0 = _jax(arrays, jnp.float32), jnp.asarray(h0.numpy())
+    want = {"ref.ssd": ref.ssd(x, a, b, c, init_state=h0),
+            "JAX oracle": rref.ssd(*jx, init_state=jh0),
+            "Pallas": rops.ssd(*jx, init_state=jh0)}
+    for name, (wy, wh) in want.items():
+        _close(y, wy, tol, f"y: chunked TF32 model vs {name}")
+        _close(h, wh, tol, f"state: chunked TF32 model vs {name}")
+
+
+def test_one_tf32_product_model_misses_the_limit():
+    """With one TF32 product a chunk (operands rounded once) the same
+    arithmetic misses 3e-4 by far at mamba2-1.3b's widths, so the split
+    is needed."""
+    x, a, b, c = _torch(_inputs(MAMBA_CASES[0], seed=6), torch.float32)
+    h0 = torch.zeros((1, 2, 64, 128))
+    y, h = _chunked_tf32_model(x, a, b, c, h0, products=1)
+    wy, wh = ref.ssd(x, a, b, c, init_state=h0)
+    assert float((y - wy).abs().max()) > 10 * TOL["float32"]
+
+
+def test_float32_views_and_no_state_reach_the_kernel_uncopied():
+    """The card's half of `ops.ssd` hands `mamba_block`'s views of b and
+    c (slices of the convolution's output) to the float32 kernel as they
+    are, a missing initial state as None (no zeros launched), and bf16
+    ones as contiguous copies (its TMA maps)."""
+    seen = []
+
+    def record(x, a, b, c, h0):
+        seen.append((x, a, b, c, h0))
+        return x, h0
+
+    x = torch.zeros((1, 16, 4, 8))
+    a = torch.zeros((1, 16, 4))
+    conv = torch.zeros((1, 16, 32 + 2 * 16))
+    b, c = torch.split(conv, [32, 16, 16], dim=-1)[1:]
+    with mock.patch.object(ops, "ssd_cuda", record):
+        ops._ssd_card(x, a, b, c, None)
+        gx, ga, gb, gc, gh = seen[-1]
+        assert gx is x and ga is a and gb is b and gc is c and gh is None
+        assert not gb.is_contiguous()
+        h0 = torch.zeros((1, 4, 8, 16))
+        ops._ssd_card(x, a, b, c, h0)
+        assert seen[-1][4] is h0
+        bf = [v.to(torch.bfloat16) for v in (x, b, c)]
+        ops._ssd_card(bf[0], a, bf[1], bf[2], None)
+        assert all(v.is_contiguous() for v in seen[-1][:4])
 
 
 def test_ssd_chunk_size_independence():
@@ -308,3 +426,31 @@ def test_cuda_bf16_tensor_core_kernel_at_ragged_lengths(t):
     torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, wh, atol=h_tol, rtol=h_tol)
     assert _row_rel(y.cpu(), wy.cpu()) <= BF16_ROW_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 16, 64, 8, 16), (1, 128, 64, 64, 128),
+                                  (2, 300, 4, 64, 128), (1, 1, 2, 64, 128)])
+@pytest.mark.parametrize("init", [True, False])
+def test_cuda_float32_tensor_core_kernel_on_split_views(case, init):
+    """float32 on the tensor cores with b and c as views into one buffer
+    (as `mamba_block` passes them) and with or without an initial state,
+    at the launcher's shape, mamba2-1.3b's full width, a ragged T and
+    T = 1: y and the final state within 3e-4 of `ref.ssd`, one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    bsz, t, h, p, n = case
+    assert ssd_scan.route(torch.float32, p, n) == ssd_scan.TENSOR_CORES_F32
+    x, a, b, c = _torch(_inputs(case, seed=9), torch.float32, device="cuda")
+    conv = torch.cat([torch.zeros_like(b[..., :8]), b, c], -1)
+    b, c = conv[..., 8:8 + n], conv[..., 8 + n:]
+    h0 = (torch.randn(case[:1] + case[2:], device="cuda") * 0.1 if init
+          else None)
+    before = ops.LAUNCHES["ssd"]
+    y, hT = ops.ssd(x, a, b, c, init_state=h0)
+    assert ops.LAUNCHES["ssd"] == before + 1
+    wy, wh = ref.ssd(x, a, b, c, init_state=h0)
+    tol = TOL["float32"]
+    torch.testing.assert_close(y, wy, atol=tol, rtol=tol)
+    torch.testing.assert_close(hT, wh, atol=tol, rtol=tol)
