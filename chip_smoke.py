@@ -47,14 +47,14 @@ on failure:
    batch per arm), counts set to 0 before each and read after
    (fleet_route = rounds x horizon for Balanced-PANDAS whatever the
    cell count, 0 for power-of-d); fatal: delays not finite, a cell's
-   throughput at loads 0.6 and 0.8 off lam by more than 2%, two sampled
-   cells per arm unequal to `simulate` of that cell; cell-slots/s beside
+   throughput at loads 0.6 and 0.8 off lam by more than 2%, a sampled
+   cell per arm unequal to `simulate` of that cell; cell-slots/s beside
    phase 5's one-cell slots/s, and a profiled window of the batched
    Balanced-PANDAS step at the 30 cells;
 6. the quickstart path (examples/quickstart.py, layers 1 and 2), counts
    set to 0 before and read after: the paper's robustness study through
    `run_study` for all five policies on the dense path (Topology(24, 6),
-   horizon 2500, loads 0.6/0.8/0.95, eps 0.1/0.3 both signs, 8 seeds),
+   horizon 1000, loads 0.6/0.8/0.95, eps 0.1/0.3 both signs, 8 seeds),
    with its fatal checks (finite delays, throughput within 2% of lam at
    loads 0.6 and 0.8 for all but FIFO, Balanced-PANDAS at or below
    JSQ-MaxWeight at 0.95 with exact rates), then `ops.wwl_route` at
@@ -139,9 +139,33 @@ on failure:
    and nothing else (`torch.profiler`'s record of the host's runtime
    calls: no copy, no set, every recorded device activity that kernel),
    and each is held against its plain version and timed by events and on
-   the device, with the bound (and SDPA for attention).
+   the device, with the bound (and SDPA for attention);
+12. the scenario slice.  (a, run after 8) the drift study
+   (examples/drift_study.py: `drift_study` over the 7 DRIFT_SCENARIOS,
+   fixed-prior against blind-EWMA Balanced-PANDAS, Topology(24, 6), load
+   0.75, seeds 0-7, depth cut to horizon 1000 / warmup 250 from 8000 /
+   2000), counts set to 0 before and read after (no kernel on the dense
+   path); its table, each arm's seconds and cell-slots/s, `blind_wins`;
+   fatal: a delay not finite, an arm's throughput in any seed under 0.9
+   x lam x the window's mean lam_mult for static, stragglers and
+   rack_congestion, the static fixed-prior sweep unequal to the same
+   sweep without a scenario in any metric, a host sync in the scenario
+   slot loop (sync debug mode "error"; stragglers, rack_congestion,
+   diurnal and a schedule with per-rack weights); a profiled window of
+   the fixed-prior slot, static and stragglers (launches a slot, busy
+   share).  (b, run after phase
+   9's drained run) chatglm3-6b at full width through the same engine,
+   defaults and 16 requests under `EngineConfig(scenario="stragglers",
+   scenario_horizon=H)`, H the engine steps of phase 9's run,
+   submissions timed by the scenario's arrival plan, counts set to 0
+   before and read after: fatal unless every request drains with 17
+   tokens, flash_attention = 28 x prefills, logits finite, and at least
+   one admission is observed at a slowdown of 4.0, every such one on
+   replicas 0-1 inside the window (the playback wraps every H steps);
+   tokens/s beside phase 9's, the
+   routed counts per replica and the tier mix.
 
-Prints a {"kernels": [...]} line, then as its last line
+Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when there is no card.
 """
@@ -652,7 +676,7 @@ FLEET_STUDY_EPS = (0.1, 0.3)
 FLEET_STUDY_SEEDS = (0, 1)
 FLEET_STUDY_ALGOS = ("balanced_pandas", "pandas_po2")
 # (load index, error index, seed index) of the cells rerun by `simulate`
-FLEET_STUDY_SAMPLES = ((1, 2, 1), (2, 4, 0))
+FLEET_STUDY_SAMPLES = ((2, 4, 0),)
 
 
 def phase_fleet_study(dev, cfg, single_slots_per_s):
@@ -985,9 +1009,10 @@ def _check_counts(path: str, want: dict) -> dict:
 STUDY_LOADS = (0.6, 0.8, 0.95)
 STUDY_EPS = (0.1, 0.3)
 STUDY_SEEDS = tuple(range(8))
-# examples/quickstart.py --fast: a 4000/1000 run took the whole script
-# to 369 s on an H100, past the 6 minutes this script aims for
-STUDY_HORIZON, STUDY_WARMUP = 2500, 600
+# examples/quickstart.py --fast runs 4000/1000; cut to 2500/600 when a
+# 4000 run took the whole script to 369 s on an H100, and to the drift
+# study's 1000/250 when phase 12 came: 2500 took the script to 500 s
+STUDY_HORIZON, STUDY_WARMUP = 1000, 250
 
 
 def _study_cfg():
@@ -1265,6 +1290,147 @@ def phase_dense_loop(dev, slots: int = 32, fleet_cfg=None):
                                        for k in kern[:6]]}
     print(f"profile dense balanced_pandas: {json.dumps(out)}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The scenario slice: the drift study on the dense path (phase 12a)
+# ---------------------------------------------------------------------------
+
+# examples/drift_study.py's study (Topology(24, 6), load 0.75, the seven
+# DRIFT_SCENARIOS), its depth cut from 8000 / 2000 slots
+DRIFT_HORIZON, DRIFT_WARMUP = 1000, 250
+DRIFT_SEEDS = tuple(range(8))
+DRIFT_LOAD = 0.75
+DRIFT_GATED = ("static", "stragglers", "rack_congestion")
+DRIFT_ARMS = {"balanced_pandas": "fixed_prior", "blind_pandas": "blind_ewma"}
+
+
+def phase_drift(dev) -> dict:
+    """Phase 12a: `drift_study` over the 7 drift scenarios on the card,
+    each arm's sweep timed, launch counts 0 before and after (the dense
+    path runs no kernel, as in the reference); the static fixed-prior
+    sweep against the same sweep without a scenario, every metric bit for
+    bit; the scenario slot loop free of host syncs.  Fatal: a delay not
+    finite, or an arm's throughput under 0.9 x lam x the window's mean
+    lam_mult in any seed of `DRIFT_GATED`."""
+    from repro_torch import workloads as wl
+    from repro_torch.core import locality as loc, robustness as rb
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.policy import make_policy
+    from repro_torch.core.rng import DenseDeviceSource
+
+    cfg = rb.StudyConfig(sim=sim.default_config(horizon=DRIFT_HORIZON,
+                                                warmup=DRIFT_WARMUP),
+                         seeds=DRIFT_SEEDS)
+    scfg = cfg.sim
+    runs, sweep = {}, sim.sweep
+
+    def timed_sweep(policy, *args, scenario=None, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep(policy, *args, scenario=scenario, **kw)
+        torch.cuda.synchronize()
+        name = getattr(policy, "name", policy)
+        runs[(scenario, DRIFT_ARMS[name])] = (time.perf_counter() - t0, out)
+        return out
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(sim, "sweep", timed_sweep):
+        study = rb.drift_study(cfg, rb.DRIFT_SCENARIOS, load=DRIFT_LOAD,
+                               device=dev)
+    wall = time.perf_counter() - t0
+    _check_counts("drift study", {})
+    print(rb.summarize_drift(study), flush=True)
+    cells = len(DRIFT_SEEDS)
+    rates = {f"{scen}/{arm}": dict(
+        wall_s=sec, cell_slots_per_s=cells * DRIFT_HORIZON / sec)
+        for (scen, arm), (sec, _) in runs.items()}
+    print(f"phase 12a, drift study arms: {json.dumps(rates)}", flush=True)
+    print(f"phase 12a, blind_wins: {json.dumps(study['blind_wins'])}; "
+          f"{wall:.1f} s for {len(runs)} sweeps of {cells} cells x "
+          f"{DRIFT_HORIZON} slots", flush=True)
+
+    lam = float(study["capacity"]) * DRIFT_LOAD
+    gates = {}
+    for scen in rb.DRIFT_SCENARIOS:
+        sched = wl.compile_schedule(wl.make_scenario(scen), scfg.topo,
+                                    DRIFT_HORIZON, scfg.p_hot, device=dev)
+        want = 0.9 * lam * wl.mean_lam_mult_over(sched, DRIFT_WARMUP,
+                                                 DRIFT_HORIZON)
+        for arm in study["arms"]:
+            d = study["delay"][scen][arm]
+            if not np.isfinite(d).all():
+                raise AssertionError(f"drift {scen}/{arm}: delay not "
+                                     f"finite: {d}")
+            thru = float(study["throughput"][scen][arm].min())
+            gates[f"{scen}/{arm}"] = dict(min_throughput=thru, floor=want)
+            if scen in DRIFT_GATED and thru < want:
+                raise AssertionError(f"drift {scen}/{arm}: throughput "
+                                     f"{thru} under {want}")
+    print(f"phase 12a, throughput gates: {json.dumps(gates)}", flush=True)
+
+    # "static" is the run without a scenario, bit for bit
+    _, static = runs[("static", "fixed_prior")]
+    est = sim.make_estimates(scfg, "network", 0.0, -1)[None]
+    none = sweep("balanced_pandas", scfg,
+                 np.asarray([DRIFT_LOAD], np.float32) * study["capacity"],
+                 est, np.asarray(DRIFT_SEEDS), device=dev)
+    if set(none) != set(static) or any(
+            not np.array_equal(none[k], static[k]) for k in none):
+        raise AssertionError("the static scenario differs from the run "
+                             "without a scenario")
+    print("phase 12a: scenario static equals no scenario bit for bit "
+          f"({sorted(none)})", flush=True)
+
+    # no host sync in the scenario slot loop, the weighted arrival path
+    # (which no drift scenario takes) included
+    weighted = wl.Scenario("weighted", (
+        wl.Segment(0.0),
+        wl.Segment(0.3, lam_mult=1.2, rack_weights=(4.0, 1.0, 0.0, 2.0),
+                   tier_mult=(1.0, 0.7, 0.5))))
+    m = scfg.topo.num_servers
+    cap = loc.capacity_hot_rack(scfg.topo, scfg.true_rates, scfg.p_hot)
+    cells_l = [(s, np.float32(DRIFT_LOAD * cap)) for s in DRIFT_SEEDS]
+    est_t = torch.as_tensor(np.repeat(est, len(cells_l), 0), device=dev)
+
+    def build(name, scen):
+        sched = wl.compile_schedule(wl.make_scenario(scen), scfg.topo,
+                                    DRIFT_HORIZON, scfg.p_hot, device=dev)
+        _, init, step = sim._build_dense_step(name, scfg, est_t, dev, sched)
+        src = DenseDeviceSource(cells_l, make_policy(name).draw_plan(m),
+                                scfg.max_arrivals, m, dev, sched)
+        return init(), step, src
+
+    for name, scen in (("balanced_pandas", "stragglers"),
+                       ("blind_pandas", "rack_congestion"),
+                       ("balanced_pandas", "diurnal"),
+                       ("balanced_pandas", weighted)):
+        carry, step, src = build(name, scen)
+        _no_sync(step, carry, src.slot, 24)
+    print("phase 12a: no host sync in 23 slots of the scenario slot loop "
+          "(stragglers, rack_congestion, diurnal, per-rack weights)",
+          flush=True)
+
+    # a profiled window of the fixed-prior arm's slot, static against a
+    # multi-segment scenario: launches a slot and the busy share
+    windows = {}
+    for scen in ("static", "stragglers"):
+        carry, step, src = build("balanced_pandas", scen)
+        t = 0
+
+        def one():
+            nonlocal carry, t
+            carry = step(carry, t, src.slot(t))
+            t += 1
+
+        for _ in range(8):
+            one()
+        windows[scen] = _profile_window(dev, one, 32)
+    print(f"phase 12a, profiled windows of the fixed-prior slot: "
+          f"{json.dumps(windows)}", flush=True)
+    return dict(wall_s=wall, arms=rates, blind_wins=study["blind_wins"],
+                windows=windows)
 
 
 # ---------------------------------------------------------------------------
@@ -2100,54 +2266,11 @@ def phase_serving(dev, arch=SERVE_ARCH):
 
     ecfg = EngineConfig()
     eng = ServingEngine(cfg, params, ecfg, device=dev)
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(
-                0, cfg.vocab_size, int(rng.integers(24, 121))
-            ).astype(np.int32), max_new_tokens=SERVE_NEW, prefix_id=i % 5)
-            for i in range(SERVE_REQUESTS)]
-
-    # every logits tensor of the run is checked on the card (no host
-    # read), and the prefills (forwards through the kernel route) are
-    # counted
-    forward = T.forward
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    prefills = 0
-
-    def checked(*args, **kwargs):
-        nonlocal prefills
-        prefills += kwargs.get("impl") == impl
-        out = forward(*args, **kwargs)
-        finite.logical_and_(torch.isfinite(out[0]).all())
-        return out
-
-    T.forward = checked
-    _zero_counts()
-    try:
-        t0 = time.perf_counter()
-        out = eng.run_until_drained(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        T.forward = forward
-    launches = _check_counts(f"{arch} serving", {
-        kernel: cfg.num_layers * prefills})
-    if prefills != SERVE_REQUESTS:
-        raise AssertionError(f"{prefills} prefills for {SERVE_REQUESTS} "
-                             f"requests")
-    short = [r.rid for r in out
-             if r.finish_time <= 0 or len(r.generated) != SERVE_NEW + 1]
-    if short:
-        raise AssertionError(f"requests {short} did not drain with "
-                             f"{SERVE_NEW + 1} tokens")
-    if not bool(finite):
-        raise AssertionError("non-finite logits in the serving run")
-    tokens = sum(len(r.generated) for r in out)
-    run = dict(requests=len(out), prefills=prefills, steps=eng.steps,
-               wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
-               tier_mix=eng.assign_tiers,
-               sojourn_p50_p95_p99_steps=eng.sojourn_percentiles().tolist(),
-               launches=launches)
+    reqs = serve_requests(cfg)
+    run = drained_run(dev, arch, cfg, eng, reqs, f"{arch} serving")
     print(f"serving run {cfg.name}: {json.dumps(run)}", flush=True)
+    if arch == SERVE_ARCH:
+        run["scenario"] = scenario_serving(dev, cfg, params, run)
     if arch == MAMBA_ARCH:
         run["tokens_per_s_tc_vs_recurrent"] = ssd_ab(eng, reqs)
 
@@ -2167,7 +2290,137 @@ def phase_serving(dev, arch=SERVE_ARCH):
                 dev, cfg32, params32, ecfg, reqs[0].prompt, f32_tol)
         del params32
         torch.cuda.empty_cache()
-    return launches, run, compare, decode
+    return run["launches"], run, compare, decode
+
+
+def serve_requests(cfg):
+    """The serving phases' 16 seeded requests of 24-120 prompt tokens."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, int(rng.integers(24, 121))
+            ).astype(np.int32), max_new_tokens=SERVE_NEW, prefix_id=i % 5)
+            for i in range(SERVE_REQUESTS)]
+
+
+def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None) -> dict:
+    """Drives `eng` until every request of `reqs` is drained: all
+    submitted at once (`run_until_drained`), or request i at engine step
+    ``submit_at[i]``.  Launch counts are set to 0 before and must equal
+    layers x prefills of the arch's kernel after; every logits tensor is
+    checked finite on the card (no host read); every request must drain
+    with SERVE_NEW + 1 tokens."""
+    from repro_torch.models import transformer as T
+
+    impl, kernel = SERVE_ROUTES[arch][:2]
+    forward = T.forward
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    prefills = 0
+
+    def checked(*args, **kwargs):
+        nonlocal prefills
+        prefills += kwargs.get("impl") == impl
+        out = forward(*args, **kwargs)
+        finite.logical_and_(torch.isfinite(out[0]).all())
+        return out
+
+    T.forward = checked
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        if submit_at is None:
+            out = eng.run_until_drained(reqs)
+        else:
+            out, nxt = list(reqs), 0
+            while any(r.finish_time == 0.0 for r in out):
+                while nxt < len(out) and submit_at[nxt] <= eng.steps:
+                    eng.submit(out[nxt])
+                    nxt += 1
+                eng.step()
+                if eng.steps > 10_000:
+                    raise RuntimeError("engine did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        T.forward = forward
+    launches = _check_counts(path, {kernel: cfg.num_layers * prefills})
+    if prefills != len(reqs):
+        raise AssertionError(f"{prefills} prefills for {len(reqs)} "
+                             f"requests")
+    short = [r.rid for r in out
+             if r.finish_time <= 0 or len(r.generated) != SERVE_NEW + 1]
+    if short:
+        raise AssertionError(f"requests {short} did not drain with "
+                             f"{SERVE_NEW + 1} tokens")
+    if not bool(finite):
+        raise AssertionError(f"non-finite logits in the {path} run")
+    tokens = sum(len(r.generated) for r in out)
+    return dict(requests=len(out), prefills=prefills, steps=eng.steps,
+                wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+                tier_mix=eng.assign_tiers,
+                routed=np.bincount([r.replica for r in out],
+                                   minlength=len(eng.replicas)).tolist(),
+                sojourn_p50_p95_p99_steps=eng.sojourn_percentiles().tolist(),
+                launches=launches)
+
+
+class _RecordedPlayback:
+    """A `HostPlayback` that records every slowdown the engine reads."""
+
+    def __init__(self, playback):
+        self.playback, self.seen = playback, []
+
+    def slowdown(self, t, worker, tier=None):
+        s = self.playback.slowdown(t, worker, tier)
+        self.seen.append((int(t), int(worker), tier, s))
+        return s
+
+    def __getattr__(self, name):
+        return getattr(self.playback, name)
+
+
+def scenario_serving(dev, cfg, params, static_run) -> dict:
+    """Phase 12b: the same engine, defaults and requests as phase 9 under
+    ``EngineConfig(scenario="stragglers", scenario_horizon=H)``, H the
+    engine steps of phase 9's drained run, so replicas 0 and 1 run at a
+    quarter of their rate during steps [H/4, 3H/4).  Submitted all at
+    once, every request is admitted at step 0, before the window opens,
+    so the scenario's own arrival plan (`workloads.arrival_steps`, one
+    cycle of H steps) times the submissions, as the reference's serving
+    bench does.  Fatal: a request not drained with 17 tokens, launches
+    other than 28 x prefills, non-finite logits, no admission observed at
+    a slowdown of 4.0 (every such one on replicas 0-1 inside the window,
+    which the playback repeats every H steps)."""
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+    from repro_torch.workloads import arrival_steps
+
+    horizon = static_run["steps"]
+    ecfg = EngineConfig(scenario="stragglers", scenario_horizon=horizon)
+    eng = ServingEngine(cfg, params, ecfg, device=dev)
+    eng.playback = _RecordedPlayback(eng.playback)
+    reqs = serve_requests(cfg)
+    when = arrival_steps(eng.playback.playback, len(reqs),
+                         len(reqs) / horizon)
+    run = drained_run(dev, SERVE_ARCH, cfg, eng, reqs,
+                      f"{SERVE_ARCH} stragglers serving", submit_at=when)
+    seen = eng.playback.seen
+    slowed = sorted({(t, w) for t, w, _, s in seen if s == 4.0})
+    run.update(scenario_horizon=horizon, submit_steps=when.tolist(),
+               admissions=len(seen), slowed_admissions=slowed,
+               static_tokens_per_s=static_run["tokens_per_s"])
+    print(f"phase 12b, serving {cfg.name} under stragglers: "
+          f"{json.dumps(run)}", flush=True)
+    if len(seen) != len(reqs):
+        raise AssertionError(f"{len(seen)} slowdowns read for "
+                             f"{len(reqs)} admissions")
+    # the playback wraps: step t reads the window at t mod H
+    if not slowed or any(w not in (0, 1) or not horizon / 4 <= t % horizon
+                         < 3 * horizon / 4 for t, w in slowed):
+        raise AssertionError(f"admissions at a slowdown of 4.0: {slowed}; "
+                             f"want at least one, all on replicas 0-1 "
+                             f"inside steps [{horizon / 4}, "
+                             f"{3 * horizon / 4}) mod {horizon}")
+    return run
 
 
 def attention_fault_reading(dev, cfg, params, ecfg, prompt, logit_tol):
@@ -2196,12 +2449,13 @@ def attention_fault_reading(dev, cfg, params, ecfg, prompt, logit_tol):
 
 def ssd_ab(eng, reqs) -> dict:
     """Tokens/s of the same drained run with bf16 `ssd` on the tensor
-    cores and on the recurrent kernel in turn (tensor cores, recurrent,
-    recurrent, tensor cores), every request drained each time."""
+    cores and on the recurrent kernel in turn, every request drained
+    each time (one run each since phase 12 came: the serving runs are
+    host-bound, and the kernels are timed on their own in phase 3c)."""
     from repro_torch.serve.engine import Request
 
     out = {"tc": [], "recurrent": []}
-    for which in ("tc", "recurrent", "recurrent", "tc"):
+    for which in ("tc", "recurrent"):
         fresh = [Request(rid=1000 + r.rid, prompt=r.prompt,
                          max_new_tokens=r.max_new_tokens,
                          prefix_id=r.prefix_id) for r in reqs]
@@ -2465,24 +2719,46 @@ def main(argv=None) -> int:
 
     prev = load_prev(args.prev)
     prev_route = prev["fleet_route"] if prev else None
+    seconds, mark = {}, [time.perf_counter()]
+
+    def done(phase):   # seconds of command since the last phase ended
+        now = time.perf_counter()
+        seconds[phase], mark[0] = now - mark[0], now
+
     rows = phase_kernels(dev, prev_route)
     batched_rows = phase_batched_route(dev, prev_route)
     sched_rows = phase_sched_kernels(dev, prev)
+    done("3")
     launches, _, (cfg, lam, est_t) = phase_slice(dev)
+    done("4")
     profile = phase_profile(dev, cfg, [(1, lam)], est_t, prev_fn=prev_route)
+    done("5")
     study_rows = phase_fleet_study(dev, cfg, profile["slots_per_s_steady"])
+    done("5b")
     quick_launches, _, quick_bad, quick_err = phase_quickstart(dev)
+    done("6")
     bench_launches, bench_rows = phase_bench(dev, prev)
+    done("7")
     phase_dense_loop(dev, fleet_cfg=cfg)
+    done("8")
+    phase_drift(dev)
+    done("12a")
     attn_rows, attn_err, attn_build, attn_f32, probe = phase_attention(
         dev, prev and prev["flash_attention"])
-    serve_launches, _, _, _ = phase_serving(dev)
+    done("3b")
+    serve_launches, serve_run, _, _ = phase_serving(dev)
     torch.cuda.empty_cache()
+    done("9+12b")
     ssd_rows, ssd_err, ssd_build, ssd_f32 = phase_ssd(
         dev, prev and prev["ssd"])
+    done("3c")
     mamba_launches, _, _, _ = phase_serving(dev, MAMBA_ARCH)
     torch.cuda.empty_cache()
+    done("11")
     _, launcher_rows = phase_launcher(dev)
+    done("10")
+    print(f"phase seconds (build excluded): {json.dumps(seconds)}",
+          flush=True)
 
     main_row = rows["D=1"]  # the slice's Topology(10008, 6)
     timed = ("ms", "device_ms", "prev_ms", "prev_device_ms", "bound_ms")
@@ -2542,6 +2818,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
         "launches": serve_launches["flash_attention"],
+        "scenario_launches": serve_run["scenario"]["launches"][
+            "flash_attention"],
         "max_abs_err": attn_err,
         "ms": main_attn["ms"], "plain_ms": main_attn["plain_ms"],
         "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],

@@ -9,7 +9,9 @@ simulator with the reference's seven policies and the robustness study
 fleet-scale path for Balanced-PANDAS and power-of-d, one run or a whole
 (load x error x seed) study batched over cells (`sharding.sim` ->
 `fleet_sweep` -> the hand-written CUDA `fleet_route` kernel), the CUDA
-`wwl_route` and `maxweight_claim` kernels behind `kernels.ops`, and the
+`wwl_route` and `maxweight_claim` kernels behind `kernels.ops`, the
+scenario subsystem (`workloads`: time-varying traffic and rates on the
+dense simulator, the drift study and the serving engine), and the
 serving engine with its two model kernels; see ROADMAP.md for what is
 still to port.
 

@@ -5,8 +5,8 @@ Each ported ``<id>.py`` module defines ``CONFIG`` (exact) and
 ``smoke_config()`` (a reduced same-family config for CPU tests).  The
 port serves the dense attention-only architectures and the Mamba-2 one;
 the other ids of the reference raise `NotImplementedError` until their
-layers are ported (MoE, encoder-decoder, vision: ROADMAP Queue 1 item
-13).
+layers are ported (MoE, encoder-decoder, vision: the model-stack slice
+of the port).
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ def _module(arch: str):
     if arch not in PORTED_IDS:
         raise NotImplementedError(
             f"arch {arch!r} needs layers the port does not have yet (MoE, "
-            f"encoder-decoder or vision: ROADMAP Queue 1 item 13); "
+            f"encoder-decoder or vision: the model-stack slice of the "
+            f"port); "
             f"ported: {PORTED_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")

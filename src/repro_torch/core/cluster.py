@@ -13,7 +13,7 @@ surface.  Each draws its tie-breaks from ``np.random.default_rng(seed)``
 in the reference's order, so under one seed and one sequence of calls
 the port and the reference make the same decisions.  The reference's
 autoscaling seam (`Router.set_active`, a routable-worker mask) comes
-with the control plane (ROADMAP Queue 1 item 11).
+with the control slice of the port.
 """
 
 from __future__ import annotations

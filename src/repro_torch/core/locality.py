@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import numbers
 from functools import lru_cache
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -400,17 +400,27 @@ def pair_rate(m: torch.Tensor, n: torch.Tensor, ancestors: torch.Tensor,
 
 
 def sample_task_types_at(u_hot: torch.Tensor, gumbel: torch.Tensor,
-                         rack_of: torch.Tensor, p_hot,
-                         hot_rack: int = 0) -> torch.Tensor:
+                         rack_of: torch.Tensor, p_hot, hot_rack=0,
+                         rack_weights: Optional[torch.Tensor] = None,
+                         g_rack: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """(..., B, 3) int32 task types, 3 distinct servers each, sorted.
 
     u_hot (..., B) uniforms: task b is hot iff ``u_hot < p_hot``; a hot
-    task draws its replicas from rack `hot_rack`, the rest from all
-    servers.  gumbel (..., B, M): Gumbel top-3 over the allowed servers
-    (sampling without replacement), as the reference does.
+    task draws its replicas from rack `hot_rack` (an int or a device
+    scalar), the rest from all servers.  gumbel (..., B, M): Gumbel top-3
+    over the allowed servers (sampling without replacement), as the
+    reference does.  With `rack_weights` (R,) a hot task's rack is drawn
+    per lane from those weights instead: the argmax of ``log w + g_rack``
+    over the lane's (..., B, R) Gumbels, which is how the reference's
+    ``categorical`` draws it.
     """
     hot = u_hot < p_hot
-    in_hot_rack = rack_of == hot_rack                         # (M,)
+    if rack_weights is None:
+        in_hot_rack = rack_of == hot_rack                     # (M,)
+    else:
+        racks = torch.argmax(g_rack + torch.log(rack_weights), dim=-1)
+        in_hot_rack = rack_of == racks[..., None]             # (..., B, M)
     inside = torch.where(in_hot_rack, 0.0, float("-inf"))
     logits = torch.where(hot[..., None], inside, 0.0)         # (..., B, M)
     idx = torch.topk(logits + gumbel, NUM_REPLICAS, dim=-1).indices
@@ -419,14 +429,16 @@ def sample_task_types_at(u_hot: torch.Tensor, gumbel: torch.Tensor,
 
 def sample_arrivals_at(n: torch.Tensor, u_hot: torch.Tensor,
                        gumbel: torch.Tensor, rack_of: torch.Tensor, p_hot,
-                       hot_rack: int = 0):
-    """One slot of static arrivals: (types (..., B, 3) int32, active
-    (..., B) bool).  `n` (...) is the truncated-Poisson count of the
-    slot, drawn by the seam; lanes ``b < n`` are active."""
+                       hot_rack=0, rack_weights: Optional[torch.Tensor] = None,
+                       g_rack: Optional[torch.Tensor] = None):
+    """One slot of arrivals under the slot's knobs: (types (..., B, 3)
+    int32, active (..., B) bool).  `n` (...) is the truncated-Poisson
+    count of the slot, drawn by the seam at the slot's rate; lanes
+    ``b < n`` are active."""
     batch = u_hot.shape[-1]
     active = torch.arange(batch, device=u_hot.device) < n[..., None]
-    return sample_task_types_at(u_hot, gumbel, rack_of, p_hot,
-                                hot_rack), active
+    return sample_task_types_at(u_hot, gumbel, rack_of, p_hot, hot_rack,
+                                rack_weights, g_rack), active
 
 
 def random_argmin(gumbel: torch.Tensor, score: torch.Tensor) -> torch.Tensor:

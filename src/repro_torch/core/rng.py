@@ -30,7 +30,8 @@ properties of the reference's key schedule:
 
 1. common random numbers: a seed's arrivals come from a generator that
    policy draws never advance, so they are the same for every policy and
-   every error setting;
+   every error setting, and under every scenario of the same rack-weight
+   layout;
 2. grid independence: a cell's draws depend only on its seed, the slot
    and its load.  Each seed owns two generators (arrivals, policy) and
    draws a fixed-size block from each per slot; the Poisson count is the
@@ -41,6 +42,15 @@ properties of the reference's key schedule:
    about 15 launches to gather and transform;
 3. nothing is read back to the host inside the slot loop (on both
    paths).
+
+Under a scenario (`workloads.Schedule`) the count's law in slot t is
+Poisson(lam x lam_mult) of t's segment: the source keeps one CDF a
+(cell, segment), at the float32 product the reference draws its count
+at, and picks the slot's row on the device by the schedule's per-slot
+segment index; the single uniform and the properties stay.  When the
+schedule has per-rack arrival weights (a Python-level fact) the
+arrival block grows by the rack Gumbels, (B, R) a cell at its end;
+weight-free runs keep their block layout and sample paths bit for bit.
 """
 
 from __future__ import annotations
@@ -65,10 +75,18 @@ def poisson_cdf(lam: float, batch: int) -> np.ndarray:
     return np.minimum(np.cumsum(np.exp(logpmf)), 1.0)
 
 
-def _cell_cdf(cells, batch: int, device) -> torch.Tensor:
-    """(N, batch) Poisson CDFs of the cells' loads."""
-    return torch.tensor(np.stack([poisson_cdf(float(lam), batch)
-                                  for _, lam in cells]), device=device)
+def _cell_cdf(cells, batch: int, device, lam_mult=None) -> torch.Tensor:
+    """(N, batch) Poisson CDFs of the cells' loads; given the S
+    multipliers `lam_mult`, (N, S, batch) at the loads times each, the
+    product formed in float32 as the reference forms
+    ``lam_total * lam_mult``."""
+    if lam_mult is None:
+        return torch.tensor(np.stack([poisson_cdf(float(lam), batch)
+                                      for _, lam in cells]), device=device)
+    mult = np.asarray(lam_mult, np.float32)
+    return torch.tensor(np.stack([
+        [poisson_cdf(float(np.float32(lam) * m), batch) for m in mult]
+        for _, lam in cells]), device=device)
 
 
 def _seed_generators(cells, device, stride: int, offset: int):
@@ -180,6 +198,7 @@ class DenseDraws(NamedTuple):
     cand: Optional[torch.Tensor]      # (N, B, d) int64 distinct servers
     perm: Optional[torch.Tensor]      # (N, M) int64 permutation
     claim: Optional[torch.Tensor]     # (N, M, M) Gumbels
+    g_rack: Optional[torch.Tensor] = None  # (N, B, R) rack Gumbels
 
 
 class DenseSource(abc.ABC):
@@ -199,23 +218,36 @@ def gumbel(u: torch.Tensor) -> torch.Tensor:
 class DenseDeviceSource(DenseSource):
     """Draws for the cells ``[(seed, lam), ...]`` from seeded generators
     on `device`: per distinct seed, one generator for the arrivals and
-    one for the policy (see the module docstring)."""
+    one for the policy (see the module docstring).  `sched` is the run's
+    compiled scenario (`workloads.Schedule`), None for the static one."""
 
     def __init__(self, cells: Sequence[Tuple[int, float]], plan: DrawPlan,
-                 batch: int, num_servers: int, device):
+                 batch: int, num_servers: int, device, sched=None):
         dev = self.device = torch.device(device)
         self.arr_gens, self.cell_seed = _seed_generators(cells, dev, 2, 0)
         self.pol_gens, _ = _seed_generators(cells, dev, 2, 1)
-        self.cdf = _cell_cdf(cells, batch, dev)
+        self.seg = None   # one CDF a cell (None) or a segment index a slot
+        if sched is None:
+            self.cdf = _cell_cdf(cells, batch, dev)
+        else:
+            self.cdf = _cell_cdf(cells, batch, dev,
+                                 sched.lam_mult.cpu().numpy())  # (N, S, B)
+            if sched.num_segments == 1:
+                self.cdf = self.cdf[:, 0]
+            else:
+                self.seg = sched.seg
         self.plan, self.batch, self.m = plan, batch, num_servers
         b, m = batch, num_servers
-        # per-slot block layout: arrivals [u_n | u_hot | type Gumbels];
+        self.n_rack = (0 if sched is None or sched.rack_weights is None
+                       else b * sched.rack_weights.shape[-1])
+        # per-slot block layout: arrivals [u_n | u_hot | type Gumbels |
+        # rack Gumbels (weighted schedules only)];
         # policy [u_serve | route Gumbels | claim Gumbels | perm | cand]
         self.n_route = {"": 0, "locals": b * 3, "servers": b * m}[plan.route]
         self.n_claim = m * m if plan.claim else 0
         self.n_perm = m if plan.perm else 0
         self.n_cand = b * m if plan.cand else 0
-        self.n_arr = 1 + b + b * m
+        self.n_arr = 1 + b + b * m + self.n_rack
         self.n_pol = (m + self.n_route + self.n_claim + self.n_perm
                       + self.n_cand)
 
@@ -223,9 +255,13 @@ class DenseDeviceSource(DenseSource):
         b, m, plan = self.batch, self.m, self.plan
         arr = _cell_block(self.arr_gens, self.cell_seed, self.n_arr,
                           self.device)
-        n = (self.cdf <= arr[:, :1].double()).sum(dim=1)
+        cdf = self.cdf if self.seg is None else \
+            self.cdf.index_select(1, self.seg[t:t + 1])[:, 0]
+        n = (cdf <= arr[:, :1].double()).sum(dim=1)
         u_hot = arr[:, 1:1 + b]
-        g_type = gumbel(arr[:, 1 + b:]).view(-1, b, m)
+        g_type = gumbel(arr[:, 1 + b:1 + b + b * m]).view(-1, b, m)
+        g_rack = (gumbel(arr[:, 1 + b + b * m:]).view(len(arr), b, -1)
+                  if self.n_rack else None)
         pol = _cell_block(self.pol_gens, self.cell_seed, self.n_pol,
                           self.device)
         u_serve, rest = pol[:, :m], pol[:, m:]
@@ -240,4 +276,5 @@ class DenseDeviceSource(DenseSource):
         if plan.cand:
             keys = rest[:, self.n_perm:].view(nc, b, m)
             cand = torch.topk(keys, plan.cand, dim=-1).indices
-        return DenseDraws(n, u_hot, g_type, u_serve, route, cand, perm, claim)
+        return DenseDraws(n, u_hot, g_type, u_serve, route, cand, perm, claim,
+                          g_rack)

@@ -12,7 +12,15 @@ Priority and FIFO never consult the rate estimates, so they run the exact
 column only.  With ``fleet=True`` (or a topology of at least
 `sharding.sim.FLEET_AUTO_THRESHOLD` servers) the Balanced-PANDAS and
 power-of-d arms run the fleet path, each arm's whole (load x error x
-seed) grid as one batch of cells (`sharding.sim.fleet_sweep`).  The drift, placement, replication, tail-latency and control
+seed) grid as one batch of cells (`sharding.sim.fleet_sweep`).
+
+Drift study (`drift_study`): fixed-prior against blind-EWMA
+Balanced-PANDAS under each time-varying scenario (`repro_torch.workloads`),
+the experiment behind the paper's "change of traffic over time in
+addition to estimation errors of processing rates".  Both arms start from
+the exact static rates; the fixed prior never updates, the blind EWMA
+policy (`blind_pandas`) keeps learning, so a blind win is pure
+drift-tracking.  The placement, replication, tail-latency and control
 studies of the reference come with later slices of the port and raise
 until then.
 """
@@ -20,15 +28,21 @@ until then.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 
 from repro_torch.core import locality as loc, simulator as sim
+from repro_torch.core.policy import PolicyConfig, PolicyLike
+from repro_torch.workloads import Scenario, ScenarioConfig, ScenarioLike
 
 EPS_GRID = (0.05, 0.10, 0.15, 0.20, 0.25, 0.30)
 RATE_AWARE = ("balanced_pandas", "pandas_po2", "jsq_maxweight")
 RATE_OBLIVIOUS = ("priority", "fifo")
+# Scenarios for the drift study: "static" is the control arm where the
+# fixed prior is unbeatable (it is exact and never goes stale).
+DRIFT_SCENARIOS = ("static", "diurnal", "flash_crowd", "mmpp", "hot_shift",
+                   "stragglers", "rack_congestion")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +127,68 @@ def summarize(study: Dict) -> str:
     return "\n".join(lines)
 
 
+def drift_study(cfg: StudyConfig,
+                scenarios: Union[Sequence[str],
+                                 Mapping[str, ScenarioLike]] = DRIFT_SCENARIOS,
+                load: float = 0.75, device=None) -> Dict:
+    """Fixed-prior vs blind-EWMA Balanced-PANDAS under each scenario.
+
+    Both arms start from the exact static rates -- the *best possible*
+    fixed prior -- so any blind win is pure drift-tracking, not prior
+    quality.  Returns delay/throughput/final_n[scenario][arm] arrays of
+    shape (S_seeds,) plus the winner per scenario.  `scenarios` is a
+    sequence of registered names or a ``{label: ScenarioLike}`` mapping;
+    results are keyed by the label either way.  ``device=None`` runs on
+    the card.
+    """
+    if isinstance(scenarios, Mapping):
+        scen_map: Dict[str, ScenarioLike] = dict(scenarios)
+    else:
+        scen_map = {s.name if isinstance(s, (Scenario, ScenarioConfig))
+                    else str(s): s for s in scenarios}
+    r = cfg.sim.true_rates
+    arms: Dict[str, PolicyLike] = {
+        "fixed_prior": "balanced_pandas",
+        "blind_ewma": PolicyConfig("blind_pandas", {"prior": r.values}),
+    }
+    cap = loc.capacity_hot_rack(cfg.sim.topo, r, cfg.sim.p_hot)
+    lam = np.asarray([load], np.float32) * cap
+    seeds = np.asarray(cfg.seeds)
+    est_exact = sim.make_estimates(cfg.sim, "network", 0.0, -1)[None]
+
+    out: Dict = {"capacity": cap, "load": load, "arms": tuple(arms),
+                 "scenarios": tuple(scen_map), "delay": {},
+                 "throughput": {}, "final_n": {}}
+    for scen, spec in scen_map.items():
+        for name in ("delay", "throughput", "final_n"):
+            out[name][scen] = {}
+        for arm, policy in arms.items():
+            res = sim.sweep(policy, cfg.sim, lam, est_exact, seeds,
+                            scenario=spec, device=device)
+            out["delay"][scen][arm] = res["mean_delay"][0, 0]
+            out["throughput"][scen][arm] = res["throughput"][0, 0]
+            out["final_n"][scen][arm] = res["final_n"][0, 0]
+    out["blind_wins"] = {
+        scen: float(out["delay"][scen]["blind_ewma"].mean())
+        < float(out["delay"][scen]["fixed_prior"].mean())
+        for scen in scen_map}
+    return out
+
+
+def summarize_drift(study: Dict) -> str:
+    """Human-readable drift-study table (one row per scenario)."""
+    width = max([16] + [len(s) for s in study["scenarios"]])
+    lines = [f"{'scenario':{width}s} {'fixed_prior':>12s} {'blind_ewma':>12s}"
+             f"  winner   (mean delay, slots; load "
+             f"{study['load']:.2f} x static capacity)"]
+    for scen in study["scenarios"]:
+        d_fix = float(study["delay"][scen]["fixed_prior"].mean())
+        d_bl = float(study["delay"][scen]["blind_ewma"].mean())
+        win = "blind" if study["blind_wins"][scen] else "fixed"
+        lines.append(f"{scen:{width}s} {d_fix:12.2f} {d_bl:12.2f}  {win}")
+    return "\n".join(lines)
+
+
 def _later(study: str, slice_name: str):
     def run(*args, **kwargs):
         raise NotImplementedError(f"the {study} study comes with the "
@@ -123,7 +199,6 @@ def _later(study: str, slice_name: str):
     return run
 
 
-drift_study = _later("drift", "workloads")
 placement_study = _later("placement", "placement")
 replication_study = _later("replication", "replication")
 tail_study = _later("tail", "telemetry")

@@ -12,12 +12,27 @@ grid is one leading cell dimension N = L*E*S on every state tensor, and
 the slot loop runs on the host, one slot per iteration, with no read of a
 device value inside it.  Each cell's draws depend only on its seed, the
 slot and its load (`core.rng.DenseDeviceSource`), so ``sweep(...)[l, e,
-s]`` equals ``simulate(..., seed=seeds[s])`` exactly.  For any
-non-default scenario/placement/replication/telemetry/control seam, both
-raise `NotImplementedError` naming the slice that adds it.
+s]`` equals ``simulate(..., seed=seeds[s])`` exactly.
+
+Scenarios (`repro_torch.workloads`): every dense run plays back a
+compiled `Schedule` (None -> ``"static"``), as the reference's scan does.
+Each slot gathers its segment's knobs on the device (`slot_knobs`): the
+arrival count's rate ``lam_total * lam_mult`` (drawn by the source, one
+Poisson CDF a cell and segment), ``p_hot``, ``hot_rack``,
+``rack_weights``, and the true rates ``true_k[None, :] * rate_mult``,
+(M, K), shared by every cell.  A one-segment schedule's knobs are
+gathered once.  ``"static"`` gives the run without a scenario bit for
+bit.  A scenario with a failure track (``down_servers``/``down_racks``:
+``server_loss``, ``rack_loss``, traces with incident windows of that
+kind) raises `NotImplementedError`: the reference runs it through its
+replication machinery, which comes with the replication slice of the
+port.  The fleet path stays static-only, as in the reference.  For any
+other non-default placement/replication/telemetry/control seam, both
+entry points raise `NotImplementedError` naming the slice that adds it.
 
 Mean task completion time is measured via Little's law:
-``W = mean(N_in_system over measurement window) / lambda_total`` (slots).
+``W = mean(N_in_system over measurement window) / (lambda_total x the
+window's mean lam_mult)`` (slots).
 
 Error models for the estimated rates (`make_estimates`):
   - "uniform":    est = true * (1 +/- eps) for every tier (a no-op for
@@ -36,13 +51,12 @@ from typing import Any, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, workloads as wl
 from repro_torch.core import locality as loc
 from repro_torch.core.policy import PolicyLike, make_policy
 from repro_torch.core.rng import DenseDeviceSource, DenseSource
 # non-default seams and the slice of the port that adds each
-_SEAMS = (("scenario", (None, "static"), "workloads"),
-          ("placement", (None, "uniform"), "placement"),
+_SEAMS = (("placement", (None, "uniform"), "placement"),
           ("replication", (None, "fixed"), "replication"),
           ("telemetry", (None, False), "telemetry"),
           ("control", (None,), "control"))
@@ -126,6 +140,12 @@ def _check_seams(scenario, placement, replication, telemetry,
             raise NotImplementedError(
                 f"{arg}={given[arg]!r} comes with the {slice_name} slice of "
                 f"the port")
+    scn = wl.make_scenario(scenario)
+    if any(s.down_servers or s.down_racks for s in scn.segments):
+        raise NotImplementedError(
+            f"scenario {scn.name!r} has a failure track (down_servers / "
+            f"down_racks), which runs through the replication machinery: "
+            f"it comes with the replication slice of the port")
 
 
 # dense carry: (policy state, mean_n (N,) f32, n_meas (N,) f32,
@@ -134,19 +154,31 @@ DenseCarry = Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
-                      est: torch.Tensor, device):
+                      est: torch.Tensor, device, sched=None):
     """Returns (policy, init() -> carry, step(carry, t, draws) -> carry)
-    for the N cells whose (N, M, K) estimated rates are `est`: the
-    counterpart of the reference's scan body, one slot per call."""
+    for the N cells whose (N, M, K) estimated rates are `est` under the
+    compiled scenario `sched` (None: static): the counterpart of the
+    reference's scan body, one slot per call.  The draws' counts already
+    follow the slot's arrival rate (`core.rng`)."""
     pol = make_policy(policy_like)
     dev = torch.device(device)
     topo = cfg.topo
+    if sched is None:
+        sched = wl.compile_schedule(wl.make_scenario(None), topo,
+                                    cfg.horizon, cfg.p_hot, device=dev)
     n_cells = est.shape[0]
     anc = torch.as_tensor(np.array(topo.ancestors), device=dev)
     rack_of = torch.as_tensor(np.array(topo.rack_of), device=dev)
     true_k = cfg.true_rates.as_array(dev)
-    p_hot = torch.tensor(cfg.p_hot, dtype=torch.float32, device=dev)
     warmup = cfg.warmup
+
+    def knobs_at(t):
+        """The slot's knobs and its (M, K) true rates."""
+        knobs = wl.slot_knobs(sched, t)
+        return knobs, true_k[None, :] * knobs.rate_mult
+
+    # a one-segment schedule's knobs are constant: gathered once
+    const = knobs_at(0) if sched.num_segments == 1 else None
 
     def init() -> DenseCarry:
         f32 = dict(dtype=torch.float32, device=dev)
@@ -157,10 +189,12 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
     @torch.inference_mode()  # no autograd bookkeeping: less host time a op
     def step(carry: DenseCarry, t: int, draws) -> DenseCarry:
         state, mean_n, n_meas, compl = carry
-        types, active = loc.sample_arrivals_at(draws.n, draws.u_hot,
-                                               draws.g_type, rack_of, p_hot)
+        knobs, true_mk = const if const is not None else knobs_at(t)
+        types, active = loc.sample_arrivals_at(
+            draws.n, draws.u_hot, draws.g_type, rack_of, knobs.p_hot,
+            knobs.hot_rack, knobs.rack_weights, draws.g_rack)
         state, compl_t = pol.slot_step(state, draws, types, active, est,
-                                       true_k, anc)
+                                       true_mk, anc)
         n = pol.num_in_system(state).to(torch.float32)
         in_w = float(t >= warmup)
         n_meas = n_meas + in_w
@@ -174,7 +208,8 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
 def _dense_metrics(pol, carry: DenseCarry,
                    lam: torch.Tensor) -> Dict[str, np.ndarray]:
     """(N,) metrics per cell from a final carry: Little's law over the
-    measurement window, as the reference computes it in float32."""
+    measurement window, as the reference computes it in float32; `lam`
+    is each cell's offered rate over the window."""
     state, mean_n, n_meas, compl = carry
     out = {
         "mean_n": mean_n,
@@ -194,22 +229,28 @@ def _as_numpy(x) -> np.ndarray:
 
 
 def _dense_run(policy, cfg: SimConfig, cells: Sequence[Tuple[int, float]],
-               est_cells: np.ndarray, device,
-               rng: DenseSource = None) -> Dict[str, np.ndarray]:
+               est_cells: np.ndarray, device, rng: DenseSource = None,
+               scenario=None) -> Dict[str, np.ndarray]:
     """Runs the cells ``[(seed, lam), ...]`` with (N, M, K) estimates as
-    one batch; returns (N,) metric arrays."""
+    one batch under `scenario`; returns (N,) metric arrays."""
     dev = resolve_device(device)
     est = torch.as_tensor(est_cells, device=dev).contiguous()
-    pol, init, step = _build_dense_step(policy, cfg, est, dev)
+    sched = wl.compile_schedule(wl.make_scenario(scenario), cfg.topo,
+                                cfg.horizon, cfg.p_hot, device=dev)
+    pol, init, step = _build_dense_step(policy, cfg, est, dev, sched)
     if rng is None:
         rng = DenseDeviceSource(cells, pol.draw_plan(cfg.topo.num_servers),
-                                cfg.max_arrivals, cfg.topo.num_servers, dev)
+                                cfg.max_arrivals, cfg.topo.num_servers, dev,
+                                sched)
     carry = init()
     for t in range(cfg.horizon):
         carry = step(carry, t, rng.slot(t))
     lam = torch.tensor([lam for _, lam in cells], dtype=torch.float32,
                        device=dev)
-    return _dense_metrics(pol, carry, lam)
+    # Little's law over the window: the offered rate is lam_total x the
+    # window's mean arrival multiplier (1.0 for the static scenario)
+    lam_scale = wl.mean_lam_mult_over(sched, cfg.warmup, cfg.horizon)
+    return _dense_metrics(pol, carry, lam * lam_scale)
 
 
 def _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
@@ -256,7 +297,7 @@ def simulate(policy, cfg: SimConfig, lam_total: float, est, seed: int = 0,
         return fleet_sim.fleet_simulate(policy, cfg, lam_total, est, seed,
                                         fleet, device=device, rng=rng)
     out = _dense_run(policy, cfg, [(int(seed), np.float32(lam_total))],
-                     _as_numpy(est)[None], device, rng)
+                     _as_numpy(est)[None], device, rng, scenario)
     return {k: float(v[0]) for k, v in out.items()}
 
 
@@ -286,5 +327,6 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
     grid = [(lam, e, s) for lam in lam_grid
             for e in range(shape[1]) for s in seeds]
     out = _dense_run(policy, cfg, [(s, lam) for lam, _, s in grid],
-                     est_stack[[e for _, e, _ in grid]], device, rng)
+                     est_stack[[e for _, e, _ in grid]], device, rng,
+                     scenario)
     return {k: v.reshape(shape) for k, v in out.items()}

@@ -8,7 +8,7 @@ values (q and k upcast before the product, as the reference's
 ``preferred_element_type=float32``); probabilities are rounded to the
 value dtype before the second product, as there.
 
-What waits (ROADMAP Queue 1 item 13): `moe_mlp`, `cross_attention`,
+What waits (the model-stack slice of the port): `moe_mlp`, `cross_attention`,
 `encode_cross_kv`, and the mesh `ctx` (sharding constraints, GQA-expanded
 caches, aligned in-place cache writes) — one card needs no mesh.
 """

@@ -15,7 +15,8 @@ of tensors.  Two views:
                        two models compute the same function).
 
 Dense attention and Mamba-2 layers are declared: MoE, cross-attention
-and learned positions wait for their layers (ROADMAP Queue 1 item 13).
+and learned positions wait for their layers (the model-stack slice of
+the port).
 """
 
 from __future__ import annotations
@@ -106,11 +107,12 @@ def check_supported(cfg: ModelConfig) -> None:
             if sl.kind not in ("attn", "mamba") or sl.moe or sl.cross:
                 raise NotImplementedError(
                     f"{cfg.name}: layer {sl} needs MoE or cross-attention, "
-                    f"not ported yet (ROADMAP Queue 1 item 13)")
+                    f"not ported yet (the model-stack slice of the port)")
     if cfg.enc_stages or cfg.learned_pos or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoders, learned positions and modality "
-            f"frontends are not ported yet (ROADMAP Queue 1 item 13)")
+            f"frontends are not ported yet (the model-stack slice of the "
+            f"port)")
 
 
 def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:

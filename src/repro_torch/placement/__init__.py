@@ -1,7 +1,7 @@
 """Replica placement of the port (counterpart of `repro.placement`):
 the host-side uniform rendezvous placement the serving engine uses by
 default.  The other placements (hdfs, spread, hot_aware), the simulator
-samplers and the capacity LP wait for ROADMAP Queue 1 item 8."""
+samplers and the capacity LP come with the placement slice of the port."""
 
 from repro_torch.placement.policies import (  # noqa: F401
     UniformPlacement,

@@ -47,12 +47,12 @@ class UniformPlacement:
 
 def make_placement(spec=None) -> UniformPlacement:
     """None or "uniform" (or a `UniformPlacement`) -> the uniform
-    placement; anything else raises until ROADMAP Queue 1 item 8 ports
-    the other placements."""
+    placement; anything else raises until the placement slice of the port
+    adds the other placements."""
     if spec is None or spec == "uniform":
         return UniformPlacement()
     if isinstance(spec, UniformPlacement):
         return spec
     raise NotImplementedError(
-        f"placement {spec!r} is not ported yet: only 'uniform' is "
-        f"(ROADMAP Queue 1 item 8)")
+        f"placement {spec!r} is not ported yet: only 'uniform' is; the "
+        f"others come with the placement slice of the port")

@@ -21,10 +21,17 @@ SSM caches with per-slot lengths.  Any router registered in
 `core/policy.py` is selectable by name (`EngineConfig.scheduler`).  All
 replicas share one parameter tree.
 
-Ported so far: scenario None/"static" (every slowdown 1.0), placement
-None/"uniform", replication None/"fixed", no control plane and no event
-tracer.  The other settings raise `NotImplementedError` naming their
-ROADMAP Queue 1 item.
+Scenarios (`EngineConfig.scenario`, `repro_torch.workloads`): the engine
+plays the scenario back on its step clock (`HostPlayback`, one cycle every
+``scenario_horizon`` steps) and inflates every observed prefill time by
+the playback's slowdown of that replica and tier, so stragglers and
+congested tiers open and close during a run and the router's EWMA sees
+them.  A scenario with a failure track (``server_loss``, ``rack_loss``)
+raises `NotImplementedError`: the reference runs it through its
+replication machinery, which comes with the replication slice of the
+port.  Ported so far besides: placement None/"uniform", replication
+None/"fixed", no control plane and no event tracer; the other settings
+raise `NotImplementedError` naming the slice of the port that adds them.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.placement import make_placement
 from repro_torch.telemetry import percentiles_from_hist
+from repro_torch.workloads import host_playback, make_scenario
 
 
 @dataclasses.dataclass
@@ -81,11 +89,13 @@ class EngineConfig:
     topology: Optional[Topology] = None
     tier_rates: Optional[Sequence[float]] = None
     seed: int = 0
-    # The reference's seams, kept with their defaults; the port supports
-    # only these defaults so far (see `_check_supported`), under which
-    # `scenario_horizon`, `rebalance_every` and `num_prefixes` do nothing.
+    # The reference's seams, kept with their defaults.  `scenario` (name /
+    # ScenarioConfig / Scenario; None -> static) is played back over
+    # `scenario_horizon` engine steps a cycle; the others support only
+    # their defaults so far (see `_check_supported`), under which
+    # `rebalance_every` and `num_prefixes` do nothing.
     scenario: object = None
-    scenario_horizon: int = 400
+    scenario_horizon: int = 400  # engine steps per playback cycle
     placement: object = None
     rebalance_every: int = 0
     replication: object = None
@@ -99,19 +109,20 @@ class EngineConfig:
 
 
 def _check_supported(ecfg: EngineConfig) -> None:
-    """Raise for a seam the port has not ported yet."""
+    """Raise for a seam the port has not ported yet, naming the slice of
+    the port that adds it."""
     unported = (
-        ("scenario", ecfg.scenario not in (None, "static"), 7),
-        ("placement", ecfg.placement not in (None, "uniform"), 8),
-        ("replication", ecfg.replication not in (None, "fixed"), 9),
-        ("tracer", ecfg.tracer is not None, 10),
-        ("control", ecfg.control is not None, 11),
+        ("placement", ecfg.placement not in (None, "uniform"), "placement"),
+        ("replication", ecfg.replication not in (None, "fixed"),
+         "replication"),
+        ("tracer", ecfg.tracer is not None, "telemetry"),
+        ("control", ecfg.control is not None, "control"),
     )
-    for name, bad, item in unported:
+    for name, bad, slice_name in unported:
         if bad:
             raise NotImplementedError(
-                f"EngineConfig.{name}={getattr(ecfg, name)!r} is not "
-                f"ported yet (ROADMAP Queue 1 item {item})")
+                f"EngineConfig.{name}={getattr(ecfg, name)!r} comes with "
+                f"the {slice_name} slice of the port")
 
 
 class Replica:
@@ -227,6 +238,19 @@ class ServingEngine:
         self.router = make_router(ecfg.scheduler, self.spec, prior,
                                   estimator=self.estimator, seed=ecfg.seed)
         self.placement = make_placement(ecfg.placement)
+        # One scenario seam for every scheduler: the playback inflates the
+        # observed service times the estimator sees, like the static
+        # `slow_replicas` dict but time-varying (stragglers open and close).
+        self.playback = host_playback(make_scenario(ecfg.scenario),
+                                      n_rep, float(ecfg.scenario_horizon),
+                                      num_tiers=self.spec.num_tiers,
+                                      rack_of=np.asarray(self.spec.rack_of))
+        if self.playback.alive is not None:
+            raise NotImplementedError(
+                f"EngineConfig.scenario={ecfg.scenario!r} has a failure "
+                f"track (down_servers / down_racks), which runs through the "
+                f"replication machinery: it comes with the replication "
+                f"slice of the port")
         self.replicas = [Replica(cfg, params, ecfg, self.device)
                          for _ in range(n_rep)]
         self.queue: deque = deque()            # not-yet-routed arrivals
@@ -300,8 +324,11 @@ class ServingEngine:
                 t0 = time.monotonic()
                 rep.admit(req)
                 # wall clock of the prefill (it ends in a host read of the
-                # first token), scaled by a configured slowdown
-                elapsed = (time.monotonic() - t0) * self.slow.get(i, 1.0)
+                # first token), scaled by a configured slowdown and the
+                # scenario's slowdown of this replica and tier at this step
+                slow = self.slow.get(i, 1.0) * self.playback.slowdown(
+                    self.steps, req.replica, req.tier)
+                elapsed = (time.monotonic() - t0) * slow
                 self.router.on_complete(req.replica, req.tier,
                                         max(elapsed, 1e-4))
 

@@ -64,17 +64,26 @@ def _lane_gumbels(key, n, shape):
         jax.random.fold_in(key, i), shape))(jnp.arange(n))
 
 
-@functools.partial(jax.jit, static_argnames=("b", "m"))
-def _arrival_draws(seeds, lams, ts, b, m):
-    """(T, N) arrival draws of the reference's `sample_arrivals_at`."""
-    def one(seed, lam, t):
+@functools.partial(jax.jit, static_argnames=("b", "m", "racks"))
+def _arrival_draws(seeds, lams, ts, lam_mult, b, m, racks=0):
+    """(T, N) arrival draws of the reference's `sample_arrivals_at` at the
+    slot's rate ``lam * lam_mult[t]`` (float32, the reference's order);
+    with ``racks`` > 0 the weighted path's three-way split of k_t and the
+    (B, racks) Gumbels its ``categorical`` draws the hot racks from."""
+    def one(seed, lam, t, mult):
         k_n, k_t = jax.random.split(_slot_keys(seed, t)[0])
-        k_hot, k_gum = jax.random.split(k_t)
-        return dict(n=jnp.minimum(jax.random.poisson(k_n, lam), b),
-                    u_hot=jax.random.uniform(k_hot, (b,)),
-                    g_type=jax.random.gumbel(k_gum, (b, m)))
-    return jax.vmap(jax.vmap(one, (0, 0, None)), (None, None, 0))(
-        seeds, lams, ts)
+        if racks:
+            k_hot, k_rack, k_gum = jax.random.split(k_t, 3)
+        else:
+            k_hot, k_gum = jax.random.split(k_t)
+        out = dict(n=jnp.minimum(jax.random.poisson(k_n, lam * mult), b),
+                   u_hot=jax.random.uniform(k_hot, (b,)),
+                   g_type=jax.random.gumbel(k_gum, (b, m)))
+        if racks:
+            out["g_rack"] = jax.random.gumbel(k_rack, (b, racks))
+        return out
+    return jax.vmap(jax.vmap(one, (0, 0, None, None)), (None, None, 0, 0))(
+        seeds, lams, ts, lam_mult)
 
 
 @functools.partial(jax.jit, static_argnames=("family", "b", "m", "d"))
@@ -118,14 +127,22 @@ class JaxDenseReplay(DenseSource):
     random tie-breaks as their Gumbels, choices and permutations as
     indices.  Every slot up to `horizon` is drawn at construction; build
     it inside ``jax.threefry_partitionable(False)`` to get the key layout
-    the older pins were recorded with."""
+    the older pins were recorded with.
+
+    Under a scenario, `lam_mult` is the (horizon,) float32 multiplier in
+    force at each slot (the count is drawn at ``lam * lam_mult[t]``), and
+    `racks` > 0 the rack count of a schedule with per-rack weights (the
+    reference then splits k_t in three: k_hot, k_rack, k_gum)."""
 
     def __init__(self, policy: str, cells, batch: int, num_servers: int,
-                 horizon: int, d: int = 2):
+                 horizon: int, d: int = 2, lam_mult=None, racks: int = 0):
         seeds = jnp.asarray([s for s, _ in cells], jnp.uint32)
         lams = jnp.asarray([lam for _, lam in cells], jnp.float32)
         ts = jnp.arange(horizon, dtype=jnp.int32)
-        out = dict(_arrival_draws(seeds, lams, ts, b=batch, m=num_servers))
+        mult = jnp.ones(horizon, jnp.float32) if lam_mult is None else \
+            jnp.asarray(lam_mult, jnp.float32)
+        out = dict(_arrival_draws(seeds, lams, ts, mult, b=batch,
+                                  m=num_servers, racks=racks))
         out.update(_policy_draws(seeds, ts, family=_FAMILY[policy],
                                  b=batch, m=num_servers, d=d))
         self._all = {k: torch.from_numpy(np.array(v)) for k, v in

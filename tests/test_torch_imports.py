@@ -36,7 +36,9 @@ def test_port_imports_neither_jax_nor_reference():
                  "configs.chatglm3_6b", "configs.gemma2_2b", "core.cluster",
                  "core.estimator", "placement.policies", "telemetry.recorder",
                  "serve.engine", "launch.serve", "models.mamba",
-                 "models.ssm_ops", "kernels.ssd_scan", "configs.mamba2_13b"):
+                 "models.ssm_ops", "kernels.ssd_scan", "configs.mamba2_13b",
+                 "workloads", "workloads.scenario", "workloads.library",
+                 "workloads.trace", "workloads.ingest", "utils.doc"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

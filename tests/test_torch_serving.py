@@ -115,7 +115,7 @@ def test_chunk_replicas_match_reference():
     uniform = place.make_placement(None)
     assert uniform.replicas(loc.Topology(4, 2), 7, 3, 0) == \
         rplace.UniformPlacement().replicas(rloc.Topology(4, 2), 7, 3, 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="placement slice"):
         place.make_placement("hdfs")
 
 
@@ -192,15 +192,71 @@ def test_oversubscribed_engine_drains_on_every_replica(model):
     assert eng.queue_depths.sum() == 0
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("scenario", "stragglers", 7), ("placement", "hdfs", 8),
-    ("replication", "popularity", 9), ("tracer", object(), 10),
-    ("control", "admission", 11)])
-def test_unported_engine_settings_raise(model, field, value, item):
+@pytest.mark.parametrize("field,value,slice_name", [
+    ("scenario", "server_loss", "replication"),
+    ("scenario", "rack_loss", "replication"),
+    ("placement", "hdfs", "placement"),
+    ("replication", "popularity", "replication"),
+    ("tracer", object(), "telemetry"), ("control", "admission", "control")])
+def test_unported_engine_settings_raise(model, field, value, slice_name):
     _, _, cfg, prm = model
     ecfg = EngineConfig(**dict(ECFG, **{field: value}))
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    with pytest.raises(NotImplementedError,
+                       match=f"the {slice_name} slice of the port"):
         ServingEngine(cfg, prm, ecfg, device="cpu")
+
+
+def test_scenario_slowdowns_reach_the_router(model, monkeypatch):
+    """Under "stragglers" every observed prefill time is the base time x
+    the reference playback's slowdown of that replica and tier at that
+    step.  A stubbed clock makes the base exactly 1.0; the submissions
+    are timed by the scenario's arrival plan (`arrival_steps`), as the
+    reference's serving bench times them, so admissions fall inside the
+    straggler window."""
+    from repro import workloads as rwl
+    from repro_torch import workloads as wl
+    from repro_torch.serve import engine as engine_mod
+    _, _, cfg, prm = model
+    horizon = 24
+    ticks = iter(range(1 << 30))
+
+    class Clock:   # each read half a second after the last
+        @staticmethod
+        def monotonic():
+            return 0.5 * next(ticks)
+
+    monkeypatch.setattr(engine_mod, "time", Clock)
+    eng = ServingEngine(cfg, prm, EngineConfig(**dict(
+        ECFG, scenario="stragglers", scenario_horizon=horizon)),
+        device="cpu")
+    seen = []
+    on_complete = eng.router.on_complete
+
+    def record(replica, tier, elapsed):
+        seen.append((eng.steps, replica, tier, elapsed))
+        return on_complete(replica, tier, elapsed)
+
+    eng.router.on_complete = record
+    reqs = _requests(Request, cfg, 12, 6, 3, 5, prefix=lambda i: i % 5)
+    when = wl.arrival_steps(eng.playback, len(reqs), len(reqs) / horizon)
+    nxt = 0
+    while any(r.finish_time == 0.0 for r in reqs):
+        while nxt < len(reqs) and when[nxt] <= eng.steps:
+            eng.submit(reqs[nxt])
+            nxt += 1
+        eng.step()
+        assert eng.steps < 200
+    spec = eng.spec
+    want = rwl.host_playback(rwl.make_scenario("stragglers"),
+                             spec.num_servers, float(horizon),
+                             num_tiers=spec.num_tiers,
+                             rack_of=np.asarray(spec.rack_of))
+    assert len(seen) == len(reqs)
+    for step, replica, tier, elapsed in seen:
+        assert elapsed == 1.0 * want.slowdown(step, replica, tier)
+    slowed = [s for s in seen if s[3] == 4.0]
+    assert slowed and all(s[1] in (0, 1) and 6 <= s[0] < 18 for s in slowed)
+    assert any(s[3] == 1.0 for s in seen)
 
 
 def test_engine_defaults_match_reference():

@@ -125,7 +125,8 @@ def test_engage_rule_matches_reference():
 def test_unported_paths_raise_naming_their_slice():
     _, cfg = _small()
     est = sim.make_estimates(cfg, "network", 0.0, -1)
-    for kw, slice_name in (({"scenario": "server_loss"}, "workloads"),
+    for kw, slice_name in (({"scenario": "server_loss"}, "replication"),
+                           ({"scenario": "rack_loss"}, "replication"),
                            ({"placement": "hdfs"}, "placement"),
                            ({"replication": "repair"}, "replication"),
                            ({"telemetry": True}, "telemetry"),
