@@ -163,7 +163,36 @@ on failure:
    one admission is observed at a slowdown of 4.0, every such one on
    replicas 0-1 inside the window (the playback wraps every H steps);
    tokens/s beside phase 9's, the
-   routed counts per replica and the tier mix.
+   routed counts per replica and the tier mix;
+13. the placement slice.  (a, run after 12a) the placement study
+   (examples/placement_study.py: `placement_study` over the four
+   PLACEMENTS x the three PLACEMENT_POLICIES under static and
+   rack_congestion, Topology(24, 6), load 0.7 x the uniform static
+   capacity, seeds 0-7, depth cut to horizon 400 / warmup 100 from
+   8000 / 2000), counts set to 0 before and read after (no kernel on the
+   dense path); its table, each placement's fluid capacity (the LP over
+   2000 types sampled on the card), each sweep's seconds and
+   cell-slots/s; fatal: a delay not finite, a static throughput in any
+   seed under 0.9 x lam, the uniform Balanced-PANDAS sweep unequal to
+   the same sweep without a placement in any metric, a host sync in the
+   slot loop under hdfs, spread and hot_aware (sync debug mode "error";
+   Balanced-PANDAS static, JSQ-MaxWeight under per-rack weights), or a
+   rack-aware placement's static Balanced-PANDAS delay not below
+   uniform's; a profiled window of 8 Balanced-PANDAS slots under each
+   placement (launches a slot, busy share).  (b, run after 12b)
+   chatglm3-6b at full width through the same engine, defaults and 16
+   requests under each of `SERVE_PLACEMENTS` (hdfs, spread, and
+   hot_aware with hot_frac 0.5), rebalanced every 4 routed requests,
+   counts set to 0 before each run and read after: fatal unless every
+   request drains with 17 tokens, flash_attention = 28 x prefills,
+   logits finite, 16 requests routed, and hot_aware's rebalance moved a
+   chunk; tokens/s, routed counts per replica and the tier mix beside
+   phase 9's.  (c, run after 13a) types drawn on the card by each
+   non-uniform placement's sampler through `ops.wwl_route` and, as queue
+   lengths, `ops.maxweight_claim` at Topology(24, (4, 12)), B = 9, and
+   the fleet shape (M = 10008, B = 5474, D = 1), each call bit for bit
+   against its plain version on the group-restricted path, with the
+   racks each task's replicas span.
 
 Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1434,6 +1463,228 @@ def phase_drift(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The placement slice: the placement study on the dense path (phase 13a)
+# and placement-sampled types through the scheduling kernels (phase 13c)
+# ---------------------------------------------------------------------------
+
+# examples/placement_study.py's study (Topology(24, 6), load 0.7, the four
+# PLACEMENTS x the three PLACEMENT_POLICIES), under the scenarios static
+# and rack_congestion, its depth cut from 8000 / 2000 slots (to 400 / 100
+# from 500 / 125 to hold the phase near 120 s)
+PLACE_HORIZON, PLACE_WARMUP = 400, 100
+PLACE_SEEDS = tuple(range(8))
+PLACE_LOAD = 0.7
+PLACE_SCENARIOS = ("static", "rack_congestion")
+PLACE_NONDEFAULT = ("hdfs", "spread", "hot_aware")
+
+
+def phase_placement(dev) -> dict:
+    """Phase 13a: `placement_study` on the card, each sweep timed, launch
+    counts 0 before and after (the dense path runs no kernel); the
+    uniform Balanced-PANDAS sweep against the same sweep without a
+    placement, every metric bit for bit; the slot loop of each non-uniform
+    placement free of host syncs, static and under per-rack weights; a
+    profiled window of the Balanced-PANDAS slot under each placement.
+    Fatal: a delay not finite, a throughput in any static seed under 0.9
+    x lam, uniform unequal to no placement, a host sync, or a rack-aware
+    placement's static Balanced-PANDAS delay not below uniform's."""
+    from repro_torch import workloads as wl
+    from repro_torch.core import robustness as rb, simulator as sim
+    from repro_torch.core.policy import make_policy
+    from repro_torch.core.rng import DenseDeviceSource
+    from repro_torch.placement import make_placement
+
+    cfg = rb.StudyConfig(sim=sim.default_config(horizon=PLACE_HORIZON,
+                                                warmup=PLACE_WARMUP),
+                         seeds=PLACE_SEEDS)
+    scfg = cfg.sim
+    runs, sweep = {}, sim.sweep
+
+    def timed_sweep(policy, *args, scenario=None, placement=None, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep(policy, *args, scenario=scenario, placement=placement,
+                    **kw)
+        torch.cuda.synchronize()
+        name = getattr(policy, "name", policy)
+        runs[(placement, scenario, name)] = (time.perf_counter() - t0, out)
+        return out
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(sim, "sweep", timed_sweep):
+        study = rb.placement_study(cfg, rb.PLACEMENTS, rb.PLACEMENT_POLICIES,
+                                   PLACE_SCENARIOS, load=PLACE_LOAD,
+                                   device=dev)
+    wall = time.perf_counter() - t0
+    _check_counts("placement study", {})
+    print(rb.summarize_placement(study), flush=True)
+    cells = len(PLACE_SEEDS)
+    rates = {f"{plc}/{scen}/{pol}": dict(
+        wall_s=sec, cell_slots_per_s=cells * PLACE_HORIZON / sec)
+        for (plc, scen, pol), (sec, _) in runs.items()}
+    sweep_s = sum(sec for sec, _ in runs.values())
+    print(f"phase 13a, placement study sweeps: {json.dumps(rates)}",
+          flush=True)
+    print(f"phase 13a, fluid capacities: {json.dumps(study['capacity'])} "
+          f"(uniform closed form {study['capacity_uniform']}); {wall:.1f} s "
+          f"for {len(runs)} sweeps of {cells} cells x {PLACE_HORIZON} slots "
+          f"({sweep_s:.1f} s in the sweeps)", flush=True)
+
+    lam = float(np.float32(PLACE_LOAD) * np.float32(study["capacity_uniform"]))
+    gates = {}
+    for (plc, scen, pol), (_, out) in runs.items():
+        d, thru = out["mean_delay"], float(out["throughput"].min())
+        if not np.isfinite(d).all():
+            raise AssertionError(f"placement {plc}/{scen}/{pol}: delay not "
+                                 f"finite: {d}")
+        if scen == "static":
+            gates[f"{plc}/{pol}"] = dict(min_throughput=thru,
+                                         floor=0.9 * lam)
+            if thru < 0.9 * lam:
+                raise AssertionError(f"placement {plc}/{pol}: static "
+                                     f"throughput {thru} under {0.9 * lam}")
+    delay = {plc: float(study["delay"][plc]["static"]["balanced_pandas"]
+                        .mean()) for plc in rb.PLACEMENTS}
+    print(f"phase 13a, throughput gates: {json.dumps(gates)}; static "
+          f"Balanced-PANDAS delays {json.dumps(delay)}", flush=True)
+    worse = [p for p in PLACE_NONDEFAULT if not delay[p] < delay["uniform"]]
+    if worse:
+        raise AssertionError(f"static Balanced-PANDAS on {worse} not below "
+                             f"uniform's {delay['uniform']}: {delay}")
+
+    # "uniform" is the run without a placement, bit for bit
+    _, unif = runs[("uniform", "static", "balanced_pandas")]
+    est = sim.make_estimates(scfg, "network", 0.0, -1)[None]
+    none = sweep("balanced_pandas", scfg,
+                 np.asarray([PLACE_LOAD], np.float32)
+                 * study["capacity_uniform"], est,
+                 np.asarray(PLACE_SEEDS), device=dev)
+    if set(none) != set(unif) or any(
+            not np.array_equal(none[k], unif[k]) for k in none):
+        raise AssertionError("the uniform placement differs from the run "
+                             "without a placement")
+    print("phase 13a: placement uniform equals no placement bit for bit "
+          f"({sorted(none)})", flush=True)
+
+    # no host sync in any placement's slot loop, static and weighted
+    weighted = wl.Scenario("weighted", (
+        wl.Segment(0.0),
+        wl.Segment(0.3, lam_mult=1.2, rack_weights=(4.0, 1.0, 0.0, 2.0),
+                   tier_mult=(1.0, 0.7, 0.5))))
+    m = scfg.topo.num_servers
+    cells_l = [(s, np.float32(lam)) for s in PLACE_SEEDS]
+    est_t = torch.as_tensor(np.repeat(est, len(cells_l), 0), device=dev)
+
+    def build(name, scen, plc):
+        sched = wl.compile_schedule(wl.make_scenario(scen), scfg.topo,
+                                    PLACE_HORIZON, scfg.p_hot, device=dev)
+        _, init, step = sim._build_dense_step(name, scfg, est_t, dev, sched,
+                                              plc)
+        src = DenseDeviceSource(cells_l, make_policy(name).draw_plan(m),
+                                scfg.max_arrivals, m, dev, sched,
+                                make_placement(plc).gumbel_blocks(scfg.topo))
+        return init(), step, src
+
+    for plc in PLACE_NONDEFAULT:
+        for name, scen in (("balanced_pandas", "static"),
+                           ("jsq_maxweight", weighted)):
+            carry, step, src = build(name, scen, plc)
+            _no_sync(step, carry, src.slot, 24)
+    print("phase 13a: no host sync in 23 slots of the slot loop under "
+          f"{PLACE_NONDEFAULT} (Balanced-PANDAS static, JSQ-MaxWeight under "
+          "per-rack weights)", flush=True)
+
+    # a profiled window of the Balanced-PANDAS slot under each placement,
+    # 8 slots each: the profiler's processing of a window's events, not
+    # the slots, sets the phase's time
+    windows = {}
+    for plc in rb.PLACEMENTS:
+        carry, step, src = build("balanced_pandas", "static", plc)
+        t = 0
+
+        def one():
+            nonlocal carry, t
+            carry = step(carry, t, src.slot(t))
+            t += 1
+
+        for _ in range(8):
+            one()
+        windows[plc] = _profile_window(dev, one, 8)
+    print(f"phase 13a, profiled windows of the Balanced-PANDAS slot: "
+          f"{json.dumps(windows)}", flush=True)
+    return dict(wall_s=wall, sweeps=rates, capacity=study["capacity"],
+                delay_static_bp=delay, windows=windows)
+
+
+# (name, topology, batch) of phase 13c: the reference test's K=4 shape and
+# the fleet shape at depth 1
+PLACE_KERNEL_SHAPES = (("24x(4,12)", (24, (4, 12)), 9),
+                       ("fleet D=1", (M_FLEET, 6), B_FLEET))
+PLACE_KERNEL_RATES = {3: (0.5, 0.45, 0.25), 4: (0.5, 0.45, 0.35, 0.25)}
+
+
+def phase_placement_kernels(dev) -> dict:
+    """Phase 13c (tests/test_placement.py's placement-sampled types
+    through both kernels, on the card): types drawn on the card by each
+    non-uniform placement's sampler go through `ops.wwl_route` and, as
+    the queue lengths (each server's replica count), `ops.maxweight_claim`
+    at `PLACE_KERNEL_SHAPES`, each call held bit for bit against its plain
+    version on the group-restricted path; the racks a task's replicas
+    span are recorded.  Fatal: a mismatch, a call on another path."""
+    from repro_torch.core import locality as loc
+    from repro_torch.kernels import ops, ref
+    from repro_torch.placement import sample_placement_types
+
+    rng = np.random.default_rng(13)
+    rows, bad = {}, {"wwl_route": 0, "maxweight_claim": 0}
+    for shape, (m, groups), b in PLACE_KERNEL_SHAPES:
+        topo = loc.Topology(m, groups)
+        k = topo.num_tiers
+        anc_np = np.array(topo.ancestors, np.int32)
+        anc = torch.as_tensor(anc_np, device=dev)
+        rates = PLACE_KERNEL_RATES[k]
+        for name in PLACE_NONDEFAULT:
+            t0 = time.perf_counter()
+            types = sample_placement_types(topo, name, 0.5, b, seed=21,
+                                           device=dev)
+            sample_s = time.perf_counter() - t0
+            span = np.bincount([len(set(anc_np[0, row])) for row in types],
+                               minlength=4)[1:].tolist()
+            wlv = rng.uniform(0, 50, m).astype(np.float32)
+            er = (np.tile(rates, (m, 1))
+                  * rng.uniform(0.8, 1.2, (m, k))).astype(np.float32)
+            args = [torch.as_tensor(x, device=dev)
+                    for x in (wlv, er, anc_np, types)]
+            w_bad, w_err, _ = _checked_call("wwl_route", ops.wwl_route,
+                                            ref.wwl_route, args, "group")
+            q = np.bincount(types.ravel(), minlength=m).astype(np.float32)
+            ids = rng.choice(m, b, replace=False).astype(np.int32)
+            er2 = (np.tile(rates, (b, 1))
+                   * rng.uniform(0.8, 1.2, (b, k))).astype(np.float32)
+            args = [torch.as_tensor(q, device=dev), anc,
+                    torch.as_tensor(ids, device=dev),
+                    anc[:, torch.as_tensor(ids, device=dev)],
+                    torch.as_tensor(er2, device=dev)]
+            q_bad, q_err, _ = _checked_call("maxweight_claim",
+                                            ops.maxweight_claim,
+                                            ref.maxweight_claim, args,
+                                            "group")
+            bad["wwl_route"] += w_bad
+            bad["maxweight_claim"] += q_bad
+            rows[f"{shape}/{name}"] = dict(
+                m=m, batch=b, racks_spanned_1_2_3=span, sample_s=sample_s,
+                wwl_mismatches=w_bad, wwl_max_abs_err=w_err,
+                maxweight_mismatches=q_bad, maxweight_max_abs_err=q_err)
+            print(f"phase 13c, {shape} {name}: "
+                  f"{json.dumps(rows[f'{shape}/{name}'])}", flush=True)
+    if any(bad.values()):
+        raise AssertionError(f"placement-sampled types: kernels disagree "
+                             f"with their plain versions: {bad}")
+    return dict(rows=rows, mismatches=bad)
+
+
+# ---------------------------------------------------------------------------
 # flash_attention and the serving slice (chatglm3-6b at full width)
 # ---------------------------------------------------------------------------
 
@@ -2271,6 +2522,9 @@ def phase_serving(dev, arch=SERVE_ARCH):
     print(f"serving run {cfg.name}: {json.dumps(run)}", flush=True)
     if arch == SERVE_ARCH:
         run["scenario"] = scenario_serving(dev, cfg, params, run)
+        t0 = time.perf_counter()
+        run["placement"] = placement_serving(dev, cfg, params, run)
+        run["placement_s"] = time.perf_counter() - t0
     if arch == MAMBA_ARCH:
         run["tokens_per_s_tc_vs_recurrent"] = ssd_ab(eng, reqs)
 
@@ -2421,6 +2675,46 @@ def scenario_serving(dev, cfg, params, static_run) -> dict:
                              f"inside steps [{horizon / 4}, "
                              f"{3 * horizon / 4}) mod {horizon}")
     return run
+
+
+# phase 13b's placements: (label, EngineConfig.placement)
+SERVE_PLACEMENTS = (("hdfs", "hdfs"), ("spread", "spread"),
+                    ("hot_aware", ("hot_aware", {"hot_frac": 0.5})))
+SERVE_REBALANCE_EVERY = 4
+
+
+def placement_serving(dev, cfg, params, static_run) -> dict:
+    """Phase 13b: the same engine, defaults and requests as phase 9 under
+    each non-uniform placement (`SERVE_PLACEMENTS`, rebalanced every 4
+    routed requests), counts set to 0 before each and read after.  Fatal:
+    a request not drained with 17 tokens, launches other than 28 x
+    prefills, non-finite logits, a routed count other than 16, no
+    rebalance under hot_aware."""
+    from repro_torch.placement import PlacementConfig
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    out = {}
+    for label, spec in SERVE_PLACEMENTS:
+        plc = spec if isinstance(spec, str) else PlacementConfig(*spec)
+        eng = ServingEngine(cfg, params, EngineConfig(
+            placement=plc, rebalance_every=SERVE_REBALANCE_EVERY),
+            device=dev)
+        reqs = serve_requests(cfg)
+        run = drained_run(dev, SERVE_ARCH, cfg, eng, reqs,
+                          f"{SERVE_ARCH} {label} placement serving")
+        run.update(routed_requests=eng.routed, rebalanced=eng.rebalanced,
+                   static_tokens_per_s=static_run["tokens_per_s"],
+                   static_routed=static_run["routed"],
+                   static_tier_mix=static_run["tier_mix"])
+        print(f"phase 13b, serving {cfg.name} under placement {label}: "
+              f"{json.dumps(run)}", flush=True)
+        if eng.routed != len(reqs):
+            raise AssertionError(f"{label}: {eng.routed} routed for "
+                                 f"{len(reqs)} requests")
+        if label == "hot_aware" and eng.rebalanced == 0:
+            raise AssertionError("hot_aware: no rebalance moved a chunk")
+        out[label] = run
+    return out
 
 
 def attention_fault_reading(dev, cfg, params, ecfg, prompt, logit_tol):
@@ -2743,6 +3037,10 @@ def main(argv=None) -> int:
     done("8")
     phase_drift(dev)
     done("12a")
+    phase_placement(dev)
+    done("13a")
+    place_kernels = phase_placement_kernels(dev)
+    done("13c")
     attn_rows, attn_err, attn_build, attn_f32, probe = phase_attention(
         dev, prev and prev["flash_attention"])
     done("3b")
@@ -2757,6 +3055,7 @@ def main(argv=None) -> int:
     done("11")
     _, launcher_rows = phase_launcher(dev)
     done("10")
+    seconds["13b (within 9+12b)"] = serve_run["placement_s"]
     print(f"phase seconds (build excluded): {json.dumps(seconds)}",
           flush=True)
 
@@ -2804,6 +3103,7 @@ def main(argv=None) -> int:
             "ms": bench["ms"], "plain_ms": bench["plain_ms"],
             "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
             "library_ms": None, "device_ms": bench["device_ms"],
+            "placement_mismatches": place_kernels["mismatches"][name],
             "device_ms_by_kernel": bench["device_ms_by_kernel"],
             "kernels_a_call": bench["kernels_a_call"],
             "prev_ms": bench["prev_ms"],
@@ -2820,6 +3120,9 @@ def main(argv=None) -> int:
         "launches": serve_launches["flash_attention"],
         "scenario_launches": serve_run["scenario"]["launches"][
             "flash_attention"],
+        "placement_launches": {
+            label: run["launches"]["flash_attention"]
+            for label, run in serve_run["placement"].items()},
         "max_abs_err": attn_err,
         "ms": main_attn["ms"], "plain_ms": main_attn["plain_ms"],
         "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],

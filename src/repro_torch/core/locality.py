@@ -430,15 +430,28 @@ def sample_task_types_at(u_hot: torch.Tensor, gumbel: torch.Tensor,
 def sample_arrivals_at(n: torch.Tensor, u_hot: torch.Tensor,
                        gumbel: torch.Tensor, rack_of: torch.Tensor, p_hot,
                        hot_rack=0, rack_weights: Optional[torch.Tensor] = None,
-                       g_rack: Optional[torch.Tensor] = None):
+                       g_rack: Optional[torch.Tensor] = None,
+                       type_sampler=None,
+                       g_place: Optional[torch.Tensor] = None):
     """One slot of arrivals under the slot's knobs: (types (..., B, 3)
     int32, active (..., B) bool).  `n` (...) is the truncated-Poisson
     count of the slot, drawn by the seam at the slot's rate; lanes
-    ``b < n`` are active."""
+    ``b < n`` are active.
+
+    `type_sampler` is the replica-placement seam (`repro_torch.placement`):
+    a compiled ``sample(u_hot, gumbel, p_hot, hot_rack, rack_weights,
+    g_rack, g_place)`` that replaces the default i.i.d.-uniform draw,
+    reading the placement's Gumbel blocks `g_place`.  The count is the
+    same either way, so every placement sees the same offered traffic."""
     batch = u_hot.shape[-1]
     active = torch.arange(batch, device=u_hot.device) < n[..., None]
-    return sample_task_types_at(u_hot, gumbel, rack_of, p_hot, hot_rack,
-                                rack_weights, g_rack), active
+    if type_sampler is None:
+        types = sample_task_types_at(u_hot, gumbel, rack_of, p_hot, hot_rack,
+                                     rack_weights, g_rack)
+    else:
+        types = type_sampler(u_hot, gumbel, p_hot, hot_rack, rack_weights,
+                             g_rack, g_place)
+    return types, active
 
 
 def random_argmin(gumbel: torch.Tensor, score: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,14 @@ segment index; the single uniform and the properties stay.  When the
 schedule has per-rack arrival weights (a Python-level fact) the
 arrival block grows by the rack Gumbels, (B, R) a cell at its end;
 weight-free runs keep their block layout and sample paths bit for bit.
+
+Under a replica placement that draws Gumbels of its own (``hdfs`` and
+``spread``: `PlacementPolicy.gumbel_blocks`, three (B, M) blocks, one a
+replica) the arrival block grows by those blocks after the rack
+Gumbels.  Counts, hot uniforms, type and rack Gumbels keep their places,
+so every placement sees the same offered traffic, and policy draws never
+advance the arrival generator; ``uniform`` and ``hot_aware`` draw nothing
+more, and ``uniform`` is the run without a placement bit for bit.
 """
 
 from __future__ import annotations
@@ -199,6 +207,7 @@ class DenseDraws(NamedTuple):
     perm: Optional[torch.Tensor]      # (N, M) int64 permutation
     claim: Optional[torch.Tensor]     # (N, M, M) Gumbels
     g_rack: Optional[torch.Tensor] = None  # (N, B, R) rack Gumbels
+    g_place: Optional[torch.Tensor] = None  # (N, P, B, M) placement Gumbels
 
 
 class DenseSource(abc.ABC):
@@ -219,10 +228,13 @@ class DenseDeviceSource(DenseSource):
     """Draws for the cells ``[(seed, lam), ...]`` from seeded generators
     on `device`: per distinct seed, one generator for the arrivals and
     one for the policy (see the module docstring).  `sched` is the run's
-    compiled scenario (`workloads.Schedule`), None for the static one."""
+    compiled scenario (`workloads.Schedule`), None for the static one;
+    `place_blocks` the (B, M) Gumbel blocks the run's placement draws
+    (`PlacementPolicy.gumbel_blocks`)."""
 
     def __init__(self, cells: Sequence[Tuple[int, float]], plan: DrawPlan,
-                 batch: int, num_servers: int, device, sched=None):
+                 batch: int, num_servers: int, device, sched=None,
+                 place_blocks: int = 0):
         dev = self.device = torch.device(device)
         self.arr_gens, self.cell_seed = _seed_generators(cells, dev, 2, 0)
         self.pol_gens, _ = _seed_generators(cells, dev, 2, 1)
@@ -240,14 +252,15 @@ class DenseDeviceSource(DenseSource):
         b, m = batch, num_servers
         self.n_rack = (0 if sched is None or sched.rack_weights is None
                        else b * sched.rack_weights.shape[-1])
+        self.place_blocks = place_blocks
         # per-slot block layout: arrivals [u_n | u_hot | type Gumbels |
-        # rack Gumbels (weighted schedules only)];
+        # rack Gumbels (weighted schedules only) | placement Gumbels];
         # policy [u_serve | route Gumbels | claim Gumbels | perm | cand]
         self.n_route = {"": 0, "locals": b * 3, "servers": b * m}[plan.route]
         self.n_claim = m * m if plan.claim else 0
         self.n_perm = m if plan.perm else 0
         self.n_cand = b * m if plan.cand else 0
-        self.n_arr = 1 + b + b * m + self.n_rack
+        self.n_arr = 1 + b + b * m + self.n_rack + place_blocks * b * m
         self.n_pol = (m + self.n_route + self.n_claim + self.n_perm
                       + self.n_cand)
 
@@ -260,8 +273,11 @@ class DenseDeviceSource(DenseSource):
         n = (cdf <= arr[:, :1].double()).sum(dim=1)
         u_hot = arr[:, 1:1 + b]
         g_type = gumbel(arr[:, 1 + b:1 + b + b * m]).view(-1, b, m)
-        g_rack = (gumbel(arr[:, 1 + b + b * m:]).view(len(arr), b, -1)
+        off = 1 + b + b * m
+        g_rack = (gumbel(arr[:, off:off + self.n_rack]).view(len(arr), b, -1)
                   if self.n_rack else None)
+        g_place = (gumbel(arr[:, off + self.n_rack:]).view(
+            len(arr), self.place_blocks, b, m) if self.place_blocks else None)
         pol = _cell_block(self.pol_gens, self.cell_seed, self.n_pol,
                           self.device)
         u_serve, rest = pol[:, :m], pol[:, m:]
@@ -277,4 +293,4 @@ class DenseDeviceSource(DenseSource):
             keys = rest[:, self.n_perm:].view(nc, b, m)
             cand = torch.topk(keys, plan.cand, dim=-1).indices
         return DenseDraws(n, u_hot, g_type, u_serve, route, cand, perm, claim,
-                          g_rack)
+                          g_rack, g_place)

@@ -20,9 +20,15 @@ the experiment behind the paper's "change of traffic over time in
 addition to estimation errors of processing rates".  Both arms start from
 the exact static rates; the fixed prior never updates, the blind EWMA
 policy (`blind_pandas`) keeps learning, so a blind win is pure
-drift-tracking.  The placement, replication, tail-latency and control
-studies of the reference come with later slices of the port and raise
-until then.
+drift-tracking.
+
+Placement study (`placement_study`): every registered placement x one
+policy a family (full-scan PANDAS, blind EWMA PANDAS, MaxWeight) under
+the scenarios that move locality and network structure, all at one
+offered load (a fraction of the *uniform* static capacity), beside each
+placement's fluid capacity (`repro_torch.placement.placement_capacity`).
+The replication, tail-latency and control studies of the reference come
+with later slices of the port and raise until then.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import numpy as np
 
 from repro_torch.core import locality as loc, simulator as sim
 from repro_torch.core.policy import PolicyConfig, PolicyLike
+from repro_torch.placement import placement_capacity
 from repro_torch.workloads import Scenario, ScenarioConfig, ScenarioLike
 
 EPS_GRID = (0.05, 0.10, 0.15, 0.20, 0.25, 0.30)
@@ -43,6 +50,12 @@ RATE_OBLIVIOUS = ("priority", "fifo")
 # fixed prior is unbeatable (it is exact and never goes stale).
 DRIFT_SCENARIOS = ("static", "diurnal", "flash_crowd", "mmpp", "hot_shift",
                    "stragglers", "rack_congestion")
+# Placement-study grid: every registered placement x one representative
+# policy per family (full-scan PANDAS, blind EWMA PANDAS, MaxWeight)
+# under the two scenarios that move locality/network structure.
+PLACEMENTS = ("uniform", "hdfs", "spread", "hot_aware")
+PLACEMENT_POLICIES = ("balanced_pandas", "blind_pandas", "jsq_maxweight")
+PLACEMENT_SCENARIOS = ("static", "hot_shift", "rack_congestion")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,11 +154,7 @@ def drift_study(cfg: StudyConfig,
     results are keyed by the label either way.  ``device=None`` runs on
     the card.
     """
-    if isinstance(scenarios, Mapping):
-        scen_map: Dict[str, ScenarioLike] = dict(scenarios)
-    else:
-        scen_map = {s.name if isinstance(s, (Scenario, ScenarioConfig))
-                    else str(s): s for s in scenarios}
+    scen_map = _scenario_map(scenarios)
     r = cfg.sim.true_rates
     arms: Dict[str, PolicyLike] = {
         "fixed_prior": "balanced_pandas",
@@ -189,6 +198,88 @@ def summarize_drift(study: Dict) -> str:
     return "\n".join(lines)
 
 
+def _scenario_map(scenarios) -> Dict[str, ScenarioLike]:
+    """``{label: ScenarioLike}`` from a sequence of registered names /
+    scenarios or a mapping."""
+    if isinstance(scenarios, Mapping):
+        return dict(scenarios)
+    return {s.name if isinstance(s, (Scenario, ScenarioConfig))
+            else str(s): s for s in scenarios}
+
+
+def placement_study(cfg: StudyConfig,
+                    placements: Sequence[str] = PLACEMENTS,
+                    policies: Sequence[str] = PLACEMENT_POLICIES,
+                    scenarios: Union[Sequence[str],
+                                     Mapping[str, ScenarioLike]]
+                    = PLACEMENT_SCENARIOS,
+                    load: float = 0.7,
+                    capacity_samples: int = 2000, device=None) -> Dict:
+    """Placement x policy x scenario sweep: what hierarchy-aware replica
+    placement buys each scheduler.
+
+    Every arm runs at the same offered load — `load` x the *uniform*
+    static fluid capacity — so delay deltas across placements are
+    placement effects, not load normalization artifacts.  Per placement
+    the study also records the fluid capacity its replica distribution
+    induces (None without scipy).  Returns
+    delay/throughput/final_n[placement][scenario][policy] arrays of shape
+    (S_seeds,).  ``device=None`` runs on the card.
+    """
+    scen_map = _scenario_map(scenarios)
+    r = cfg.sim.true_rates
+    arms: Dict[str, PolicyLike] = {
+        str(p): (PolicyConfig("blind_pandas", {"prior": r.values})
+                 if p == "blind_pandas" else p)
+        for p in policies}
+    cap = loc.capacity_hot_rack(cfg.sim.topo, r, cfg.sim.p_hot)
+    lam = np.asarray([load], np.float32) * cap
+    seeds = np.asarray(cfg.seeds)
+    est_exact = sim.make_estimates(cfg.sim, "network", 0.0, -1)[None]
+
+    out: Dict = {"capacity_uniform": cap, "load": load,
+                 "placements": tuple(placements), "policies": tuple(arms),
+                 "scenarios": tuple(scen_map),
+                 "capacity": {}, "delay": {}, "throughput": {}, "final_n": {}}
+    for plc in placements:
+        out["capacity"][plc] = placement_capacity(
+            cfg.sim.topo, r, cfg.sim.p_hot, plc,
+            n_samples=capacity_samples, strict=False, device=device)
+        for name in ("delay", "throughput", "final_n"):
+            out[name][plc] = {scen: {} for scen in scen_map}
+        for scen, spec in scen_map.items():
+            for pol, policy in arms.items():
+                res = sim.sweep(policy, cfg.sim, lam, est_exact, seeds,
+                                scenario=spec, placement=plc, device=device)
+                out["delay"][plc][scen][pol] = res["mean_delay"][0, 0]
+                out["throughput"][plc][scen][pol] = res["throughput"][0, 0]
+                out["final_n"][plc][scen][pol] = res["final_n"][0, 0]
+    return out
+
+
+def summarize_placement(study: Dict) -> str:
+    """Human-readable placement-study table (scenario-major, one row per
+    placement; columns are policies)."""
+    pols = list(study["policies"])
+    width = max([10] + [len(p) for p in study["placements"]])
+    lines = [f"load {study['load']:.2f} x uniform static capacity "
+             f"({study['capacity_uniform']:.2f} tasks/slot); "
+             f"cells: mean delay (slots) over seeds"]
+    header = f"{'placement':{width}s} {'fluid_cap':>9s}  " + \
+        "  ".join(f"{p:>15s}" for p in pols)
+    for scen in study["scenarios"]:
+        lines.append(f"-- scenario: {scen}")
+        lines.append(header)
+        for plc in study["placements"]:
+            cap = study["capacity"][plc]
+            cap_s = f"{cap:9.2f}" if cap is not None else f"{'n/a':>9s}"
+            cells = "  ".join(
+                f"{float(study['delay'][plc][scen][p].mean()):15.2f}"
+                for p in pols)
+            lines.append(f"{plc:{width}s} {cap_s}  {cells}")
+    return "\n".join(lines)
+
+
 def _later(study: str, slice_name: str):
     def run(*args, **kwargs):
         raise NotImplementedError(f"the {study} study comes with the "
@@ -199,7 +290,6 @@ def _later(study: str, slice_name: str):
     return run
 
 
-placement_study = _later("placement", "placement")
 replication_study = _later("replication", "replication")
 tail_study = _later("tail", "telemetry")
 control_study = _later("control", "control")

@@ -26,9 +26,20 @@ bit.  A scenario with a failure track (``down_servers``/``down_racks``:
 ``server_loss``, ``rack_loss``, traces with incident windows of that
 kind) raises `NotImplementedError`: the reference runs it through its
 replication machinery, which comes with the replication slice of the
-port.  The fleet path stays static-only, as in the reference.  For any
-other non-default placement/replication/telemetry/control seam, both
-entry points raise `NotImplementedError` naming the slice that adds it.
+port.  The fleet path stays static-only, as in the reference.
+
+Replica placement (`repro_torch.placement`): a name, `PlacementConfig` or
+instance (None -> ``"uniform"``) compiles to the per-task replica
+sampler the arrival stream draws task types from, built once a run and
+called every slot on the draw seam's numbers; a placement that draws
+Gumbels of its own (``hdfs``, ``spread``) widens the arrival block by
+them (`core.rng`), so counts and hot uniforms stay the same under every
+placement.  ``"uniform"`` gives the run without a placement bit for bit.
+The fleet path stays uniform-only, as in the reference: ``fleet=True``
+with another placement raises its ``ValueError``, ``fleet=None`` runs it
+on the dense path.  For any other non-default
+replication/telemetry/control seam, both entry points raise
+`NotImplementedError` naming the slice that adds it.
 
 Mean task completion time is measured via Little's law:
 ``W = mean(N_in_system over measurement window) / (lambda_total x the
@@ -55,9 +66,9 @@ from repro_torch import resolve_device, workloads as wl
 from repro_torch.core import locality as loc
 from repro_torch.core.policy import PolicyLike, make_policy
 from repro_torch.core.rng import DenseDeviceSource, DenseSource
+from repro_torch.placement import make_placement
 # non-default seams and the slice of the port that adds each
-_SEAMS = (("placement", (None, "uniform"), "placement"),
-          ("replication", (None, "fixed"), "replication"),
+_SEAMS = (("replication", (None, "fixed"), "replication"),
           ("telemetry", (None, False), "telemetry"),
           ("control", (None,), "control"))
 
@@ -130,10 +141,8 @@ def _merge_metrics(out: Dict[str, Any], extra: Dict[str, Any],
     out.update(extra)
 
 
-def _check_seams(scenario, placement, replication, telemetry,
-                 control) -> None:
-    given = dict(scenario=scenario, placement=placement,
-                 replication=replication, telemetry=telemetry,
+def _check_seams(scenario, replication, telemetry, control) -> None:
+    given = dict(replication=replication, telemetry=telemetry,
                  control=control)
     for arg, defaults, slice_name in _SEAMS:
         if given[arg] not in defaults:
@@ -154,15 +163,17 @@ DenseCarry = Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
-                      est: torch.Tensor, device, sched=None):
+                      est: torch.Tensor, device, sched=None, placement=None):
     """Returns (policy, init() -> carry, step(carry, t, draws) -> carry)
     for the N cells whose (N, M, K) estimated rates are `est` under the
-    compiled scenario `sched` (None: static): the counterpart of the
-    reference's scan body, one slot per call.  The draws' counts already
-    follow the slot's arrival rate (`core.rng`)."""
+    compiled scenario `sched` (None: static) and `placement` (None:
+    uniform): the counterpart of the reference's scan body, one slot per
+    call.  The draws' counts already follow the slot's arrival rate, and
+    they carry the placement's Gumbel blocks (`core.rng`)."""
     pol = make_policy(policy_like)
     dev = torch.device(device)
     topo = cfg.topo
+    sample_types = make_placement(placement).build_sampler(topo, dev)
     if sched is None:
         sched = wl.compile_schedule(wl.make_scenario(None), topo,
                                     cfg.horizon, cfg.p_hot, device=dev)
@@ -192,7 +203,8 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
         knobs, true_mk = const if const is not None else knobs_at(t)
         types, active = loc.sample_arrivals_at(
             draws.n, draws.u_hot, draws.g_type, rack_of, knobs.p_hot,
-            knobs.hot_rack, knobs.rack_weights, draws.g_rack)
+            knobs.hot_rack, knobs.rack_weights, draws.g_rack,
+            type_sampler=sample_types, g_place=draws.g_place)
         state, compl_t = pol.slot_step(state, draws, types, active, est,
                                        true_mk, anc)
         n = pol.num_in_system(state).to(torch.float32)
@@ -230,18 +242,20 @@ def _as_numpy(x) -> np.ndarray:
 
 def _dense_run(policy, cfg: SimConfig, cells: Sequence[Tuple[int, float]],
                est_cells: np.ndarray, device, rng: DenseSource = None,
-               scenario=None) -> Dict[str, np.ndarray]:
+               scenario=None, placement=None) -> Dict[str, np.ndarray]:
     """Runs the cells ``[(seed, lam), ...]`` with (N, M, K) estimates as
-    one batch under `scenario`; returns (N,) metric arrays."""
+    one batch under `scenario` and `placement`; returns (N,) metric
+    arrays."""
     dev = resolve_device(device)
     est = torch.as_tensor(est_cells, device=dev).contiguous()
     sched = wl.compile_schedule(wl.make_scenario(scenario), cfg.topo,
                                 cfg.horizon, cfg.p_hot, device=dev)
-    pol, init, step = _build_dense_step(policy, cfg, est, dev, sched)
+    plc = make_placement(placement)
+    pol, init, step = _build_dense_step(policy, cfg, est, dev, sched, plc)
     if rng is None:
         rng = DenseDeviceSource(cells, pol.draw_plan(cfg.topo.num_servers),
                                 cfg.max_arrivals, cfg.topo.num_servers, dev,
-                                sched)
+                                sched, plc.gumbel_blocks(cfg.topo))
     carry = init()
     for t in range(cfg.horizon):
         carry = step(carry, t, rng.slot(t))
@@ -290,14 +304,14 @@ def simulate(policy, cfg: SimConfig, lam_total: float, est, seed: int = 0,
     """
     if lam_total < 0:
         raise ValueError(f"lam_total must be >= 0, got {lam_total}")
-    _check_seams(scenario, placement, replication, telemetry, control)
+    _check_seams(scenario, replication, telemetry, control)
     if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
                       telemetry, control):
         from repro_torch.sharding import sim as fleet_sim
         return fleet_sim.fleet_simulate(policy, cfg, lam_total, est, seed,
                                         fleet, device=device, rng=rng)
     out = _dense_run(policy, cfg, [(int(seed), np.float32(lam_total))],
-                     _as_numpy(est)[None], device, rng, scenario)
+                     _as_numpy(est)[None], device, rng, scenario, placement)
     return {k: float(v[0]) for k, v in out.items()}
 
 
@@ -315,7 +329,7 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
     lam_grid = np.asarray(lam_grid, np.float32).reshape(-1)
     if np.any(lam_grid < 0):
         raise ValueError(f"lam_grid must be >= 0, got {lam_grid}")
-    _check_seams(scenario, placement, replication, telemetry, control)
+    _check_seams(scenario, replication, telemetry, control)
     if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
                       telemetry, control):
         from repro_torch.sharding import sim as fleet_sim
@@ -328,5 +342,5 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
             for e in range(shape[1]) for s in seeds]
     out = _dense_run(policy, cfg, [(s, lam) for lam, _, s in grid],
                      est_stack[[e for _, e, _ in grid]], device, rng,
-                     scenario)
+                     scenario, placement)
     return {k: v.reshape(shape) for k, v in out.items()}

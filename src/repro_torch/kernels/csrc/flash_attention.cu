@@ -65,9 +65,12 @@
 // the longest causal query tiles first, with the query heads that share
 // a KV head side by side so their K/V stays in L2.  P in bf16 is the
 // one rounding the Pallas kernel (float32 p) does not make: at most
-// 2^-9 relative a weight.  ptxas spills 32 bytes in one instantiation
-// (D = 256 without softcap): the masks of an edge tile, which it hoists
-// above the product's wait; no other instantiation spills.
+// 2^-9 relative a weight.  ptxas spills 32 bytes in one bf16
+// instantiation (D = 256 without softcap): the masks of an edge tile,
+// which it hoists above the product's wait; no other bf16 instantiation
+// spills.  Of the float32 kernel's (attention_tf32_kernel below), D = 64
+// without softcap spills too: 4 bytes stored, 8 loaded (nvcc 12.8,
+// -Xptxas -v).
 //
 // float32 design (split TF32 on the tensor cores).  The bf16 kernel's
 // block: 384 threads own BQ = 128 query rows of one (batch, head), a

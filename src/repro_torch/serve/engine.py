@@ -4,9 +4,10 @@
 Cluster model (the paper's data center, one level up the stack):
   * R replica groups ("servers"), grouped into pods ("racks");
   * every request carries a prefix id whose KV/prompt artifacts are resident
-    on 3 replicas, placed by rendezvous hashing (the uniform placement) —
-    its *local* replicas; same-pod replicas are *rack-local*, the rest
-    *remote*;
+    on the replicas its placement policy puts them on
+    (`EngineConfig.placement`, `repro_torch.placement`; the default
+    ``uniform`` is rendezvous hashing onto 3 replicas) — its *local*
+    replicas; same-pod replicas are *rack-local*, the rest *remote*;
   * the router assigns each incoming request to a replica by weighted
     workload over estimated service rates; rates are measured online per
     (replica, tier) with the EWMA estimator, so a slow replica sheds load
@@ -29,7 +30,14 @@ congested tiers open and close during a run and the router's EWMA sees
 them.  A scenario with a failure track (``server_loss``, ``rack_loss``)
 raises `NotImplementedError`: the reference runs it through its
 replication machinery, which comes with the replication slice of the
-port.  Ported so far besides: placement None/"uniform", replication
+port.
+
+Placement (`EngineConfig.placement`: a name, `PlacementConfig` or
+instance): every routed request's prefix is looked up in the placement,
+which is told of the read (`note_read`); every ``rebalance_every`` routed
+requests (0: never) the placement re-derives its popularity-driven part
+(`rebalance`, which only ``hot_aware`` acts on).  `routed` and
+`rebalanced` count both.  Ported so far besides: replication
 None/"fixed", no control plane and no event tracer; the other settings
 raise `NotImplementedError` naming the slice of the port that adds them.
 """
@@ -89,11 +97,13 @@ class EngineConfig:
     topology: Optional[Topology] = None
     tier_rates: Optional[Sequence[float]] = None
     seed: int = 0
-    # The reference's seams, kept with their defaults.  `scenario` (name /
-    # ScenarioConfig / Scenario; None -> static) is played back over
-    # `scenario_horizon` engine steps a cycle; the others support only
-    # their defaults so far (see `_check_supported`), under which
-    # `rebalance_every` and `num_prefixes` do nothing.
+    # The reference's seams.  `scenario` (name / ScenarioConfig /
+    # Scenario; None -> static) is played back over `scenario_horizon`
+    # engine steps a cycle; `placement` (name / PlacementConfig /
+    # instance; None -> uniform) places the prefixes, rebalanced every
+    # `rebalance_every` routed requests (0: never); the others support
+    # only their defaults so far (see `_check_supported`), under which
+    # `num_prefixes` does nothing.
     scenario: object = None
     scenario_horizon: int = 400  # engine steps per playback cycle
     placement: object = None
@@ -112,7 +122,6 @@ def _check_supported(ecfg: EngineConfig) -> None:
     """Raise for a seam the port has not ported yet, naming the slice of
     the port that adds it."""
     unported = (
-        ("placement", ecfg.placement not in (None, "uniform"), "placement"),
         ("replication", ecfg.replication not in (None, "fixed"),
          "replication"),
         ("tracer", ecfg.tracer is not None, "telemetry"),
@@ -237,7 +246,13 @@ class ServingEngine:
         self.estimator = EwmaRateEstimator(n_rep, prior)
         self.router = make_router(ecfg.scheduler, self.spec, prior,
                                   estimator=self.estimator, seed=ecfg.seed)
+        # prefix artifacts live where the placement policy puts them
         self.placement = make_placement(ecfg.placement)
+        if ecfg.rebalance_every < 0:
+            raise ValueError(f"rebalance_every must be >= 0, got "
+                             f"{ecfg.rebalance_every}")
+        self.routed = 0
+        self.rebalanced = 0
         # One scenario seam for every scheduler: the playback inflates the
         # observed service times the estimator sees, like the static
         # `slow_replicas` dict but time-varying (stragglers open and close).
@@ -299,6 +314,11 @@ class ServingEngine:
             req = self.queue.popleft()
             locs = self.placement.replicas(self.spec, req.prefix_id, 3,
                                            self.ecfg.seed)
+            self.placement.note_read(req.prefix_id)
+            self.routed += 1
+            if self.ecfg.rebalance_every and \
+                    self.routed % self.ecfg.rebalance_every == 0:
+                self.rebalanced += self.placement.rebalance()
             req._locs = locs  # type: ignore[attr-defined]
             decision = self.router.route(locs)
             if decision.deferred:

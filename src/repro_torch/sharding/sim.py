@@ -144,7 +144,8 @@ def fleet_supported(policy_like: PolicyLike, cfg, scenario=None,
         return "telemetry recorders require the dense in-scan step"
     if scenario not in (None, "static"):
         return "only the static scenario is fleet-compiled"
-    if placement not in (None, "uniform"):
+    from repro_torch.placement import make_placement
+    if make_placement(placement).name != "uniform":
         return "only uniform placement has a fleet sampler"
     if replication not in (None, "fixed"):
         return "dynamic replication rides the dense scan carry"

@@ -64,23 +64,47 @@ def _lane_gumbels(key, n, shape):
         jax.random.fold_in(key, i), shape))(jnp.arange(n))
 
 
-@functools.partial(jax.jit, static_argnames=("b", "m", "racks"))
-def _arrival_draws(seeds, lams, ts, lam_mult, b, m, racks=0):
+def place_blocks(placement) -> int:
+    """The (B, M) Gumbel blocks the reference's sampler of `placement`
+    draws from ``split(k_rest, 3)``: three for hdfs and spread (whose
+    degraded hdfs ignores them), none for uniform and hot_aware (which
+    draws from uniform's type key)."""
+    from repro.placement import make_placement
+    return 3 if make_placement(placement).name in ("hdfs", "spread") else 0
+
+
+def type_draws(k_t, b, m, racks=0, place=0):
+    """The draws the reference's type samplers make from the slot's type
+    key k_t: k_hot, k_gum = split(k_t) (k_hot, k_rack, k_gum =
+    split(k_t, 3) with ``racks`` > 0); u_hot = uniform(k_hot, (B,)),
+    g_type = gumbel(k_gum, (B, M)), g_rack = gumbel(k_rack, (B, racks))
+    (``categorical``'s Gumbels) and, with ``place`` > 0, the placement's
+    blocks gumbel(k_i, (B, M)) for k_i in split(k_gum, place)."""
+    if racks:
+        k_hot, k_rack, k_gum = jax.random.split(k_t, 3)
+    else:
+        k_hot, k_gum = jax.random.split(k_t)
+    out = dict(u_hot=jax.random.uniform(k_hot, (b,)),
+               g_type=jax.random.gumbel(k_gum, (b, m)))
+    if racks:
+        out["g_rack"] = jax.random.gumbel(k_rack, (b, racks))
+    if place:
+        out["g_place"] = jnp.stack([jax.random.gumbel(k, (b, m)) for k in
+                                    jax.random.split(k_gum, place)])
+    return out
+
+
+@functools.partial(jax.jit, static_argnames=("b", "m", "racks", "place"))
+def _arrival_draws(seeds, lams, ts, lam_mult, b, m, racks=0, place=0):
     """(T, N) arrival draws of the reference's `sample_arrivals_at` at the
     slot's rate ``lam * lam_mult[t]`` (float32, the reference's order);
     with ``racks`` > 0 the weighted path's three-way split of k_t and the
-    (B, racks) Gumbels its ``categorical`` draws the hot racks from."""
+    (B, racks) Gumbels its ``categorical`` draws the hot racks from; with
+    ``place`` > 0 the placement sampler's blocks (`type_draws`)."""
     def one(seed, lam, t, mult):
         k_n, k_t = jax.random.split(_slot_keys(seed, t)[0])
-        if racks:
-            k_hot, k_rack, k_gum = jax.random.split(k_t, 3)
-        else:
-            k_hot, k_gum = jax.random.split(k_t)
         out = dict(n=jnp.minimum(jax.random.poisson(k_n, lam * mult), b),
-                   u_hot=jax.random.uniform(k_hot, (b,)),
-                   g_type=jax.random.gumbel(k_gum, (b, m)))
-        if racks:
-            out["g_rack"] = jax.random.gumbel(k_rack, (b, racks))
+                   **type_draws(k_t, b, m, racks, place))
         return out
     return jax.vmap(jax.vmap(one, (0, 0, None, None)), (None, None, 0, 0))(
         seeds, lams, ts, lam_mult)
@@ -132,17 +156,21 @@ class JaxDenseReplay(DenseSource):
     Under a scenario, `lam_mult` is the (horizon,) float32 multiplier in
     force at each slot (the count is drawn at ``lam * lam_mult[t]``), and
     `racks` > 0 the rack count of a schedule with per-rack weights (the
-    reference then splits k_t in three: k_hot, k_rack, k_gum)."""
+    reference then splits k_t in three: k_hot, k_rack, k_gum).  Under a
+    replica `placement` (name or `PlacementConfig`) that draws blocks of
+    its own, ``g_place`` replays them (`type_draws`)."""
 
     def __init__(self, policy: str, cells, batch: int, num_servers: int,
-                 horizon: int, d: int = 2, lam_mult=None, racks: int = 0):
+                 horizon: int, d: int = 2, lam_mult=None, racks: int = 0,
+                 placement=None):
         seeds = jnp.asarray([s for s, _ in cells], jnp.uint32)
         lams = jnp.asarray([lam for _, lam in cells], jnp.float32)
         ts = jnp.arange(horizon, dtype=jnp.int32)
         mult = jnp.ones(horizon, jnp.float32) if lam_mult is None else \
             jnp.asarray(lam_mult, jnp.float32)
         out = dict(_arrival_draws(seeds, lams, ts, mult, b=batch,
-                                  m=num_servers, racks=racks))
+                                  m=num_servers, racks=racks,
+                                  place=place_blocks(placement)))
         out.update(_policy_draws(seeds, ts, family=_FAMILY[policy],
                                  b=batch, m=num_servers, d=d))
         self._all = {k: torch.from_numpy(np.array(v)) for k, v in

@@ -38,7 +38,8 @@ def test_port_imports_neither_jax_nor_reference():
                  "serve.engine", "launch.serve", "models.mamba",
                  "models.ssm_ops", "kernels.ssd_scan", "configs.mamba2_13b",
                  "workloads", "workloads.scenario", "workloads.library",
-                 "workloads.trace", "workloads.ingest", "utils.doc"):
+                 "workloads.trace", "workloads.ingest", "utils.doc",
+                 "placement.policy", "placement.capacity"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -74,6 +75,16 @@ def test_default_device_is_the_card():
     study = rb.StudyConfig(sim=cfg, loads=(0.5,), eps_grid=(), seeds=(0,))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rb.run_study(study, algos=("priority",))
+    # the placement slice: its sampler, capacity, study and seams
+    from repro_torch.placement import make_placement, placement_capacity
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_placement("spread").build_sampler(topo)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        placement_capacity(topo, rates, 0.5, "hdfs")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.simulate("balanced_pandas", cfg, 5.0, est, placement="hdfs")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rb.placement_study(study, placements=("hot_aware",))
     # the serving slice: parameters, caches, the engine and its launcher
     mcfg = registry.get_smoke_config("chatglm3_6b")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -67,7 +67,6 @@ def test_every_policy_runs_the_study_grid():
 
 
 @pytest.mark.parametrize("study,slice_name", [
-    ("placement_study", "placement"),
     ("replication_study", "replication"), ("tail_study", "telemetry"),
     ("control_study", "control")])
 def test_later_studies_raise_naming_their_slice(study, slice_name):

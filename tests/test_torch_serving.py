@@ -29,7 +29,7 @@ from repro_torch.configs import registry
 from repro_torch.core import cluster, estimator, locality as loc, policy
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import params as P
-from repro_torch.placement import policies as place
+from repro_torch.placement import make_placement, policies as place
 from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
 from repro_torch.telemetry import percentiles_from_hist
 from _torch_port import single_torch_thread  # noqa: F401
@@ -112,11 +112,13 @@ def test_chunk_replicas_match_reference():
         for cid in range(200 if hosts < 1000 else 5):
             assert place.chunk_replicas(cid, hosts, 3, seed) == \
                 rplace.chunk_replicas(cid, hosts, 3, seed)
-    uniform = place.make_placement(None)
+    uniform = make_placement(None)
     assert uniform.replicas(loc.Topology(4, 2), 7, 3, 0) == \
         rplace.UniformPlacement().replicas(rloc.Topology(4, 2), 7, 3, 0)
-    with pytest.raises(NotImplementedError, match="placement slice"):
-        place.make_placement("hdfs")
+    hdfs = make_placement("hdfs")
+    for cid in range(32):
+        assert hdfs.replicas(loc.Topology(8, 4), cid, 3, 0) == \
+            rplace.HdfsPlacement().replicas(rloc.Topology(8, 4), cid, 3, 0)
 
 
 def test_percentiles_from_hist_matches_reference():
@@ -195,7 +197,6 @@ def test_oversubscribed_engine_drains_on_every_replica(model):
 @pytest.mark.parametrize("field,value,slice_name", [
     ("scenario", "server_loss", "replication"),
     ("scenario", "rack_loss", "replication"),
-    ("placement", "hdfs", "placement"),
     ("replication", "popularity", "replication"),
     ("tracer", object(), "telemetry"), ("control", "admission", "control")])
 def test_unported_engine_settings_raise(model, field, value, slice_name):

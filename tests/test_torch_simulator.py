@@ -127,7 +127,6 @@ def test_unported_paths_raise_naming_their_slice():
     est = sim.make_estimates(cfg, "network", 0.0, -1)
     for kw, slice_name in (({"scenario": "server_loss"}, "replication"),
                            ({"scenario": "rack_loss"}, "replication"),
-                           ({"placement": "hdfs"}, "placement"),
                            ({"replication": "repair"}, "replication"),
                            ({"telemetry": True}, "telemetry"),
                            ({"control": "admission"}, "control")):
@@ -140,6 +139,22 @@ def test_unported_paths_raise_naming_their_slice():
                       device="cpu", **kw)
     with pytest.raises(ValueError, match="unsupported"):
         sim.simulate("fifo", cfg, 5.0, est, fleet=True, device="cpu")
+    # placement runs on the dense path; the fleet path stays uniform-only
+    # and refuses another placement with the reference's message
+    rcfg, _ = _small()
+    with pytest.raises(ValueError) as want:
+        rsim.simulate("balanced_pandas", rcfg, 5.0, est, fleet=True,
+                      placement="hdfs")
+    for run in (lambda: sim.simulate("balanced_pandas", cfg, 5.0, est,
+                                     fleet=True, placement="hdfs",
+                                     device="cpu"),
+                lambda: sim.sweep("balanced_pandas", cfg, [5.0], est[None],
+                                  [0], fleet=True, placement="hdfs",
+                                  device="cpu")):
+        with pytest.raises(ValueError) as got:
+            run()
+        assert str(got.value) == str(want.value)
+        assert "only uniform placement has a fleet sampler" in str(got.value)
     with pytest.raises(ValueError, match="lam_total"):
         sim.simulate("balanced_pandas", cfg, -1.0, est, fleet=True,
                      device="cpu")
