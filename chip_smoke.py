@@ -192,7 +192,39 @@ on failure:
    lengths, `ops.maxweight_claim` at Topology(24, (4, 12)), B = 9, and
    the fleet shape (M = 10008, B = 5474, D = 1), each call bit for bit
    against its plain version on the group-restricted path, with the
-   racks each task's replicas span.
+   racks each task's replicas span;
+14. the replication slice.  (a, run after 13a) the replication study
+   (examples/replication_study.py: `replication_study` over the three
+   REPLICATIONS x server_loss and rack_loss x Balanced-PANDAS and
+   JSQ-MaxWeight, Topology(24, 6), loads 0.7 and 0.95 of the healthy
+   capacity, seeds 0-7, depth cut to horizon 300 / warmup 75 from
+   8000 / 2000), counts set to 0 before and read after (no kernel on the
+   dense path); its table, each sweep's seconds and cell-slots/s;
+   rack_loss + spread + repair once; the checks that need no long run at
+   horizon 100; fatal: a delay not finite, a
+   server_loss throughput at rho 0.7 under 0.9 x lam, static "fixed"
+   unequal to the run without replication in any metric (static
+   "repair" in the core metrics), a host sync in the slot loop under
+   server_loss with each controller (sync debug mode "error"), a fixed
+   or repair lifecycle metric other than lost_tasks that differs
+   between cells or policies (it follows no draw), fixed with a repair
+   move, repair's final replication not above fixed's under
+   server_loss, data loss under rack_loss + spread; a profiled window of
+   8 Balanced-PANDAS slots under server_loss + repair and under static
+   without replication.  (b, run after 13b) chatglm3-6b at full width
+   through the same engine, defaults and 16 requests under
+   `EngineConfig(scenario="server_loss", replication="repair",
+   scenario_horizon=12)`, one request submitted a step, counts set to 0
+   before and read after: fatal unless every request drains with 17
+   tokens, flash_attention = 28 x prefills, logits finite, the lifecycle
+   made a repair move, availability is 1.0 and no route was lost;
+   tokens/s, routed counts, the tier mix, moves and the admissions on a
+   dead replica beside phase 9's.  (c, run after 13c) post-repair replica
+   rows of a repair `HostReplication` (Topology(24, (4, 12)), servers 0,
+   5 and 7 dead, B = 9; the quickstart's M = 1024, B = 128 with racks of
+   64 and rack 0 dead) through `ops.wwl_route` and, as queue lengths,
+   `ops.maxweight_claim`, bit for bit against their plain versions on
+   the group-restricted path, with the racks each row spans.
 
 Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1250,7 +1282,7 @@ def phase_dense_loop(dev, slots: int = 32, fleet_cfg=None):
     def build(name):
         est = torch.as_tensor(np.stack([ests[e] for _, _, e in cells]),
                               device=dev)
-        pol, init, step = sim._build_dense_step(name, cfg, est, dev)
+        pol, init, step, _ = sim._build_dense_step(name, cfg, est, dev)
         src = DenseDeviceSource([(s, lam) for s, lam, _ in cells],
                                 make_policy(name).draw_plan(m),
                                 cfg.max_arrivals, m, dev)
@@ -1426,7 +1458,8 @@ def phase_drift(dev) -> dict:
     def build(name, scen):
         sched = wl.compile_schedule(wl.make_scenario(scen), scfg.topo,
                                     DRIFT_HORIZON, scfg.p_hot, device=dev)
-        _, init, step = sim._build_dense_step(name, scfg, est_t, dev, sched)
+        _, init, step, _ = sim._build_dense_step(name, scfg, est_t, dev,
+                                                 sched)
         src = DenseDeviceSource(cells_l, make_policy(name).draw_plan(m),
                                 scfg.max_arrivals, m, dev, sched)
         return init(), step, src
@@ -1579,8 +1612,8 @@ def phase_placement(dev) -> dict:
     def build(name, scen, plc):
         sched = wl.compile_schedule(wl.make_scenario(scen), scfg.topo,
                                     PLACE_HORIZON, scfg.p_hot, device=dev)
-        _, init, step = sim._build_dense_step(name, scfg, est_t, dev, sched,
-                                              plc)
+        _, init, step, _ = sim._build_dense_step(name, scfg, est_t, dev,
+                                                 sched, plc)
         src = DenseDeviceSource(cells_l, make_policy(name).draw_plan(m),
                                 scfg.max_arrivals, m, dev, sched,
                                 make_placement(plc).gumbel_blocks(scfg.topo))
@@ -1681,6 +1714,289 @@ def phase_placement_kernels(dev) -> dict:
     if any(bad.values()):
         raise AssertionError(f"placement-sampled types: kernels disagree "
                              f"with their plain versions: {bad}")
+    return dict(rows=rows, mismatches=bad)
+
+
+# ---------------------------------------------------------------------------
+# The replication slice: the replication study on the dense path (phase
+# 14a) and post-repair replica rows through the scheduling kernels (14c)
+# ---------------------------------------------------------------------------
+
+# examples/replication_study.py's study (Topology(24, 6), loads 0.7 and
+# 0.95 of the healthy capacity, the three REPLICATIONS x the two
+# REPLICATION_SCENARIOS x the two REPLICATION_POLICIES), its depth cut
+# from 8000 / 2000 slots (to 300 / 75 from 400 / 100 to hold phase 14
+# near 100 s); the checks that need no long run (static against no
+# replication, host syncs, profiled windows) run at REPL_CHECK_HORIZON
+REPL_HORIZON, REPL_WARMUP = 300, 75
+REPL_CHECK_HORIZON = 100
+REPL_SEEDS = tuple(range(8))
+REPL_LOADS = (0.7, 0.95)
+# the lifecycle metrics that follow no draw under fixed and repair
+REPL_NO_DRAW = ("availability", "data_loss_frac", "mean_replication",
+                "final_replication", "repair_moves", "dropped_replicas",
+                "migration_busy_slots", "max_concurrent_moves")
+CORE_METRICS = ("mean_n", "mean_delay", "throughput", "final_n")
+
+
+def phase_replication(dev) -> dict:
+    """Phase 14a: `replication_study` on the card, each sweep timed, launch
+    counts 0 before and after (the dense path runs no kernel); "fixed"
+    and "repair" under static against the run without replication;
+    rack_loss + spread + repair once; the slot loop free of host syncs
+    under server_loss with each controller; a profiled window of 8
+    Balanced-PANDAS slots under server_loss + repair and under static
+    without replication.  Fatal: a delay not finite, a server_loss
+    throughput at rho 0.7 under 0.9 x lam in any cell, "fixed" under
+    static unequal to no replication in any metric, "repair" unequal to
+    it in the core metrics, a host sync, a fixed or repair lifecycle
+    metric (`REPL_NO_DRAW`) that differs between cells or between the
+    two policies of a scenario, fixed with a repair move, repair's
+    final replication not above fixed's under server_loss, or a data
+    loss under rack_loss + spread."""
+    from repro_torch import workloads as wl
+    from repro_torch.core import locality as loc, robustness as rb
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.policy import make_policy
+    from repro_torch.core.rng import DenseDeviceSource
+
+    cfg = rb.StudyConfig(sim=sim.default_config(horizon=REPL_HORIZON,
+                                                warmup=REPL_WARMUP),
+                         seeds=REPL_SEEDS)
+    scfg = cfg.sim
+    runs, sweep = {}, sim.sweep
+
+    def timed_sweep(policy, *args, scenario=None, replication=None, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep(policy, *args, scenario=scenario, replication=replication,
+                    **kw)
+        torch.cuda.synchronize()
+        runs[(scenario, replication, policy)] = (time.perf_counter() - t0,
+                                                 out)
+        return out
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(sim, "sweep", timed_sweep):
+        study = rb.replication_study(cfg, loads=REPL_LOADS, device=dev)
+    wall = time.perf_counter() - t0
+    _check_counts("replication study", {})
+    print(rb.summarize_replication(study), flush=True)
+    cells = len(REPL_SEEDS) * len(REPL_LOADS)
+    rates = {f"{scen}/{ctrl}/{pol}": dict(
+        wall_s=sec, cell_slots_per_s=cells * REPL_HORIZON / sec)
+        for (scen, ctrl, pol), (sec, _) in runs.items()}
+    sweep_s = sum(sec for sec, _ in runs.values())
+    print(f"phase 14a, replication study sweeps: {json.dumps(rates)}",
+          flush=True)
+    print(f"phase 14a: {wall:.1f} s for {len(runs)} sweeps of {cells} cells "
+          f"x {REPL_HORIZON} slots ({sweep_s:.1f} s in the sweeps)",
+          flush=True)
+
+    lam = np.asarray(REPL_LOADS, np.float32) * np.float32(study["capacity"])
+    table, gates = {}, {}
+    for (scen, ctrl, pol), (_, out) in runs.items():
+        d = out["mean_delay"]
+        if not np.isfinite(d).all():
+            raise AssertionError(f"replication {scen}/{ctrl}/{pol}: delay "
+                                 f"not finite: {d}")
+        table[f"{scen}/{ctrl}/{pol}"] = {
+            k: out[k][:, 0].mean(axis=-1).tolist() for k in
+            ("mean_delay", "throughput", "availability", "data_loss_frac",
+             "mean_replication", "final_replication", "repair_moves",
+             "lost_tasks", "migration_busy_slots", "max_concurrent_moves")}
+        if scen == "server_loss":
+            thru = float(out["throughput"][0].min())
+            gates[f"{ctrl}/{pol}"] = dict(min_throughput=thru,
+                                          floor=0.9 * float(lam[0]))
+            if thru < 0.9 * lam[0]:
+                raise AssertionError(f"replication server_loss/{ctrl}/{pol}"
+                                     f": throughput {thru} at rho "
+                                     f"{REPL_LOADS[0]} under {0.9 * lam[0]}")
+    print(f"phase 14a, table (means over seeds, one entry a load): "
+          f"{json.dumps(table)}", flush=True)
+    print(f"phase 14a, server_loss throughput gates: {json.dumps(gates)}",
+          flush=True)
+    for scen in rb.REPLICATION_SCENARIOS:
+        for ctrl in ("fixed", "repair"):
+            first = None
+            for pol in rb.REPLICATION_POLICIES:
+                out = runs[(scen, ctrl, pol)][1]
+                for k in REPL_NO_DRAW:
+                    v = out[k]
+                    if not (v == v.flat[0]).all() or (
+                            first is not None and v.flat[0] != first[k]):
+                        raise AssertionError(
+                            f"replication {scen}/{ctrl}: {k} follows a draw"
+                            f" ({pol}: {v.ravel().tolist()})")
+                first = {k: out[k].flat[0] for k in REPL_NO_DRAW}
+            if ctrl == "fixed" and first["repair_moves"] != 0:
+                raise AssertionError(f"fixed made repair moves under {scen}")
+    fin = {ctrl: float(runs[("server_loss", ctrl, "balanced_pandas")][1]
+                       ["final_replication"].flat[0])
+           for ctrl in ("fixed", "repair")}
+    if not fin["repair"] > fin["fixed"]:
+        raise AssertionError(f"server_loss: repair's final replication "
+                             f"{fin['repair']} not above fixed's "
+                             f"{fin['fixed']}")
+
+    # static: "fixed" is the run without replication in every metric,
+    # "repair" in the core metrics (no deficit, no move, reads drawn
+    # from a generator of their own)
+    est = sim.make_estimates(scfg, "network", 0.0, -1)[None]
+    seeds = np.asarray(REPL_SEEDS)
+    ccfg = sim.default_config(horizon=REPL_CHECK_HORIZON,
+                              warmup=REPL_CHECK_HORIZON // 4)
+    none = sweep("balanced_pandas", ccfg, lam, est, seeds, device=dev)
+    for ctrl in ("fixed", "repair"):
+        got = sweep("balanced_pandas", ccfg, lam, est, seeds,
+                    scenario="static", replication=ctrl, device=dev)
+        if ctrl == "fixed" and set(none) != set(got):
+            raise AssertionError(f"static fixed: keys {sorted(got)} "
+                                 f"against {sorted(none)}")
+        keys = sorted(none) if ctrl == "fixed" else CORE_METRICS
+        bad = [k for k in keys if not np.array_equal(none[k], got[k])]
+        if bad:
+            raise AssertionError(f"static {ctrl} differs from the run "
+                                 f"without replication in {bad}")
+    print("phase 14a: static fixed equals no replication in every metric, "
+          "static repair in the core metrics", flush=True)
+    spread = sweep("balanced_pandas", scfg, lam, est, seeds,
+                   scenario="rack_loss", placement="spread",
+                   replication="repair", device=dev)
+    spread_row = {k: spread[k][:, 0].mean(axis=-1).tolist() for k in (
+        "mean_delay", "availability", "data_loss_frac", "repair_moves",
+        "final_replication")}
+    print(f"phase 14a, rack_loss + spread + repair: "
+          f"{json.dumps(spread_row)}", flush=True)
+    if (spread["data_loss_frac"] != 0).any():
+        raise AssertionError(f"rack_loss + spread lost data: "
+                             f"{spread['data_loss_frac'].ravel().tolist()}")
+
+    # no host sync in the slot loop under server_loss, each controller
+    m = scfg.topo.num_servers
+    cap = loc.capacity_hot_rack(scfg.topo, scfg.true_rates, scfg.p_hot)
+    cells_l = [(s, np.float32(REPL_LOADS[0] * cap)) for s in REPL_SEEDS]
+    est_t = torch.as_tensor(np.repeat(est, len(cells_l), 0), device=dev)
+
+    def build(name, scen, ctrl):
+        sched = wl.compile_schedule(wl.make_scenario(scen), ccfg.topo,
+                                    REPL_CHECK_HORIZON, ccfg.p_hot,
+                                    device=dev)
+        _, init, step, rep = sim._build_dense_step(name, ccfg, est_t, dev,
+                                                   sched, None, ctrl)
+        src = DenseDeviceSource(cells_l, make_policy(name).draw_plan(m),
+                                scfg.max_arrivals, m, dev, sched, 0,
+                                None if rep is None else rep.read_cdf)
+        return init(), step, src
+
+    # server_loss's window opens at 0.35 x the horizon: check inside it
+    start = int(0.375 * REPL_CHECK_HORIZON)
+    for ctrl in rb.REPLICATIONS:
+        carry, step, src = build("balanced_pandas", "server_loss", ctrl)
+        for t in range(start):
+            carry = step(carry, t, src.slot(t))
+        _no_sync(lambda c, t, d: step(c, t + start, d), carry,
+                 lambda t: src.slot(t + start), 24)
+    print(f"phase 14a: no host sync in 23 slots of the slot loop under "
+          f"server_loss with {rb.REPLICATIONS}", flush=True)
+
+    # a profiled window of 8 Balanced-PANDAS slots, one profiler session
+    # each: server_loss + repair inside its window, static without
+    # replication
+    windows = {}
+    for label, scen, ctrl in (("server_loss/repair", "server_loss",
+                               "repair"), ("static/none", "static", None)):
+        carry, step, src = build("balanced_pandas", scen, ctrl)
+        t = 0
+
+        def one():
+            nonlocal carry, t
+            carry = step(carry, t, src.slot(t))
+            t += 1
+
+        for _ in range(start):
+            one()
+        windows[label] = _profile_window(dev, one, 8)
+    print(f"phase 14a, profiled windows of the Balanced-PANDAS slot: "
+          f"{json.dumps(windows)}", flush=True)
+    return dict(wall_s=wall, sweeps=rates, table=table, spread=spread_row,
+                windows=windows)
+
+
+# (name, topology, batch, chunks, dead servers, observes) of phase 14c:
+# the reference test's K=4 shape, and the quickstart's width with racks of
+# 64 and one whole rack dead (its storm of about 34 moves needs more than
+# 200 observes at 4 lanes)
+REPL_KERNEL_SHAPES = (("24x(4,12)", (24, (4, 12)), 9, 16, (0, 5, 7), 200),
+                      ("1024x64", (M_QUICK, 64), B_QUICK, B_QUICK,
+                       tuple(range(64)), 400))
+
+
+def phase_replication_kernels(dev) -> dict:
+    """Phase 14c (tests/test_replication.py's post-repair rows through both
+    kernels, on the card): a repair `HostReplication` on uniform
+    placement observes a liveness mask with servers dead, then each
+    chunk's live replica row goes to `ops.wwl_route` as a task's locals
+    and, as queue lengths (each server's replica count), to
+    `ops.maxweight_claim`, each call held bit for bit against its plain
+    version on the group-restricted path; the racks each row spans are
+    recorded.  Fatal: a row short of 3 live replicas, a mismatch, a call
+    on another path."""
+    from repro_torch.core import locality as loc
+    from repro_torch.kernels import ops, ref
+    from repro_torch.placement import make_placement
+    from repro_torch.replication import make_replication
+
+    rng = np.random.default_rng(14)
+    rows, bad = {}, {"wwl_route": 0, "maxweight_claim": 0}
+    for shape, (m, groups), b, chunks, dead, observes in REPL_KERNEL_SHAPES:
+        topo = loc.Topology(m, groups)
+        k = topo.num_tiers
+        rates = PLACE_KERNEL_RATES[k]
+        host = make_replication("repair").build_host(
+            topo, make_placement(None), chunks, 3, 0, np.asarray(rates))
+        alive = np.ones(m, bool)
+        alive[list(dead)] = False
+        for t in range(observes):
+            host.observe(float(t), alive)
+        locs = [host.replicas_for(c) for c in range(b)]
+        if any(len(r) != 3 or not alive[r].all() for r in locs):
+            raise AssertionError(f"{shape}: rows short of 3 live replicas "
+                                 f"after {observes} observes: {locs}")
+        types = np.asarray(locs, np.int32)
+        anc_np = np.array(topo.ancestors, np.int32)
+        anc = torch.as_tensor(anc_np, device=dev)
+        span = np.bincount([len(set(anc_np[0, r])) for r in types],
+                           minlength=4)[1:].tolist()
+        wlv = rng.uniform(0, 50, m).astype(np.float32)
+        er = (np.tile(rates, (m, 1))
+              * rng.uniform(0.8, 1.2, (m, k))).astype(np.float32)
+        args = [torch.as_tensor(x, device=dev)
+                for x in (wlv, er, anc_np, types)]
+        w_bad, w_err, _ = _checked_call("wwl_route", ops.wwl_route,
+                                        ref.wwl_route, args, "group")
+        q = np.bincount(types.ravel(), minlength=m).astype(np.float32)
+        ids = rng.choice(m, b, replace=False).astype(np.int32)
+        er2 = (np.tile(rates, (b, 1))
+               * rng.uniform(0.8, 1.2, (b, k))).astype(np.float32)
+        ids_t = torch.as_tensor(ids, device=dev)
+        args = [torch.as_tensor(q, device=dev), anc, ids_t, anc[:, ids_t],
+                torch.as_tensor(er2, device=dev)]
+        q_bad, q_err, _ = _checked_call("maxweight_claim",
+                                        ops.maxweight_claim,
+                                        ref.maxweight_claim, args, "group")
+        bad["wwl_route"] += w_bad
+        bad["maxweight_claim"] += q_bad
+        rows[shape] = dict(m=m, batch=b, dead=len(dead), moves=host.moves,
+                           racks_spanned_1_2_3=span, wwl_mismatches=w_bad,
+                           wwl_max_abs_err=w_err, maxweight_mismatches=q_bad,
+                           maxweight_max_abs_err=q_err)
+        print(f"phase 14c, {shape}: {json.dumps(rows[shape])}", flush=True)
+    if any(bad.values()):
+        raise AssertionError(f"post-repair rows: kernels disagree with "
+                             f"their plain versions: {bad}")
     return dict(rows=rows, mismatches=bad)
 
 
@@ -2525,6 +2841,9 @@ def phase_serving(dev, arch=SERVE_ARCH):
         t0 = time.perf_counter()
         run["placement"] = placement_serving(dev, cfg, params, run)
         run["placement_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run["replication"] = replication_serving(dev, cfg, params, run)
+        run["replication_s"] = time.perf_counter() - t0
     if arch == MAMBA_ARCH:
         run["tokens_per_s_tc_vs_recurrent"] = ssd_ab(eng, reqs)
 
@@ -2715,6 +3034,57 @@ def placement_serving(dev, cfg, params, static_run) -> dict:
             raise AssertionError("hot_aware: no rebalance moved a chunk")
         out[label] = run
     return out
+
+
+def replication_serving(dev, cfg, params, static_run) -> dict:
+    """Phase 14b: the same engine, defaults and requests as phase 9 under
+    ``EngineConfig(scenario="server_loss", replication="repair",
+    scenario_horizon=12)``, one request submitted a step, counts set to
+    0 before and read after.  On the defaults' Topology(4, 2) the loss
+    window kills pod 0 (servers 0 and 1) for steps 5-7 of every 12, and
+    every prefix keeps a replica in pod 1.  Fatal: a request not drained
+    with 17 tokens, launches other than 28 x prefills, non-finite logits,
+    no repair move, availability at the end other than 1.0, a lost
+    route."""
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    eng = ServingEngine(cfg, params, EngineConfig(
+        scenario="server_loss", replication="repair", scenario_horizon=12),
+        device=dev)
+    rep, dead = eng.replication, []
+    is_alive = rep.is_alive
+
+    def recorded(host):   # the engine asks once an admission
+        up = is_alive(host)
+        if not up:
+            dead.append((eng.steps, int(host)))
+        return up
+
+    rep.is_alive = recorded
+    reqs = serve_requests(cfg)
+    run = drained_run(dev, SERVE_ARCH, cfg, eng, reqs,
+                      f"{SERVE_ARCH} server_loss + repair serving",
+                      submit_at=list(range(len(reqs))))
+    run.update(moves=rep.moves, dropped=rep.dropped,
+               availability=rep.availability(),
+               mean_replication=rep.mean_replication(),
+               data_loss_frac=rep.data_loss_frac(),
+               lost_routes=eng.lost_routes, lost_reads=rep.lost_reads,
+               dead_admissions=dead, routed_requests=eng.routed,
+               static_tokens_per_s=static_run["tokens_per_s"],
+               static_routed=static_run["routed"],
+               static_tier_mix=static_run["tier_mix"])
+    print(f"phase 14b, serving {cfg.name} under server_loss + repair: "
+          f"{json.dumps(run)}", flush=True)
+    if rep.moves == 0:
+        raise AssertionError("server_loss + repair: no repair move")
+    if rep.availability() != 1.0:
+        raise AssertionError(f"server_loss + repair: availability "
+                             f"{rep.availability()}")
+    if eng.lost_routes:
+        raise AssertionError(f"server_loss + repair: {eng.lost_routes} "
+                             f"lost routes")
+    return run
 
 
 def attention_fault_reading(dev, cfg, params, ecfg, prompt, logit_tol):
@@ -3039,8 +3409,12 @@ def main(argv=None) -> int:
     done("12a")
     phase_placement(dev)
     done("13a")
+    phase_replication(dev)
+    done("14a")
     place_kernels = phase_placement_kernels(dev)
     done("13c")
+    repl_kernels = phase_replication_kernels(dev)
+    done("14c")
     attn_rows, attn_err, attn_build, attn_f32, probe = phase_attention(
         dev, prev and prev["flash_attention"])
     done("3b")
@@ -3056,6 +3430,7 @@ def main(argv=None) -> int:
     _, launcher_rows = phase_launcher(dev)
     done("10")
     seconds["13b (within 9+12b)"] = serve_run["placement_s"]
+    seconds["14b (within 9+12b)"] = serve_run["replication_s"]
     print(f"phase seconds (build excluded): {json.dumps(seconds)}",
           flush=True)
 
@@ -3104,6 +3479,7 @@ def main(argv=None) -> int:
             "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
             "library_ms": None, "device_ms": bench["device_ms"],
             "placement_mismatches": place_kernels["mismatches"][name],
+            "replication_mismatches": repl_kernels["mismatches"][name],
             "device_ms_by_kernel": bench["device_ms_by_kernel"],
             "kernels_a_call": bench["kernels_a_call"],
             "prev_ms": bench["prev_ms"],
@@ -3123,6 +3499,8 @@ def main(argv=None) -> int:
         "placement_launches": {
             label: run["launches"]["flash_attention"]
             for label, run in serve_run["placement"].items()},
+        "replication_launches": serve_run["replication"]["launches"][
+            "flash_attention"],
         "max_abs_err": attn_err,
         "ms": main_attn["ms"], "plain_ms": main_attn["plain_ms"],
         "bound_ms": main_attn["bound_ms"], "bound_by": main_attn["bound_by"],

@@ -44,8 +44,9 @@ def _mean_left_to_right(x: torch.Tensor) -> torch.Tensor:
 @register_policy
 class BlindPandasPolicy(SlotPolicy):
     """Blind GB-PANDAS: Balanced-PANDAS that starts from a prior and keeps
-    per-(server, tier) EWMA rate estimates in its state, re-learning
-    online when the true rates drift.
+    per-(server, tier) EWMA rate estimates inside the scan state,
+    re-learning online when the true rates drift.  (The port's "scan
+    state" is the dense slot loop's carry.)
 
     Options: ``prior`` — the (K,) tier rates the estimates start from;
     ``decay`` — EWMA decay per observation; ``floor`` — lower clamp on the

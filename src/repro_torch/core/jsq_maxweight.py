@@ -84,9 +84,9 @@ def slot_step(s: JsqMwState, draws: DenseDraws, types: torch.Tensor,
 @register_policy
 class JsqMaxWeightPolicy(SlotPolicy):
     """JSQ-MaxWeight: join-shortest-queue routing + MaxWeight service over
-    the (m, n) pair rates — throughput-optimal but not heavy-traffic
+    the (m, n) pair rates — throughput-optimal but NOT heavy-traffic
     delay-optimal, and the policy the paper shows degrades most under
-    rate mis-estimation.
+    rate mis-estimation and drift.
     """
 
     name = "jsq_maxweight"

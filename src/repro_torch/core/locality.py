@@ -304,14 +304,17 @@ def as_ancestors(x) -> torch.Tensor:
 
 
 def per_server_rates(rates, num_servers: int) -> torch.Tensor:
-    """Broadcast true service rates to per-server form: (M, K) float32.
+    """Broadcast true service rates to per-server form: (..., M, K)
+    float32.
 
-    Accepts the shared ``(K,)`` vector or an ``(M, K)`` matrix; K is
-    inferred from the input.
+    Accepts the shared ``(K,)`` vector, an ``(M, K)`` matrix, or
+    ``(..., M, K)`` rates with leading (cell) dimensions, as the dense
+    simulator's replication seam gives them; K is inferred from the
+    input.
     """
     r = _tensor(rates).to(torch.float32)
     r = r[None, :] if r.ndim == 1 else r
-    return r.expand(num_servers, r.shape[-1])
+    return r.expand(*r.shape[:-2], num_servers, r.shape[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -50,8 +50,10 @@ def slot_step(s: bp.PandasState, draws: DenseDraws, types: torch.Tensor,
 @register_policy
 class PandasPoDPolicy(SlotPolicy):
     """Power-of-d Balanced-PANDAS: score only the task's 3 locals plus d
-    sampled candidates instead of all M servers.  ``d`` (default 2) is a
-    ``PolicyConfig("pandas_po2", {"d": ...})`` option."""
+    sampled candidates instead of all M servers — O(d) routing that
+    trades a little exact-rate delay for a narrower error band.
+    ``d`` (default 2) is a ``PolicyConfig("pandas_po2", {"d": ...})``
+    option."""
 
     name = "pandas_po2"
 

@@ -103,9 +103,10 @@ class SlotPolicy(abc.ABC):
 
         draws: the slot's `core.rng.DenseDraws`; types/active: the
         (N, B, 3)/(N, B) arrival batch; est: (N, M, K) estimated rates the
-        scheduler decides with; true_rates: the (K,) rates of the service
-        dynamics; ancestors: the (depth, M) table.  Returns (state,
-        completions (N,) int32).
+        scheduler decides with; true_rates: the rates of the service
+        dynamics, (K,), (M, K) or per cell (N, M, K) (the replication
+        seam scales them per cell); ancestors: the (depth, M) table.
+        Returns (state, completions (N,) int32).
         """
 
     @abc.abstractmethod
@@ -231,6 +232,22 @@ def available_policies() -> Tuple[str, ...]:
 def available_routers() -> Tuple[str, ...]:
     _load_builtins()
     return tuple(sorted(_ROUTERS))
+
+
+def policy_descriptions() -> Dict[str, str]:
+    """``{name: one-line description}`` for every registered `SlotPolicy`,
+    from the first sentence of each class docstring — the self-describing
+    registry surface behind ``benchmarks/run.py --help``."""
+    from repro_torch.utils.doc import first_doc_line
+    _load_builtins()
+    return {n: first_doc_line(c) for n, c in sorted(_POLICIES.items())}
+
+
+def router_descriptions() -> Dict[str, str]:
+    """``{name: one-line description}`` for every registered `Router`."""
+    from repro_torch.utils.doc import first_doc_line
+    _load_builtins()
+    return {n: first_doc_line(c) for n, c in sorted(_ROUTERS.items())}
 
 
 def get_policy_cls(name: str) -> Type[SlotPolicy]:

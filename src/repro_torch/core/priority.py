@@ -55,9 +55,11 @@ def slot_step(s: PriorityState, draws: DenseDraws, types: torch.Tensor,
 
 @register_policy
 class PriorityPolicy(SlotPolicy):
-    """Priority: serve local tasks first, then help the longest queue —
-    a rate-oblivious 2-level design with a smaller capacity region than
-    Balanced-PANDAS.
+    """Priority: serve local tasks first, then rack-local, then remote —
+    rate-oblivious 2-level design with a smaller capacity region than
+    Balanced-PANDAS (its delay inside that region can still be excellent;
+    see EXPERIMENTS.md §Reproduction).  An idle server with no local task
+    helps the longest queue.
     """
 
     name = "priority"

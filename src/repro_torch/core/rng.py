@@ -59,6 +59,16 @@ Gumbels.  Counts, hot uniforms, type and rack Gumbels keep their places,
 so every placement sees the same offered traffic, and policy draws never
 advance the arrival generator; ``uniform`` and ``hot_aware`` draw nothing
 more, and ``uniform`` is the run without a placement bit for bit.
+
+When the run's replication machinery is engaged (a Python-level fact:
+a dynamic controller, or a schedule with a failure track) the source
+also yields the chunk each arrival lane reads, ``read`` (N, B): one
+uniform a lane through the inverse CDF of the static Zipf law over chunk
+ids (float64, computed once a run on the host, as the Poisson CDFs are),
+from a third generator per distinct seed, seeded apart from the arrival
+and policy generators.  Those two never move, so every other draw keeps
+its place, as the reference's dedicated key fold for the reads keeps
+its bits.
 """
 
 from __future__ import annotations
@@ -208,6 +218,7 @@ class DenseDraws(NamedTuple):
     claim: Optional[torch.Tensor]     # (N, M, M) Gumbels
     g_rack: Optional[torch.Tensor] = None  # (N, B, R) rack Gumbels
     g_place: Optional[torch.Tensor] = None  # (N, P, B, M) placement Gumbels
+    read: Optional[torch.Tensor] = None     # (N, B) int64 chunk read a lane
 
 
 class DenseSource(abc.ABC):
@@ -224,20 +235,33 @@ def gumbel(u: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
+# seeds of the read generators: ``READ_SEED_BASE + s``, above every
+# arrival (2s) and policy (2s + 1) seed of a seed s below 2**61
+READ_SEED_BASE = 1 << 62
+
+
 class DenseDeviceSource(DenseSource):
     """Draws for the cells ``[(seed, lam), ...]`` from seeded generators
     on `device`: per distinct seed, one generator for the arrivals and
     one for the policy (see the module docstring).  `sched` is the run's
     compiled scenario (`workloads.Schedule`), None for the static one;
     `place_blocks` the (B, M) Gumbel blocks the run's placement draws
-    (`PlacementPolicy.gumbel_blocks`)."""
+    (`PlacementPolicy.gumbel_blocks`); `read_cdf` the (C,) float64 CDF of
+    the chunk-read law when the replication machinery is engaged (None:
+    no reads drawn)."""
 
     def __init__(self, cells: Sequence[Tuple[int, float]], plan: DrawPlan,
                  batch: int, num_servers: int, device, sched=None,
-                 place_blocks: int = 0):
+                 place_blocks: int = 0, read_cdf=None):
         dev = self.device = torch.device(device)
         self.arr_gens, self.cell_seed = _seed_generators(cells, dev, 2, 0)
         self.pol_gens, _ = _seed_generators(cells, dev, 2, 1)
+        self.read_gens, self.read_cdf = None, None
+        if read_cdf is not None:
+            self.read_gens, _ = _seed_generators(cells, dev, 1,
+                                                 READ_SEED_BASE)
+            self.read_cdf = torch.as_tensor(np.asarray(read_cdf, np.float64),
+                                            device=dev)
         self.seg = None   # one CDF a cell (None) or a segment index a slot
         if sched is None:
             self.cdf = _cell_cdf(cells, batch, dev)
@@ -292,5 +316,11 @@ class DenseDeviceSource(DenseSource):
         if plan.cand:
             keys = rest[:, self.n_perm:].view(nc, b, m)
             cand = torch.topk(keys, plan.cand, dim=-1).indices
+        read = None
+        if self.read_gens is not None:
+            u = _cell_block(self.read_gens, self.cell_seed, b, self.device)
+            read = torch.clamp(torch.searchsorted(
+                self.read_cdf, u.double(), right=True),
+                max=len(self.read_cdf) - 1)
         return DenseDraws(n, u_hot, g_type, u_serve, route, cand, perm, claim,
-                          g_rack, g_place)
+                          g_rack, g_place, read)

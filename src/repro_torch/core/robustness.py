@@ -27,8 +27,14 @@ policy a family (full-scan PANDAS, blind EWMA PANDAS, MaxWeight) under
 the scenarios that move locality and network structure, all at one
 offered load (a fraction of the *uniform* static capacity), beside each
 placement's fluid capacity (`repro_torch.placement.placement_capacity`).
-The replication, tail-latency and control studies of the reference come
-with later slices of the port and raise until then.
+
+Replication study (`replication_study`): every replication controller x
+failure scenario x scheduler, at loads x the healthy static capacity:
+what failure-driven repair and adaptive replication buy (availability,
+data loss, replication factor) and cost (migration moves, delay).
+
+The tail-latency and control studies of the reference come with later
+slices of the port and raise until then.
 """
 
 from __future__ import annotations
@@ -56,6 +62,12 @@ DRIFT_SCENARIOS = ("static", "diurnal", "flash_crowd", "mmpp", "hot_shift",
 PLACEMENTS = ("uniform", "hdfs", "spread", "hot_aware")
 PLACEMENT_POLICIES = ("balanced_pandas", "blind_pandas", "jsq_maxweight")
 PLACEMENT_SCENARIOS = ("static", "hot_shift", "rack_congestion")
+# Replication-lifecycle study grid: every shipped controller under the two
+# failure scenarios, for the two schedulers whose robustness gap the paper
+# cares about.  "fixed" is the no-repair control arm.
+REPLICATIONS = ("fixed", "popularity", "repair")
+REPLICATION_SCENARIOS = ("server_loss", "rack_loss")
+REPLICATION_POLICIES = ("balanced_pandas", "jsq_maxweight")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,6 +292,95 @@ def summarize_placement(study: Dict) -> str:
     return "\n".join(lines)
 
 
+def replication_study(cfg: StudyConfig,
+                      replications: Sequence[str] = REPLICATIONS,
+                      scenarios: Union[Sequence[str],
+                                       Mapping[str, ScenarioLike]]
+                      = REPLICATION_SCENARIOS,
+                      policies: Sequence[str] = REPLICATION_POLICIES,
+                      loads: Sequence[float] = (0.7, 0.95),
+                      device=None) -> Dict:
+    """Replication-controller x failure-scenario x scheduler sweep: what
+    adaptive replication and failure-driven repair buy (and cost) when the
+    scenario actually kills servers.
+
+    Every arm runs at `loads` x the static fluid capacity of the *healthy*
+    cluster, with exact ("network", eps 0) estimates, so delay deltas
+    under a loss window mix two effects the study separates: capacity
+    lost to dead servers (visible in `availability` / `data_loss`) and
+    foreground slots consumed by the re-replication storm (visible in
+    `repair_moves` and the delay gap between the `fixed` control arm and
+    the repairing controllers).  Returns per-metric nested dicts
+    ``out[metric][scenario][controller][policy]`` with shape (L, S_seeds);
+    replication metrics (availability, data_loss, mean_replication,
+    repair_moves) come from the lifecycle machinery, which every failure
+    scenario engages for all controllers including `fixed`.
+    ``device=None`` runs on the card.
+    """
+    scen_map = _scenario_map(scenarios)
+    r = cfg.sim.true_rates
+    cap = loc.capacity_hot_rack(cfg.sim.topo, r, cfg.sim.p_hot)
+    lam = np.asarray(loads, np.float32) * cap
+    seeds = np.asarray(cfg.seeds)
+    est_exact = sim.make_estimates(cfg.sim, "network", 0.0, -1)[None]
+
+    metrics = ("delay", "throughput", "availability", "data_loss",
+               "mean_replication", "repair_moves")
+    src_key = {"delay": "mean_delay", "data_loss": "data_loss_frac"}
+    out: Dict = {"capacity": cap, "loads": np.asarray(loads),
+                 "replications": tuple(replications),
+                 "scenarios": tuple(scen_map), "policies": tuple(policies)}
+    for m in metrics:
+        out[m] = {scen: {ctrl: {} for ctrl in replications}
+                  for scen in scen_map}
+    for scen, spec in scen_map.items():
+        for ctrl in replications:
+            for pol in policies:
+                res = sim.sweep(pol, cfg.sim, lam, est_exact, seeds,
+                                scenario=spec, replication=ctrl,
+                                device=device)
+                for m in metrics:
+                    val = res.get(src_key.get(m, m))
+                    out[m][scen][ctrl][pol] = (
+                        None if val is None else val[:, 0])
+    return out
+
+
+def summarize_replication(study: Dict) -> str:
+    """Human-readable replication-study table (scenario-major; one row per
+    controller x load, columns per scheduler: delay / availability /
+    data-loss / repair moves)."""
+    pols = list(study["policies"])
+    width = max([10] + [len(c) for c in study["replications"]])
+    lines = [f"loads x healthy static capacity "
+             f"({study['capacity']:.2f} tasks/slot); cells: "
+             f"delay(slots) | avail | data_loss | repair_moves, "
+             f"mean over seeds"]
+    for scen in study["scenarios"]:
+        lines.append(f"-- scenario: {scen}")
+        lines.append(f"{'controller':{width}s} {'rho':>5s}  " +
+                     "  ".join(f"{p:>34s}" for p in pols))
+        for ctrl in study["replications"]:
+            for li, rho in enumerate(study["loads"]):
+                cells = []
+                for p in pols:
+                    d = float(study["delay"][scen][ctrl][p][li].mean())
+                    av = study["availability"][scen][ctrl][p]
+                    dl = study["data_loss"][scen][ctrl][p]
+                    mv = study["repair_moves"][scen][ctrl][p]
+                    if av is None:
+                        cells.append(f"{d:9.2f} | {'n/a':>5s} | {'n/a':>6s}"
+                                     f" | {'n/a':>5s}")
+                    else:
+                        cells.append(
+                            f"{d:9.2f} | {float(av[li].mean()):5.3f} | "
+                            f"{float(dl[li].mean()):6.4f} | "
+                            f"{float(mv[li].mean()):5.0f}")
+                lines.append(f"{ctrl:{width}s} {float(rho):5.2f}  " +
+                             "  ".join(cells))
+    return "\n".join(lines)
+
+
 def _later(study: str, slice_name: str):
     def run(*args, **kwargs):
         raise NotImplementedError(f"the {study} study comes with the "
@@ -290,6 +391,5 @@ def _later(study: str, slice_name: str):
     return run
 
 
-replication_study = _later("replication", "replication")
 tail_study = _later("tail", "telemetry")
 control_study = _later("control", "control")

@@ -22,11 +22,22 @@ Poisson CDF a cell and segment), ``p_hot``, ``hot_rack``,
 ``rack_weights``, and the true rates ``true_k[None, :] * rate_mult``,
 (M, K), shared by every cell.  A one-segment schedule's knobs are
 gathered once.  ``"static"`` gives the run without a scenario bit for
-bit.  A scenario with a failure track (``down_servers``/``down_racks``:
+bit.  The fleet path stays static-only, as in the reference.
+
+Replication (`repro_torch.replication`: a name, `ReplicationConfig` or
+controller; None -> ``"fixed"``): the lifecycle machinery engages exactly
+when the reference's does, when the controller is dynamic or the
+schedule has a failure track (``down_servers``/``down_racks``:
 ``server_loss``, ``rack_loss``, traces with incident windows of that
-kind) raises `NotImplementedError`: the reference runs it through its
-replication machinery, which comes with the replication slice of the
-port.  The fleet path stays static-only, as in the reference.
+kind), a Python-level fact.  Engaged, its state (`SimReplication`,
+batched over the cells) rides the carry: each slot it runs after the
+arrivals and before the policy, on the schedule's ``alive`` track and
+the draw seam's chunk reads, and its (N, M) ``fg_mult`` scales the true
+rates, which become per cell, (N, M, K): dead servers serve at rate 0
+and migration endpoints at the contention multiplier.  Its
+availability, data-loss and migration metrics join the output.
+``"fixed"`` with no failure track builds nothing and is the run without
+replication bit for bit.
 
 Replica placement (`repro_torch.placement`): a name, `PlacementConfig` or
 instance (None -> ``"uniform"``) compiles to the per-task replica
@@ -37,9 +48,8 @@ them (`core.rng`), so counts and hot uniforms stay the same under every
 placement.  ``"uniform"`` gives the run without a placement bit for bit.
 The fleet path stays uniform-only, as in the reference: ``fleet=True``
 with another placement raises its ``ValueError``, ``fleet=None`` runs it
-on the dense path.  For any other non-default
-replication/telemetry/control seam, both entry points raise
-`NotImplementedError` naming the slice that adds it.
+on the dense path.  For a non-default telemetry or control seam, both
+entry points raise `NotImplementedError` naming the slice that adds it.
 
 Mean task completion time is measured via Little's law:
 ``W = mean(N_in_system over measurement window) / (lambda_total x the
@@ -67,9 +77,9 @@ from repro_torch.core import locality as loc
 from repro_torch.core.policy import PolicyLike, make_policy
 from repro_torch.core.rng import DenseDeviceSource, DenseSource
 from repro_torch.placement import make_placement
+from repro_torch.replication import make_replication
 # non-default seams and the slice of the port that adds each
-_SEAMS = (("replication", (None, "fixed"), "replication"),
-          ("telemetry", (None, False), "telemetry"),
+_SEAMS = (("telemetry", (None, False), "telemetry"),
           ("control", (None,), "control"))
 
 
@@ -141,42 +151,48 @@ def _merge_metrics(out: Dict[str, Any], extra: Dict[str, Any],
     out.update(extra)
 
 
-def _check_seams(scenario, replication, telemetry, control) -> None:
-    given = dict(replication=replication, telemetry=telemetry,
-                 control=control)
+def _check_seams(telemetry, control) -> None:
+    given = dict(telemetry=telemetry, control=control)
     for arg, defaults, slice_name in _SEAMS:
         if given[arg] not in defaults:
             raise NotImplementedError(
                 f"{arg}={given[arg]!r} comes with the {slice_name} slice of "
                 f"the port")
-    scn = wl.make_scenario(scenario)
-    if any(s.down_servers or s.down_racks for s in scn.segments):
-        raise NotImplementedError(
-            f"scenario {scn.name!r} has a failure track (down_servers / "
-            f"down_racks), which runs through the replication machinery: "
-            f"it comes with the replication slice of the port")
 
 
 # dense carry: (policy state, mean_n (N,) f32, n_meas (N,) f32,
-#               completions (N,) int32)
-DenseCarry = Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]
+#               completions (N,) int32)[, RepState when replication is
+#               engaged]
+DenseCarry = Tuple[Any, ...]
 
 
 def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
-                      est: torch.Tensor, device, sched=None, placement=None):
-    """Returns (policy, init() -> carry, step(carry, t, draws) -> carry)
-    for the N cells whose (N, M, K) estimated rates are `est` under the
-    compiled scenario `sched` (None: static) and `placement` (None:
-    uniform): the counterpart of the reference's scan body, one slot per
-    call.  The draws' counts already follow the slot's arrival rate, and
-    they carry the placement's Gumbel blocks (`core.rng`)."""
+                      est: torch.Tensor, device, sched=None, placement=None,
+                      replication=None):
+    """Returns (policy, init() -> carry, step(carry, t, draws) -> carry,
+    rep) for the N cells whose (N, M, K) estimated rates are `est` under
+    the compiled scenario `sched` (None: static), `placement` (None:
+    uniform) and `replication` (None: fixed): the counterpart of the
+    reference's scan body, one slot per call.  The draws' counts already
+    follow the slot's arrival rate, and they carry the placement's Gumbel
+    blocks and, when the lifecycle machinery is engaged, the chunk reads
+    (`core.rng`).  `rep` is the run's `SimReplication`, None when the
+    machinery is not engaged."""
     pol = make_policy(policy_like)
     dev = torch.device(device)
     topo = cfg.topo
-    sample_types = make_placement(placement).build_sampler(topo, dev)
+    plc = make_placement(placement)
+    sample_types = plc.build_sampler(topo, dev)
     if sched is None:
         sched = wl.compile_schedule(wl.make_scenario(None), topo,
                                     cfg.horizon, cfg.p_hot, device=dev)
+    ctrl = make_replication(replication)
+    rep = None
+    if not (ctrl.is_static and sched.alive is None):
+        rep = ctrl.build_sim(topo, np.asarray(cfg.true_rates.values), plc,
+                             dev)
+        all_alive = torch.ones(topo.num_servers, dtype=torch.float32,
+                               device=dev)
     n_cells = est.shape[0]
     anc = torch.as_tensor(np.array(topo.ancestors), device=dev)
     rack_of = torch.as_tensor(np.array(topo.rack_of), device=dev)
@@ -193,18 +209,25 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
 
     def init() -> DenseCarry:
         f32 = dict(dtype=torch.float32, device=dev)
-        return (pol.init_state(topo, device=dev, batch=(n_cells,)),
-                torch.zeros((n_cells,), **f32), torch.zeros((n_cells,), **f32),
-                torch.zeros((n_cells,), dtype=torch.int32, device=dev))
+        carry = (pol.init_state(topo, device=dev, batch=(n_cells,)),
+                 torch.zeros((n_cells,), **f32),
+                 torch.zeros((n_cells,), **f32),
+                 torch.zeros((n_cells,), dtype=torch.int32, device=dev))
+        return carry if rep is None else carry + (rep.init(n_cells),)
 
     @torch.inference_mode()  # no autograd bookkeeping: less host time a op
     def step(carry: DenseCarry, t: int, draws) -> DenseCarry:
-        state, mean_n, n_meas, compl = carry
+        state, mean_n, n_meas, compl = carry[:4]
         knobs, true_mk = const if const is not None else knobs_at(t)
         types, active = loc.sample_arrivals_at(
             draws.n, draws.u_hot, draws.g_type, rack_of, knobs.p_hot,
             knobs.hot_rack, knobs.rack_weights, draws.g_rack,
             type_sampler=sample_types, g_place=draws.g_place)
+        if rep is not None:
+            alive = knobs.alive if knobs.alive is not None else all_alive
+            rep_state, fg_mult = rep.step(carry[4], alive, draws.read,
+                                          active, t >= warmup)
+            true_mk = true_mk * fg_mult[..., None]   # (N, M, K)
         state, compl_t = pol.slot_step(state, draws, types, active, est,
                                        true_mk, anc)
         n = pol.num_in_system(state).to(torch.float32)
@@ -212,17 +235,19 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
         n_meas = n_meas + in_w
         mean_n = mean_n + in_w * (n - mean_n) / torch.clamp(n_meas, min=1.0)
         compl = compl + compl_t * int(t >= warmup)
-        return (state, mean_n, n_meas, compl)
+        out = (state, mean_n, n_meas, compl)
+        return out if rep is None else out + (rep_state,)
 
-    return pol, init, step
+    return pol, init, step, rep
 
 
-def _dense_metrics(pol, carry: DenseCarry,
-                   lam: torch.Tensor) -> Dict[str, np.ndarray]:
+def _dense_metrics(pol, carry: DenseCarry, lam: torch.Tensor,
+                   rep=None) -> Dict[str, np.ndarray]:
     """(N,) metrics per cell from a final carry: Little's law over the
     measurement window, as the reference computes it in float32; `lam`
-    is each cell's offered rate over the window."""
-    state, mean_n, n_meas, compl = carry
+    is each cell's offered rate over the window; `rep` the run's
+    `SimReplication` (None: not engaged), whose metrics join."""
+    state, mean_n, n_meas, compl = carry[:4]
     out = {
         "mean_n": mean_n,
         "mean_delay": torch.where(lam > 0, mean_n / lam,
@@ -231,6 +256,8 @@ def _dense_metrics(pol, carry: DenseCarry,
         "final_n": pol.num_in_system(state).to(torch.float32),
     }
     _merge_metrics(out, pol.extra_metrics(state), "SlotPolicy.extra_metrics")
+    if rep is not None:
+        _merge_metrics(out, rep.metrics(carry[4]), "replication lifecycle")
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -242,20 +269,23 @@ def _as_numpy(x) -> np.ndarray:
 
 def _dense_run(policy, cfg: SimConfig, cells: Sequence[Tuple[int, float]],
                est_cells: np.ndarray, device, rng: DenseSource = None,
-               scenario=None, placement=None) -> Dict[str, np.ndarray]:
+               scenario=None, placement=None,
+               replication=None) -> Dict[str, np.ndarray]:
     """Runs the cells ``[(seed, lam), ...]`` with (N, M, K) estimates as
-    one batch under `scenario` and `placement`; returns (N,) metric
-    arrays."""
+    one batch under `scenario`, `placement` and `replication`; returns
+    (N,) metric arrays."""
     dev = resolve_device(device)
     est = torch.as_tensor(est_cells, device=dev).contiguous()
     sched = wl.compile_schedule(wl.make_scenario(scenario), cfg.topo,
                                 cfg.horizon, cfg.p_hot, device=dev)
     plc = make_placement(placement)
-    pol, init, step = _build_dense_step(policy, cfg, est, dev, sched, plc)
+    pol, init, step, rep = _build_dense_step(policy, cfg, est, dev, sched,
+                                             plc, replication)
     if rng is None:
         rng = DenseDeviceSource(cells, pol.draw_plan(cfg.topo.num_servers),
                                 cfg.max_arrivals, cfg.topo.num_servers, dev,
-                                sched, plc.gumbel_blocks(cfg.topo))
+                                sched, plc.gumbel_blocks(cfg.topo),
+                                None if rep is None else rep.read_cdf)
     carry = init()
     for t in range(cfg.horizon):
         carry = step(carry, t, rng.slot(t))
@@ -264,7 +294,7 @@ def _dense_run(policy, cfg: SimConfig, cells: Sequence[Tuple[int, float]],
     # Little's law over the window: the offered rate is lam_total x the
     # window's mean arrival multiplier (1.0 for the static scenario)
     lam_scale = wl.mean_lam_mult_over(sched, cfg.warmup, cfg.horizon)
-    return _dense_metrics(pol, carry, lam * lam_scale)
+    return _dense_metrics(pol, carry, lam * lam_scale, rep)
 
 
 def _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
@@ -304,14 +334,15 @@ def simulate(policy, cfg: SimConfig, lam_total: float, est, seed: int = 0,
     """
     if lam_total < 0:
         raise ValueError(f"lam_total must be >= 0, got {lam_total}")
-    _check_seams(scenario, replication, telemetry, control)
+    _check_seams(telemetry, control)
     if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
                       telemetry, control):
         from repro_torch.sharding import sim as fleet_sim
         return fleet_sim.fleet_simulate(policy, cfg, lam_total, est, seed,
                                         fleet, device=device, rng=rng)
     out = _dense_run(policy, cfg, [(int(seed), np.float32(lam_total))],
-                     _as_numpy(est)[None], device, rng, scenario, placement)
+                     _as_numpy(est)[None], device, rng, scenario, placement,
+                     replication)
     return {k: float(v[0]) for k, v in out.items()}
 
 
@@ -329,7 +360,7 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
     lam_grid = np.asarray(lam_grid, np.float32).reshape(-1)
     if np.any(lam_grid < 0):
         raise ValueError(f"lam_grid must be >= 0, got {lam_grid}")
-    _check_seams(scenario, replication, telemetry, control)
+    _check_seams(telemetry, control)
     if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
                       telemetry, control):
         from repro_torch.sharding import sim as fleet_sim
@@ -342,5 +373,5 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
             for e in range(shape[1]) for s in seeds]
     out = _dense_run(policy, cfg, [(s, lam) for lam, _, s in grid],
                      est_stack[[e for _, e, _ in grid]], device, rng,
-                     scenario, placement)
+                     scenario, placement, replication)
     return {k: v.reshape(shape) for k, v in out.items()}

@@ -22,10 +22,13 @@ from repro_torch.core.rng import DrawPlan
 
 @register_policy
 class SloPandasPolicy(SlotPolicy):
-    """SLO-conditioned Balanced-PANDAS: while the live sojourn-p99
+    """SLO-conditioned Balanced-PANDAS: while the in-scan sojourn-p99
     estimate breaches ``slo_target`` (slots), routing adds a
     ``drain_bias`` x workload penalty and idle servers drain their
-    longest queue; without telemetry it IS Balanced-PANDAS, bitwise."""
+    longest queue; otherwise — and always when telemetry is off — it IS
+    Balanced-PANDAS, bitwise.  (The port's "in-scan" estimate is the
+    dense slot loop's; its breach branch comes with the telemetry
+    slice.)"""
 
     name = "slo_pandas"
 

@@ -27,19 +27,28 @@ plays the scenario back on its step clock (`HostPlayback`, one cycle every
 ``scenario_horizon`` steps) and inflates every observed prefill time by
 the playback's slowdown of that replica and tier, so stragglers and
 congested tiers open and close during a run and the router's EWMA sees
-them.  A scenario with a failure track (``server_loss``, ``rack_loss``)
-raises `NotImplementedError`: the reference runs it through its
-replication machinery, which comes with the replication slice of the
-port.
+them.
 
 Placement (`EngineConfig.placement`: a name, `PlacementConfig` or
 instance): every routed request's prefix is looked up in the placement,
 which is told of the read (`note_read`); every ``rebalance_every`` routed
 requests (0: never) the placement re-derives its popularity-driven part
 (`rebalance`, which only ``hot_aware`` acts on).  `routed` and
-`rebalanced` count both.  Ported so far besides: replication
-None/"fixed", no control plane and no event tracer; the other settings
-raise `NotImplementedError` naming the slice of the port that adds them.
+`rebalanced` count both.
+
+Replication (`EngineConfig.replication`, `repro_torch.replication`): the
+lifecycle (`HostReplication`) engages only when a dynamic controller is
+set or the scenario has a failure track (``server_loss``,
+``rack_loss``).  Then each step first observes the playback's liveness
+mask; arrivals route over the lifecycle's live replica set of their
+prefix (an all-dead prefix falls back to the placement's static set and
+counts in `lost_routes`); an admission's observed prefill time is
+divided by its replica's migration contention and, on a dead replica,
+multiplied by `DEAD_SLOWDOWN`, so the EWMA estimator sheds it.  With
+None/"fixed" and no failures nothing is built and the engine is the one
+without replication.  Ported so far besides: no control plane and no
+event tracer; those raise `NotImplementedError` naming the slice of the
+port that adds them.
 """
 
 from __future__ import annotations
@@ -60,8 +69,14 @@ from repro_torch.core.policy import make_router
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.placement import make_placement
+from repro_torch.replication import make_replication
 from repro_torch.telemetry import percentiles_from_hist
 from repro_torch.workloads import host_playback, make_scenario
+
+# Observed-service-time inflation for a request admitted on a DEAD replica
+# (failure scenarios): large enough that the EWMA estimator sheds the
+# replica within a few observations, finite so the engine still drains.
+DEAD_SLOWDOWN = 25.0
 
 
 @dataclasses.dataclass
@@ -101,9 +116,11 @@ class EngineConfig:
     # Scenario; None -> static) is played back over `scenario_horizon`
     # engine steps a cycle; `placement` (name / PlacementConfig /
     # instance; None -> uniform) places the prefixes, rebalanced every
-    # `rebalance_every` routed requests (0: never); the others support
-    # only their defaults so far (see `_check_supported`), under which
-    # `num_prefixes` does nothing.
+    # `rebalance_every` routed requests (0: never); `replication` (name /
+    # ReplicationConfig / controller; None -> fixed) runs the lifecycle
+    # over a catalogue of `num_prefixes` prefixes (prefix ids wrap mod
+    # it) when engaged; `tracer` and `control` support only their
+    # defaults so far (see `_check_supported`).
     scenario: object = None
     scenario_horizon: int = 400  # engine steps per playback cycle
     placement: object = None
@@ -122,8 +139,6 @@ def _check_supported(ecfg: EngineConfig) -> None:
     """Raise for a seam the port has not ported yet, naming the slice of
     the port that adds it."""
     unported = (
-        ("replication", ecfg.replication not in (None, "fixed"),
-         "replication"),
         ("tracer", ecfg.tracer is not None, "telemetry"),
         ("control", ecfg.control is not None, "control"),
     )
@@ -260,12 +275,17 @@ class ServingEngine:
                                       n_rep, float(ecfg.scenario_horizon),
                                       num_tiers=self.spec.num_tiers,
                                       rack_of=np.asarray(self.spec.rack_of))
-        if self.playback.alive is not None:
-            raise NotImplementedError(
-                f"EngineConfig.scenario={ecfg.scenario!r} has a failure "
-                f"track (down_servers / down_racks), which runs through the "
-                f"replication machinery: it comes with the replication "
-                f"slice of the port")
+        # Replication lifecycle: engaged only when a controller is
+        # configured or the scenario kills servers — otherwise replica
+        # lookups go straight to the placement policy.
+        ctrl = make_replication(ecfg.replication)
+        if ctrl.is_static and self.playback.alive is None:
+            self.replication = None
+        else:
+            self.replication = ctrl.build_host(
+                self.spec, self.placement, ecfg.num_prefixes, 3,
+                ecfg.seed, prior)
+        self.lost_routes = 0  # arrivals whose prefix had no live replica
         self.replicas = [Replica(cfg, params, ecfg, self.device)
                          for _ in range(n_rep)]
         self.queue: deque = deque()            # not-yet-routed arrivals
@@ -312,8 +332,19 @@ class ServingEngine:
     def _route_arrivals(self) -> None:
         while self.queue:
             req = self.queue.popleft()
-            locs = self.placement.replicas(self.spec, req.prefix_id, 3,
-                                           self.ecfg.seed)
+            if self.replication is not None:
+                # live replica set from the lifecycle catalogue; an
+                # all-dead prefix falls back to the placement's static
+                # set (a cold-store refetch) and counts as a lost route
+                locs = self.replication.replicas_for(req.prefix_id)
+                self.replication.note_read(req.prefix_id)
+                if not locs:
+                    self.lost_routes += 1
+                    locs = self.placement.replicas(self.spec, req.prefix_id,
+                                                   3, self.ecfg.seed)
+            else:
+                locs = self.placement.replicas(self.spec, req.prefix_id, 3,
+                                               self.ecfg.seed)
             self.placement.note_read(req.prefix_id)
             self.routed += 1
             if self.ecfg.rebalance_every and \
@@ -348,6 +379,12 @@ class ServingEngine:
                 # scenario's slowdown of this replica and tier at this step
                 slow = self.slow.get(i, 1.0) * self.playback.slowdown(
                     self.steps, req.replica, req.tier)
+                if self.replication is not None:
+                    # migration endpoints serve slower (contention); dead
+                    # replicas inflate hard so the EWMA sheds them
+                    slow /= self.replication.contention_mult(req.replica)
+                    if not self.replication.is_alive(req.replica):
+                        slow *= DEAD_SLOWDOWN
                 elapsed = (time.monotonic() - t0) * slow
                 self.router.on_complete(req.replica, req.tier,
                                         max(elapsed, 1e-4))
@@ -356,6 +393,9 @@ class ServingEngine:
     def step(self) -> None:
         """One engine tick: route arrivals, admit into free slots, one decode
         step on every replica."""
+        if self.replication is not None:
+            self.replication.observe(float(self.steps),
+                                     self.playback.alive_mask_at(self.steps))
         self._route_arrivals()
         self._admit()
         for rep in self.replicas:

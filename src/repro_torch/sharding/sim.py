@@ -135,7 +135,8 @@ def fleet_supported(policy_like: PolicyLike, cfg, scenario=None,
                     telemetry=None) -> Optional[str]:
     """None when the fleet path can run this configuration, else the
     reason it cannot (the dense path must be used).  The default seams
-    may be given by name ("static", "uniform", "fixed")."""
+    may be given by name ("static", "uniform", "fixed"); replication by
+    name, `ReplicationConfig` or controller, as in the reference."""
     name = policy_name(policy_like)
     if name not in _SUPPORTED_POLICIES:
         return (f"policy {name!r} has no fleet step "
@@ -147,7 +148,8 @@ def fleet_supported(policy_like: PolicyLike, cfg, scenario=None,
     from repro_torch.placement import make_placement
     if make_placement(placement).name != "uniform":
         return "only uniform placement has a fleet sampler"
-    if replication not in (None, "fixed"):
+    from repro_torch.replication import make_replication
+    if not make_replication(replication).is_static:
         return "dynamic replication rides the dense scan carry"
     if cfg.topo.num_servers < loc.NUM_REPLICAS:
         return "need at least NUM_REPLICAS servers"

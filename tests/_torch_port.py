@@ -142,6 +142,25 @@ def _policy_draws(seeds, ts, family, b, m, d):
     return jax.vmap(jax.vmap(one, (0, None)), (None, 0))(seeds, ts)
 
 
+def read_logits(chunks: int, read_skew: float) -> np.ndarray:
+    """(C,) float32 logits of the static Zipf(read_skew) chunk-read law,
+    as the reference's `SimReplication` forms them."""
+    w = (np.arange(chunks, dtype=np.float64) + 1.0) ** -read_skew
+    return np.asarray(jnp.asarray(np.log(w / w.sum()), jnp.float32))
+
+
+@functools.partial(jax.jit, static_argnames=("b",))
+def _read_draws(seeds, ts, logits, b):
+    """(T, N, B) chunk reads of the reference's lifecycle:
+    categorical(fold_in(key_t, 0x5EED), logits, shape=(B,)) with key_t =
+    fold_in(PRNGKey(seed), t)."""
+    def one(seed, t):
+        key_t = jax.random.fold_in(jax.random.PRNGKey(seed), t)
+        return jax.random.categorical(jax.random.fold_in(key_t, 0x5EED),
+                                      logits, shape=(b,))
+    return jax.vmap(jax.vmap(one, (0, None)), (None, 0))(seeds, ts)
+
+
 class JaxDenseReplay(DenseSource):
     """The reference dense scan's draws (`repro.core.simulator`), per slot
     and cell ``(seed, lam)``: key_t = fold_in(PRNGKey(seed), t);
@@ -158,11 +177,13 @@ class JaxDenseReplay(DenseSource):
     `racks` > 0 the rack count of a schedule with per-rack weights (the
     reference then splits k_t in three: k_hot, k_rack, k_gum).  Under a
     replica `placement` (name or `PlacementConfig`) that draws blocks of
-    its own, ``g_place`` replays them (`type_draws`)."""
+    its own, ``g_place`` replays them (`type_draws`).  With ``reads=(C,
+    read_skew)`` (the replication machinery engaged) ``read`` replays the
+    lifecycle's chunk reads (`_read_draws`)."""
 
     def __init__(self, policy: str, cells, batch: int, num_servers: int,
                  horizon: int, d: int = 2, lam_mult=None, racks: int = 0,
-                 placement=None):
+                 placement=None, reads=None):
         seeds = jnp.asarray([s for s, _ in cells], jnp.uint32)
         lams = jnp.asarray([lam for _, lam in cells], jnp.float32)
         ts = jnp.arange(horizon, dtype=jnp.int32)
@@ -173,9 +194,12 @@ class JaxDenseReplay(DenseSource):
                                   place=place_blocks(placement)))
         out.update(_policy_draws(seeds, ts, family=_FAMILY[policy],
                                  b=batch, m=num_servers, d=d))
+        if reads is not None:
+            out["read"] = _read_draws(seeds, ts, read_logits(*reads),
+                                      b=batch)
         self._all = {k: torch.from_numpy(np.array(v)) for k, v in
                      out.items()}
-        for k in ("n", "cand", "perm"):
+        for k in ("n", "cand", "perm", "read"):
             if k in self._all:
                 self._all[k] = self._all[k].long()
 

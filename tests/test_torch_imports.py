@@ -39,7 +39,9 @@ def test_port_imports_neither_jax_nor_reference():
                  "models.ssm_ops", "kernels.ssd_scan", "configs.mamba2_13b",
                  "workloads", "workloads.scenario", "workloads.library",
                  "workloads.trace", "workloads.ingest", "utils.doc",
-                 "placement.policy", "placement.capacity"):
+                 "placement.policy", "placement.capacity", "replication",
+                 "replication.lifecycle", "replication.controllers",
+                 "replication.simproj", "replication.host"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -85,6 +87,18 @@ def test_default_device_is_the_card():
         sim.simulate("balanced_pandas", cfg, 5.0, est, placement="hdfs")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rb.placement_study(study, placements=("hot_aware",))
+    # the replication slice: its simulator projection, seam and study
+    from repro_torch.replication import make_replication
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_replication("repair").build_sim(topo, rates.values,
+                                             make_placement(None))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.simulate("balanced_pandas", cfg, 5.0, est,
+                     scenario="server_loss")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rb.replication_study(study, replications=("fixed",),
+                             scenarios=("rack_loss",),
+                             policies=("balanced_pandas",), loads=(0.5,))
     # the serving slice: parameters, caches, the engine and its launcher
     mcfg = registry.get_smoke_config("chatglm3_6b")
     with pytest.raises(RuntimeError, match="no CUDA device"):

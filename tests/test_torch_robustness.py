@@ -67,8 +67,7 @@ def test_every_policy_runs_the_study_grid():
 
 
 @pytest.mark.parametrize("study,slice_name", [
-    ("replication_study", "replication"), ("tail_study", "telemetry"),
-    ("control_study", "control")])
+    ("tail_study", "telemetry"), ("control_study", "control")])
 def test_later_studies_raise_naming_their_slice(study, slice_name):
     cfg = rb.default_study(fast=True)
     assert getattr(rrb, study).__name__ == study

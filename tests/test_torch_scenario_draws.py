@@ -4,7 +4,9 @@
     ``sweep[l, e, s]`` equals `simulate` cell by cell under a scenario.
 (b) A segment's counts follow its rate; the other draws stay those of
     the static run; a weighted schedule adds the rack Gumbels.
-(c) Failure-track scenarios raise, naming the replication slice.
+(c) Failure-track scenarios run through the replication machinery
+    (tests/test_torch_replication*.py holds it against the reference) and
+    return its metrics; the fleet path stays static-only.
 """
 
 import numpy as np
@@ -113,17 +115,25 @@ def test_scenario_arrivals_follow_the_segment_rate():
 
 
 def test_failure_scenarios_raise_naming_replication():
+    """The four failure-track specs that raised before the replication
+    slice now run (the name is kept from then): each engages the
+    lifecycle under the default "fixed" controller and returns its
+    metrics, with the scenario's arrivals the same as the static run's."""
     est = sim.make_estimates(_SMALL, "network", 0.0, -1)
     down = wl.Scenario("down", (wl.Segment(0.0),
                                 wl.Segment(0.5, down_servers=(1,))))
+    static = sim.simulate("balanced_pandas", _SMALL, 5.0, est, device="cpu")
     for spec in ("server_loss", "rack_loss", down,
                  wl.ScenarioConfig("server_loss", {"servers": (3,)})):
-        with pytest.raises(NotImplementedError, match="replication slice"):
-            sim.simulate("balanced_pandas", _SMALL, 5.0, est, scenario=spec,
-                         device="cpu")
-        with pytest.raises(NotImplementedError, match="replication slice"):
-            sim.sweep("blind_pandas", _SMALL, [5.0], est[None], [0],
-                      scenario=spec, device="cpu")
+        one = sim.simulate("balanced_pandas", _SMALL, 5.0, est,
+                           scenario=spec, device="cpu")
+        assert set(one) > set(static)
+        assert one["repair_moves"] == 0.0 and one["availability"] <= 1.0
+        assert one["mean_replication"] < 3.0   # the failure wiped replicas
+        grid = sim.sweep(_policy("blind_pandas", (0.5, 0.45, 0.25)), _SMALL,
+                         [5.0], est[None], [0], scenario=spec, device="cpu")
+        assert grid["data_loss_frac"].shape == (1, 1, 1)
+        assert np.isfinite(grid["mean_delay"]).all()
     # the fleet path stays static-only, as in the reference
     with pytest.raises(ValueError, match="only the static scenario"):
         sim.simulate("balanced_pandas", _SMALL, 5.0, est, fleet=True,

@@ -195,9 +195,6 @@ def test_oversubscribed_engine_drains_on_every_replica(model):
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("scenario", "server_loss", "replication"),
-    ("scenario", "rack_loss", "replication"),
-    ("replication", "popularity", "replication"),
     ("tracer", object(), "telemetry"), ("control", "admission", "control")])
 def test_unported_engine_settings_raise(model, field, value, slice_name):
     _, _, cfg, prm = model

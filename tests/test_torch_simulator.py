@@ -7,8 +7,10 @@ reference's."""
 import numpy as np
 import pytest
 
+from repro import replication as rrepl
 from repro.core import locality as rloc, simulator as rsim
 from repro.sharding import sim as rfs
+from repro_torch import replication as repl
 from repro_torch.core import locality as loc, simulator as sim
 from repro_torch.core.policy import (PolicyConfig, available_policies,
                                      make_policy)
@@ -84,18 +86,33 @@ SEAM_CASES = (
     ("balanced_pandas", {"placement": "uniform"}),
     ("balanced_pandas", {"replication": "repair"}),
     ("balanced_pandas", {"replication": "fixed"}),
+    ("balanced_pandas", {"replication": ("config", "fixed", {})}),
+    ("balanced_pandas", {"replication": ("instance", "fixed", {})}),
+    ("balanced_pandas", {"replication": ("config", "repair", {"lanes": 2})}),
     ("balanced_pandas", {"telemetry": True}),
     ("balanced_pandas", {"telemetry": False}),
 )
 
 
+def _args(kw, ref):
+    """A case's seam arguments; a ``(kind, name, options)`` replication
+    becomes a config or an instance of the reference's package (`ref`) or
+    the port's."""
+    args = [kw.get(a) for a in ("scenario", "placement", "replication",
+                                "telemetry")]
+    if isinstance(args[2], tuple):
+        kind, name, opts = args[2]
+        mod = rrepl if ref else repl
+        args[2] = (mod.ReplicationConfig(name, opts) if kind == "config"
+                   else mod.make_replication(name, **opts))
+    return args
+
+
 def test_fleet_supported_reasons_match_reference():
     rcfg, cfg = _small()
     for policy, kw in SEAM_CASES:
-        args = [kw.get(a) for a in ("scenario", "placement", "replication",
-                                    "telemetry")]
-        assert fs.fleet_supported(policy, cfg, *args) == \
-            rfs.fleet_supported(policy, rcfg, *args), (policy, kw)
+        assert fs.fleet_supported(policy, cfg, *_args(kw, False)) == \
+            rfs.fleet_supported(policy, rcfg, *_args(kw, True)), (policy, kw)
 
 
 def test_engage_rule_matches_reference():
@@ -104,10 +121,9 @@ def test_engage_rule_matches_reference():
         rcfg, cfg = _small(m)
         for fleet in (None, False, True):
             for policy, kw in SEAM_CASES:
-                args = [kw.get(a) for a in ("scenario", "placement",
-                                            "replication", "telemetry")]
+                args, rargs = _args(kw, False), _args(kw, True)
                 try:
-                    want = rsim._fleet_engaged(fleet, policy, rcfg, *args)
+                    want = rsim._fleet_engaged(fleet, policy, rcfg, *rargs)
                 except ValueError as e:
                     with pytest.raises(ValueError) as got:
                         sim._fleet_engaged(fleet, policy, cfg, *args)
@@ -125,10 +141,7 @@ def test_engage_rule_matches_reference():
 def test_unported_paths_raise_naming_their_slice():
     _, cfg = _small()
     est = sim.make_estimates(cfg, "network", 0.0, -1)
-    for kw, slice_name in (({"scenario": "server_loss"}, "replication"),
-                           ({"scenario": "rack_loss"}, "replication"),
-                           ({"replication": "repair"}, "replication"),
-                           ({"telemetry": True}, "telemetry"),
+    for kw, slice_name in (({"telemetry": True}, "telemetry"),
                            ({"control": "admission"}, "control")):
         for fleet in (True, False):
             with pytest.raises(NotImplementedError, match=slice_name):
