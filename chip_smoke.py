@@ -224,7 +224,37 @@ on failure:
    5 and 7 dead, B = 9; the quickstart's M = 1024, B = 128 with racks of
    64 and rack 0 dead) through `ops.wwl_route` and, as queue lengths,
    `ops.maxweight_claim`, bit for bit against their plain versions on
-   the group-restricted path, with the racks each row spans.
+   the group-restricted path, with the racks each row spans;
+15. the telemetry slice.  (a, run after 14a) the tail study
+   (examples/tail_latency_study.py: `tail_study` over the TAIL_POLICIES
+   Balanced-PANDAS, JSQ-MaxWeight and FIFO at the TAIL_LOADS 0.90/0.95/
+   0.99 of the hot-rack capacity, Topology(24, 6), exact estimates,
+   seeds 0-7, `TelemetryConfig()` defaults, depth cut to horizon 2000 /
+   warmup 500 from 12000 / 3000), counts set to 0 before and read after
+   (no kernel on the dense path); its table and each sweep's seconds
+   and cell-slots/s; fatal: the histogram mass plus
+   `telemetry_unmatched` unequal to a cell's in-window completions, an
+   unmatched or dropped pairing or percentiles outside 0 < p50 <= p95
+   <= p99 < inf for Balanced-PANDAS and JSQ-MaxWeight at rho 0.90 and
+   0.95, a metric of the three policies that the recorder changes
+   (100-slot sweeps), SLO-PANDAS without telemetry unequal to
+   Balanced-PANDAS, SLO-PANDAS at target 2.0 and rho 0.99 left on
+   Balanced-PANDAS's sample path, a host sync in 23 recorder-on slots of
+   Balanced-PANDAS or of SLO-PANDAS with signals (sync debug mode
+   "error"); reported: FIFO's overflow share and whether
+   `maybe_warn_overflow` fires, SLO-PANDAS at target 40 beside
+   Balanced-PANDAS at rho 0.99, profiled windows of 8 recorder-on
+   Balanced-PANDAS slots, 8 without the recorder and 8 of SLO-PANDAS
+   with signals (the breach branch's launches).  (b, run after
+   14b) phase 14b's engine, requests and submissions with
+   `tracer=EventRecorder()`, the trace saved and read back with
+   `load_trace`: fatal unless every request drains with 17 tokens,
+   flash_attention = 28 x prefills, logits finite, 16 submit, route and
+   admit instants and 16 request spans on tids 1-4 on the step clock,
+   decode spans of cat kernel, a server_down, repair_commit events equal
+   to the lifecycle's moves and a repair_start, the router's and the
+   four replicas' thread names, no dropped event; tokens/s beside 14b's
+   and the median decode span.
 
 Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1282,7 +1312,7 @@ def phase_dense_loop(dev, slots: int = 32, fleet_cfg=None):
     def build(name):
         est = torch.as_tensor(np.stack([ests[e] for _, _, e in cells]),
                               device=dev)
-        pol, init, step, _ = sim._build_dense_step(name, cfg, est, dev)
+        pol, init, step, _, _ = sim._build_dense_step(name, cfg, est, dev)
         src = DenseDeviceSource([(s, lam) for s, lam, _ in cells],
                                 make_policy(name).draw_plan(m),
                                 cfg.max_arrivals, m, dev)
@@ -1458,8 +1488,8 @@ def phase_drift(dev) -> dict:
     def build(name, scen):
         sched = wl.compile_schedule(wl.make_scenario(scen), scfg.topo,
                                     DRIFT_HORIZON, scfg.p_hot, device=dev)
-        _, init, step, _ = sim._build_dense_step(name, scfg, est_t, dev,
-                                                 sched)
+        _, init, step, _, _ = sim._build_dense_step(name, scfg, est_t,
+                                                    dev, sched)
         src = DenseDeviceSource(cells_l, make_policy(name).draw_plan(m),
                                 scfg.max_arrivals, m, dev, sched)
         return init(), step, src
@@ -1612,8 +1642,8 @@ def phase_placement(dev) -> dict:
     def build(name, scen, plc):
         sched = wl.compile_schedule(wl.make_scenario(scen), scfg.topo,
                                     PLACE_HORIZON, scfg.p_hot, device=dev)
-        _, init, step, _ = sim._build_dense_step(name, scfg, est_t, dev,
-                                                 sched, plc)
+        _, init, step, _, _ = sim._build_dense_step(name, scfg, est_t,
+                                                    dev, sched, plc)
         src = DenseDeviceSource(cells_l, make_policy(name).draw_plan(m),
                                 scfg.max_arrivals, m, dev, sched,
                                 make_placement(plc).gumbel_blocks(scfg.topo))
@@ -1884,8 +1914,8 @@ def phase_replication(dev) -> dict:
         sched = wl.compile_schedule(wl.make_scenario(scen), ccfg.topo,
                                     REPL_CHECK_HORIZON, ccfg.p_hot,
                                     device=dev)
-        _, init, step, rep = sim._build_dense_step(name, ccfg, est_t, dev,
-                                                   sched, None, ctrl)
+        _, init, step, rep, _ = sim._build_dense_step(
+            name, ccfg, est_t, dev, sched, None, ctrl)
         src = DenseDeviceSource(cells_l, make_policy(name).draw_plan(m),
                                 scfg.max_arrivals, m, dev, sched, 0,
                                 None if rep is None else rep.read_cdf)
@@ -1998,6 +2028,214 @@ def phase_replication_kernels(dev) -> dict:
         raise AssertionError(f"post-repair rows: kernels disagree with "
                              f"their plain versions: {bad}")
     return dict(rows=rows, mismatches=bad)
+
+
+# ---------------------------------------------------------------------------
+# The telemetry slice: the tail study on the dense path (phase 15a) and
+# the traced engine (phase 15b, inside phase_serving)
+# ---------------------------------------------------------------------------
+
+# examples/tail_latency_study.py's study (Topology(24, 6), the TAIL_LOADS
+# 0.90/0.95/0.99 of the hot-rack capacity, exact estimates, the
+# TAIL_POLICIES, `TelemetryConfig()` defaults), its depth cut from
+# 12000 / 3000 slots to hold phase 15 near 100 s; the checks that need no
+# long run at TAIL_CHECK_HORIZON
+TAIL_HORIZON, TAIL_WARMUP = 2000, 500
+TAIL_CHECK_HORIZON = 100
+TAIL_SEEDS = tuple(range(8))
+TAIL_CLEAN = ("balanced_pandas", "jsq_maxweight")   # gated at 0.90/0.95
+SLO_BREACH_TARGET = 2.0       # breached from the first slots at rho 0.99
+SLO_REPORT_TARGET = 40.0      # reported beside Balanced-PANDAS at 0.99
+
+
+def phase_tail(dev) -> dict:
+    """Phase 15a: `tail_study` on the card, each sweep timed, launch counts
+    0 before and after (the dense path runs no kernel); its table and
+    cell-slots/s; FIFO's overflow share and whether `maybe_warn_overflow`
+    fires; SLO-PANDAS at target 40 beside Balanced-PANDAS at rho 0.99;
+    profiled windows of 8 recorder-on Balanced-PANDAS slots, 8 without
+    the recorder and 8 of SLO-PANDAS with signals.  Fatal: the histogram mass plus `telemetry_unmatched`
+    unequal to a cell's in-window completions; for Balanced-PANDAS and
+    JSQ-MaxWeight at rho 0.90/0.95 a cell with an unmatched or dropped
+    pairing or without 0 < p50 <= p95 <= p99 < inf; a metric of
+    Balanced-PANDAS, JSQ-MaxWeight or FIFO that the recorder changes,
+    SLO-PANDAS without telemetry unequal to Balanced-PANDAS, SLO-PANDAS
+    at target 2.0 and rho 0.99 on Balanced-PANDAS's sample path, a host
+    sync in 23 recorder-on slots of Balanced-PANDAS or of SLO-PANDAS
+    with signals."""
+    import warnings
+    from repro_torch.core import locality as loc, robustness as rb
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.policy import PolicyConfig, make_policy
+    from repro_torch.core.rng import DenseDeviceSource
+    from repro_torch.telemetry import TelemetryConfig, maybe_warn_overflow
+
+    cfg = rb.StudyConfig(sim=sim.default_config(horizon=TAIL_HORIZON,
+                                                warmup=TAIL_WARMUP),
+                         seeds=TAIL_SEEDS)
+    scfg = cfg.sim
+    runs, sweep = {}, sim.sweep
+
+    def timed_sweep(policy, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep(policy, *args, **kw)
+        torch.cuda.synchronize()
+        runs[getattr(policy, "name", policy)] = (time.perf_counter() - t0,
+                                                 out)
+        return out
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(sim, "sweep", timed_sweep):
+        study = rb.tail_study(cfg, telemetry=TelemetryConfig(), device=dev)
+    wall = time.perf_counter() - t0
+    _check_counts("tail study", {})
+    print(rb.summarize_tail(study), flush=True)
+    cells = len(rb.TAIL_LOADS) * len(TAIL_SEEDS)
+    rates = {pol: dict(wall_s=sec, cell_slots_per_s=cells * TAIL_HORIZON
+                       / sec) for pol, (sec, _) in runs.items()}
+    print(f"phase 15a, tail study sweeps: {json.dumps(rates)}; {wall:.1f} s "
+          f"for {len(runs)} sweeps of {cells} cells x {TAIL_HORIZON} "
+          f"slots", flush=True)
+
+    # accounting, cell by cell: every in-window completion is binned or
+    # unmatched (throughput x window slots recovers the completion count)
+    window = TAIL_HORIZON - TAIL_WARMUP
+    table, overflow = {}, {}
+    for pol, (_, out) in runs.items():
+        done = np.rint(out["throughput"].astype(np.float64) * window)
+        mass = out["delay_hist"].sum(-1) + out["telemetry_unmatched"]
+        if not np.array_equal(mass, done):
+            raise AssertionError(f"tail {pol}: histogram mass + unmatched "
+                                 f"{mass.ravel().tolist()} against the "
+                                 f"completions {done.ravel().tolist()}")
+        table[pol] = {k: out[k][:, 0].mean(-1).tolist() for k in (
+            "mean_delay", "delay_p50", "delay_p95", "delay_p99",
+            "telemetry_dropped", "telemetry_unmatched",
+            "delay_overflow_frac")}
+        overflow[pol] = float(out["delay_overflow_frac"].max())
+    for pol in TAIL_CLEAN:
+        out = runs[pol][1]
+        for li in (0, 1):   # rho 0.90 and 0.95
+            p = [out[k][li, 0] for k in ("delay_p50", "delay_p95",
+                                         "delay_p99")]
+            ok = ((out["telemetry_unmatched"][li] == 0).all()
+                  and (out["telemetry_dropped"][li] == 0).all()
+                  and (p[0] > 0).all() and (p[0] <= p[1]).all()
+                  and (p[1] <= p[2]).all() and np.isfinite(p[2]).all())
+            if not ok:
+                raise AssertionError(
+                    f"tail {pol} at rho {rb.TAIL_LOADS[li]}: percentiles "
+                    f"{[x.tolist() for x in p]}, unmatched "
+                    f"{out['telemetry_unmatched'][li].ravel().tolist()}, "
+                    f"dropped {out['telemetry_dropped'][li].ravel().tolist()}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fired = maybe_warn_overflow(overflow["fifo"], TelemetryConfig())
+    print(f"phase 15a, table (means over seeds, one entry a load): "
+          f"{json.dumps(table)}", flush=True)
+    print(f"phase 15a: accounting holds in every cell; FIFO's largest "
+          f"overflow share {overflow['fifo']}, maybe_warn_overflow "
+          f"{'fires' if fired else 'stays quiet'}"
+          f"{': ' + str(caught[0].message) if caught else ''}", flush=True)
+
+    # SLO-PANDAS at a target of 40 slots beside Balanced-PANDAS at 0.99
+    lam = np.asarray(rb.TAIL_LOADS, np.float32) * np.float32(
+        study["capacity"])
+    est = sim.make_estimates(scfg, "network", 0.0, -1)[None]
+    seeds = np.asarray(TAIL_SEEDS)
+    t0 = time.perf_counter()
+    slo40 = sweep(PolicyConfig("slo_pandas", {"slo_target":
+                                              SLO_REPORT_TARGET}),
+                  scfg, lam[2:], est, seeds, telemetry=TelemetryConfig(),
+                  device=dev)
+    slo_s = time.perf_counter() - t0
+    bp99 = runs["balanced_pandas"][1]
+    slo_row = {label: {k: float(np.mean(out[k][li])) for k in (
+        "mean_delay", "delay_p50", "delay_p95", "delay_p99")}
+        for label, out, li in (("slo_pandas@40", slo40, 0),
+                               ("balanced_pandas", bp99, 2))}
+    print(f"phase 15a, rho 0.99, slo_pandas (target {SLO_REPORT_TARGET}) "
+          f"beside balanced_pandas: {json.dumps(slo_row)} ({slo_s:.1f} s)",
+          flush=True)
+
+    # purity: the recorder changes no metric; SLO-PANDAS without telemetry
+    # is Balanced-PANDAS; with it at target 2.0 the breach moves the path
+    ccfg = sim.default_config(horizon=TAIL_CHECK_HORIZON,
+                              warmup=TAIL_CHECK_HORIZON // 4)
+    for pol in rb.TAIL_POLICIES:
+        off = sweep(pol, ccfg, lam, est, seeds, device=dev)
+        on = sweep(pol, ccfg, lam, est, seeds, telemetry=True, device=dev)
+        bad = [k for k in off if not np.array_equal(off[k], on[k])]
+        if bad:
+            raise AssertionError(f"the recorder changed {pol}'s {bad}")
+        if pol == "balanced_pandas":
+            bp_off, bp_on = off, on
+    slo_off = sweep("slo_pandas", ccfg, lam, est, seeds, device=dev)
+    if set(slo_off) != set(bp_off) or any(
+            not np.array_equal(slo_off[k], bp_off[k]) for k in bp_off):
+        raise AssertionError("slo_pandas without telemetry differs from "
+                             "balanced_pandas")
+    slo2 = sweep(PolicyConfig("slo_pandas", {"slo_target":
+                                             SLO_BREACH_TARGET}),
+                 ccfg, lam[2:], est, seeds, telemetry=True, device=dev)
+    moved = [k for k in ("mean_n", "final_n", "delay_hist")
+             if not np.array_equal(slo2[k], bp_on[k][2:])]
+    if not moved:
+        raise AssertionError(f"slo_pandas at target {SLO_BREACH_TARGET}, "
+                             f"rho 0.99: the breach left Balanced-PANDAS's "
+                             f"sample path unchanged")
+    print(f"phase 15a: the recorder leaves {rb.TAIL_POLICIES} bit for bit; "
+          f"slo_pandas without telemetry is balanced_pandas; at target "
+          f"{SLO_BREACH_TARGET} the breach moved {moved}", flush=True)
+
+    # no host sync in the recorder-on loop (in the window, a series row
+    # written at slot 16), and a profiled window beside the slot without
+    # the recorder
+    m = scfg.topo.num_servers
+    cap = loc.capacity_hot_rack(scfg.topo, scfg.true_rates, scfg.p_hot)
+    cells_l = [(s, np.float32(rho * cap)) for rho in rb.TAIL_LOADS
+               for s in TAIL_SEEDS]
+    est_t = torch.as_tensor(np.repeat(est, len(cells_l), 0), device=dev)
+    qcfg = sim.default_config(horizon=TAIL_CHECK_HORIZON, warmup=4)
+
+    def build(policy, telemetry):
+        _, init, step, _, _ = sim._build_dense_step(
+            policy, qcfg, est_t, dev, telemetry=telemetry)
+        src = DenseDeviceSource(cells_l, make_policy(policy).draw_plan(m),
+                                qcfg.max_arrivals, m, dev)
+        return init(), step, src
+
+    for policy in ("balanced_pandas", PolicyConfig(
+            "slo_pandas", {"slo_target": SLO_BREACH_TARGET})):
+        carry, step, src = build(policy, TelemetryConfig())
+        _no_sync(step, carry, src.slot, 24)
+    print("phase 15a: no host sync in 23 recorder-on slots of "
+          "balanced_pandas and of slo_pandas with signals", flush=True)
+    windows = {}
+    for label, policy, telemetry in (
+            ("recorder", "balanced_pandas", TelemetryConfig()),
+            ("static", "balanced_pandas", None),
+            ("slo_breach", PolicyConfig("slo_pandas", {
+                "slo_target": SLO_BREACH_TARGET}), TelemetryConfig())):
+        carry, step, src = build(policy, telemetry)
+        t = 0
+
+        def one():
+            nonlocal carry, t
+            carry = step(carry, t, src.slot(t))
+            t += 1
+
+        for _ in range(8):
+            one()
+        windows[label] = _profile_window(dev, one, 8)
+    print(f"phase 15a, profiled windows of the Balanced-PANDAS slot at "
+          f"{len(cells_l)} cells, recorder on and off, and of SLO-PANDAS "
+          f"with signals: {json.dumps(windows)}", flush=True)
+    return dict(wall_s=wall, sweeps=rates, table=table,
+                fifo_overflow=overflow["fifo"], warned=fired,
+                slo_target_40=slo_row, windows=windows)
 
 
 # ---------------------------------------------------------------------------
@@ -2844,6 +3082,9 @@ def phase_serving(dev, arch=SERVE_ARCH):
         t0 = time.perf_counter()
         run["replication"] = replication_serving(dev, cfg, params, run)
         run["replication_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run["traced"] = traced_serving(dev, cfg, params, run["replication"])
+        run["traced_s"] = time.perf_counter() - t0
     if arch == MAMBA_ARCH:
         run["tokens_per_s_tc_vs_recurrent"] = ssd_ab(eng, reqs)
 
@@ -3084,6 +3325,83 @@ def replication_serving(dev, cfg, params, static_run) -> dict:
     if eng.lost_routes:
         raise AssertionError(f"server_loss + repair: {eng.lost_routes} "
                              f"lost routes")
+    return run
+
+
+def traced_serving(dev, cfg, params, repl_run) -> dict:
+    """Phase 15b: phase 14b's engine, defaults, requests and submissions
+    (server_loss + repair, scenario_horizon 12, one request a step) with
+    ``tracer=EventRecorder()``; the trace saved to a temporary directory
+    and read back with `load_trace`.  Fatal: a request not drained with
+    17 tokens, launches other than 28 x prefills, non-finite logits; not
+    16 submit, route and admit instants and 16 request spans on tids 1-4
+    on the step clock; no decode span of cat kernel; no server_down; a
+    repair_commit count other than the lifecycle's moves, or no
+    repair_start; thread names other than the router's and the four
+    replicas'; a dropped event.  Prints tokens/s beside 14b's and the
+    median decode span (host ms of a replica step)."""
+    import tempfile
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+    from repro_torch.telemetry import CLOCK_UNIT_US, EventRecorder, load_trace
+
+    tracer = EventRecorder()
+    eng = ServingEngine(cfg, params, EngineConfig(
+        scenario="server_loss", replication="repair", scenario_horizon=12,
+        tracer=tracer), device=dev)
+    reqs = serve_requests(cfg)
+    run = drained_run(dev, SERVE_ARCH, cfg, eng, reqs,
+                      f"{SERVE_ARCH} traced server_loss + repair serving",
+                      submit_at=list(range(len(reqs))))
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = load_trace(tracer.save(os.path.join(tmp, "engine.json")))
+    evs = doc["traceEvents"]
+    count = {}
+    for e in evs:
+        count[e["name"]] = count.get(e["name"], 0) + 1
+    spans = [e for e in evs if e["ph"] == "X" and e.get("cat") == "request"]
+    decode = [e["dur"] / 1e3 for e in evs if e["name"] == "decode"
+              and e.get("cat") == "kernel"]
+    threads = sorted(e["args"]["name"] for e in evs
+                     if e["name"] == "thread_name")
+    rep = eng.replication
+    n = len(reqs)
+    run.update(events=len(evs), dropped_events=doc["otherData"]["dropped"],
+               counts={k: count.get(k, 0) for k in (
+                   "submit", "route", "admit", "queued", "decode",
+                   "server_down", "server_up", "repair_start",
+                   "repair_commit", "lost_route")},
+               request_spans=len(spans), moves=rep.moves,
+               decode_span_ms_median=(float(np.median(decode))
+                                      if decode else None),
+               replication_tokens_per_s=repl_run["tokens_per_s"])
+    print(f"phase 15b, serving {cfg.name} traced: {json.dumps(run)}",
+          flush=True)
+    bad = []
+    for name in ("submit", "route", "admit"):
+        if count.get(name, 0) != n:
+            bad.append(f"{count.get(name, 0)} {name} instants")
+    if len(spans) != n or any(
+            not 1 <= e["tid"] <= len(eng.replicas)
+            or e["ts"] % CLOCK_UNIT_US or e["dur"] < CLOCK_UNIT_US
+            for e in spans):
+        bad.append(f"request spans (tid, ts, dur) "
+                   f"{[(e['tid'], e['ts'], e['dur']) for e in spans]}")
+    if not decode:
+        bad.append("no decode span of cat kernel")
+    if count.get("server_down", 0) < 1:
+        bad.append("no server_down")
+    if count.get("repair_commit", 0) != rep.moves or \
+            count.get("repair_start", 0) < 1:
+        bad.append(f"{count.get('repair_commit', 0)} repair_commit for "
+                   f"{rep.moves} moves, {count.get('repair_start', 0)} "
+                   f"repair_start")
+    if threads != sorted(["router"] + [f"replica{i}" for i in
+                                       range(len(eng.replicas))]):
+        bad.append(f"thread names {threads}")
+    if doc["otherData"]["dropped"]:
+        bad.append(f"{doc['otherData']['dropped']} dropped events")
+    if bad:
+        raise AssertionError(f"traced serving: {'; '.join(bad)}")
     return run
 
 
@@ -3411,6 +3729,8 @@ def main(argv=None) -> int:
     done("13a")
     phase_replication(dev)
     done("14a")
+    phase_tail(dev)
+    done("15a")
     place_kernels = phase_placement_kernels(dev)
     done("13c")
     repl_kernels = phase_replication_kernels(dev)
@@ -3431,6 +3751,7 @@ def main(argv=None) -> int:
     done("10")
     seconds["13b (within 9+12b)"] = serve_run["placement_s"]
     seconds["14b (within 9+12b)"] = serve_run["replication_s"]
+    seconds["15b (within 9+12b)"] = serve_run["traced_s"]
     print(f"phase seconds (build excluded): {json.dumps(seconds)}",
           flush=True)
 
@@ -3500,6 +3821,8 @@ def main(argv=None) -> int:
             label: run["launches"]["flash_attention"]
             for label, run in serve_run["placement"].items()},
         "replication_launches": serve_run["replication"]["launches"][
+            "flash_attention"],
+        "traced_launches": serve_run["traced"]["launches"][
             "flash_attention"],
         "max_abs_err": attn_err,
         "ms": main_attn["ms"], "plain_ms": main_attn["plain_ms"],

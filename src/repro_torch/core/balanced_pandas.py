@@ -49,6 +49,15 @@ def num_in_system(s: PandasState) -> torch.Tensor:
     return s.q.sum(dim=(-2, -1)) + (s.serving > 0).sum(dim=-1)
 
 
+def telemetry_gauges(s: PandasState):
+    """Per-tier queued counts and busy servers per cell, (N,) float32 each
+    — shared by every policy on the PANDAS (M, K) queue structure."""
+    out = {f"queued_tier{t}": s.q[..., t].sum(dim=-1).to(torch.float32)
+           for t in range(s.q.shape[-1])}
+    out["in_service"] = (s.serving > 0).sum(dim=-1).to(torch.float32)
+    return out
+
+
 def workload(s: PandasState, est: torch.Tensor) -> torch.Tensor:
     """(..., M) estimated weighted workload W_m (waiting + in-service
     share).
@@ -90,15 +99,20 @@ def push_task(s: PandasState, m_star: torch.Tensor, tier_m: torch.Tensor,
 
 
 def _route_min(s: PandasState, gumbel, cell, est_rate, pref, inc, est,
-               resid, candidates=None) -> PandasState:
+               resid, candidates=None, breach=None,
+               drain_bias: float = 0.0) -> PandasState:
     """Push one lane to the random argmin of W / rate - rate * 1e-6 (the
     faster tier wins an exact tie; then the Gumbels), over `candidates`
     when given.  `cell` (..., M) is the flat (server, tier) index of the
     task at each server, `inc` the lane's 0/1 increment; `pref` is
     ``est_rate * 1e-6`` and `resid` the in-service share of W, all fixed
-    while a slot's lanes are routed."""
+    while a slot's lanes are routed.  Where `breach` (..., 1) is set
+    (SLO-PANDAS), the score gains ``drain_bias * W`` after it is formed,
+    in the reference's order of float operations."""
     w = _queued_work(s.q, est) + resid
     score = w / est_rate - pref
+    if breach is not None:
+        score = torch.where(breach, score + drain_bias * w, score)
     if candidates is not None:
         score = torch.where(candidates, score, float("inf"))
     m_star = loc.random_argmin(gumbel, score)
@@ -123,14 +137,15 @@ def lane_rates(types: torch.Tensor, est: torch.Tensor, ancestors):
 
 def route_one(s: PandasState, gumbel: torch.Tensor, task: torch.Tensor,
               active: torch.Tensor, est: torch.Tensor,
-              ancestors: torch.Tensor) -> PandasState:
+              ancestors: torch.Tensor, candidates=None) -> PandasState:
     """Route one arrival per cell against the live workloads (estimated
-    rates).  Tie-break: among minimal scores prefer the faster tier (the
-    -rate*1e-6 term), then the largest of the (..., M) `gumbel`."""
+    rates), over the (..., M) `candidates` when given.  Tie-break: among
+    minimal scores prefer the faster tier (the -rate*1e-6 term), then the
+    largest of the (..., M) `gumbel`."""
     cell, est_rate, pref = lane_rates(task[..., None, :], est, ancestors)
     return _route_min(s, gumbel, cell[..., 0, :], est_rate[..., 0, :],
                       pref[..., 0, :], active.to(s.q.dtype), est,
-                      _in_service_work(s.serving, est))
+                      _in_service_work(s.serving, est), candidates)
 
 
 def service_completions(s: PandasState, u_serve: torch.Tensor,
@@ -143,13 +158,18 @@ def service_completions(s: PandasState, u_serve: torch.Tensor,
     return done, done.sum(dim=-1).to(torch.int32)
 
 
-def schedule_idle(s: PandasState, done: torch.Tensor) -> PandasState:
+def schedule_idle(s: PandasState, done: torch.Tensor,
+                  breach=None) -> PandasState:
     """Idle servers (post-completion) pick their fastest nonempty tier
-    queue (local > rack-local > ... > remote, conflict-free)."""
+    queue (local > rack-local > ... > remote, conflict-free); in a cell
+    whose (..., 1) `breach` is set (SLO-PANDAS), their LONGEST queue
+    (the first of equals) instead."""
     k = s.q.shape[-1]
     serving = torch.where(done, torch.zeros_like(s.serving), s.serving)
     nonempty = s.q > 0                                   # (..., M, K)
     first = torch.argmax(nonempty.to(torch.int32), dim=-1)  # first max wins
+    if breach is not None:
+        first = torch.where(breach, torch.argmax(s.q, dim=-1), first)
     has_task = nonempty.any(dim=-1)
     take = (serving == 0) & has_task
     tiers = torch.arange(k, device=s.q.device)
@@ -161,27 +181,30 @@ def schedule_idle(s: PandasState, done: torch.Tensor) -> PandasState:
 
 
 def serve_and_schedule(s: PandasState, u_serve: torch.Tensor,
-                       true_rates: torch.Tensor):
-    """Service completions (true rates) + idle-server scheduling.
-    Returns (state, completions)."""
+                       true_rates: torch.Tensor, breach=None):
+    """Service completions (true rates) + idle-server scheduling (under
+    `breach`, see `schedule_idle`).  Returns (state, completions)."""
     done, completions = service_completions(s, u_serve, true_rates)
-    return schedule_idle(s, done), completions
+    return schedule_idle(s, done, breach), completions
 
 
 def route_lanes(s: PandasState, draws: DenseDraws, types: torch.Tensor,
                 active: torch.Tensor, est: torch.Tensor,
-                ancestors: torch.Tensor) -> PandasState:
+                ancestors: torch.Tensor, breach=None,
+                drain_bias: float = 0.0) -> PandasState:
     """The slot's B arrival lanes for N cells, routed one after another
     (each sees the workloads the earlier lanes left).
 
     types (N, B, 3), active (N, B), est (N, M, K) estimated rates; the
-    draws' route Gumbels are (N, B, M)."""
+    draws' route Gumbels are (N, B, M); `breach` (N, 1) and `drain_bias`
+    as `_route_min` takes them."""
     cell, est_rate, pref = lane_rates(types, est, ancestors)
     resid = _in_service_work(s.serving, est)
     lanes = zip(draws.route.unbind(-2), cell.unbind(-2), est_rate.unbind(-2),
                 pref.unbind(-2), active.to(s.q.dtype).unbind(-1))
     for gumbel, cell_i, rate_i, pref_i, inc in lanes:
-        s = _route_min(s, gumbel, cell_i, rate_i, pref_i, inc, est, resid)
+        s = _route_min(s, gumbel, cell_i, rate_i, pref_i, inc, est, resid,
+                       breach=breach, drain_bias=drain_bias)
     return s
 
 
@@ -215,3 +238,6 @@ class BalancedPandasPolicy(SlotPolicy):
 
     def num_in_system(self, s: PandasState) -> torch.Tensor:
         return num_in_system(s)
+
+    def telemetry_gauges(self, s: PandasState):
+        return telemetry_gauges(s)

@@ -119,3 +119,9 @@ class BlindPandasPolicy(SlotPolicy):
         for the drift figures (tracks straggler windows)."""
         return {"est_alpha_mean":
                 _mean_left_to_right(self.estimates(s)[..., 0])}
+
+    def telemetry_gauges(self, s: BlindPandasState):
+        gauges = bp.telemetry_gauges(s.core)
+        gauges["est_alpha_mean"] = _mean_left_to_right(
+            self.estimates(s)[..., 0])
+        return gauges

@@ -124,3 +124,10 @@ class FifoPolicy(SlotPolicy):
 
     def extra_metrics(self, s: FifoState):
         return {"drops": s.drops.to(torch.float32)}
+
+    def telemetry_gauges(self, s: FifoState):
+        # one global queue: its depth plus busy servers (tiers resolve
+        # only when an idle server pulls the head task)
+        return {"queued": s.count.to(torch.float32),
+                "in_service": (s.serving_tier > 0).sum(dim=-1)
+                .to(torch.float32)}

@@ -103,3 +103,6 @@ class JsqMaxWeightPolicy(SlotPolicy):
 
     def num_in_system(self, s: JsqMwState) -> torch.Tensor:
         return num_in_system(s)
+
+    def telemetry_gauges(self, s: JsqMwState):
+        return claiming.telemetry_gauges(s.q, s.serving_tier)

@@ -29,6 +29,20 @@ def candidate_mask(types: torch.Tensor, sampled: torch.Tensor,
     return picked.scatter(-1, sampled.long(), True)
 
 
+def route_one_po_d(s: bp.PandasState, gumbel: torch.Tensor,
+                   sampled: torch.Tensor, task: torch.Tensor,
+                   active: torch.Tensor, est: torch.Tensor,
+                   ancestors: torch.Tensor) -> bp.PandasState:
+    """Route one arrival per cell over {3 locals} and its (..., d)
+    `sampled` servers: `bp.route_one`'s score restricted to those
+    candidates (the rest score +inf), ties broken by the (..., M)
+    `gumbel`.  `sampled` and `gumbel` are the reference's
+    ``choice(k_cand, M, (d,), replace=False)`` and ``gumbel(k_tie,
+    (M,))``."""
+    return bp.route_one(s, gumbel, task, active, est, ancestors,
+                        candidate_mask(task, sampled, est.shape[-2]))
+
+
 def slot_step(s: bp.PandasState, draws: DenseDraws, types: torch.Tensor,
               active: torch.Tensor, est: torch.Tensor,
               true_rates: torch.Tensor, ancestors: torch.Tensor):
@@ -74,3 +88,6 @@ class PandasPoDPolicy(SlotPolicy):
 
     def num_in_system(self, s: bp.PandasState) -> torch.Tensor:
         return bp.num_in_system(s)
+
+    def telemetry_gauges(self, s: bp.PandasState):
+        return bp.telemetry_gauges(s)

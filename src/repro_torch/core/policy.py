@@ -84,6 +84,12 @@ class SlotPolicy(abc.ABC):
     """
 
     name: str = ""
+    #: whether slot_step accepts a ``signals=`` kwarg of in-loop telemetry
+    #: readings (SLO-conditioned policies).  Such policies are the
+    #: documented exception to the telemetry-purity invariant: enabling
+    #: telemetry deliberately changes their sample path.  Without signals
+    #: they must degrade to a signal-free base policy bit for bit.
+    uses_signals: bool = False
 
     @abc.abstractmethod
     def draw_plan(self, num_servers: int) -> DrawPlan:
@@ -97,7 +103,8 @@ class SlotPolicy(abc.ABC):
     @abc.abstractmethod
     def slot_step(self, state, draws, types: torch.Tensor,
                   active: torch.Tensor, est: torch.Tensor,
-                  true_rates: torch.Tensor, ancestors: torch.Tensor):
+                  true_rates: torch.Tensor, ancestors: torch.Tensor,
+                  signals=None):
         """One time slot of the dense simulator for N cells: arrivals ->
         completions -> scheduling.
 
@@ -105,8 +112,10 @@ class SlotPolicy(abc.ABC):
         (N, B, 3)/(N, B) arrival batch; est: (N, M, K) estimated rates the
         scheduler decides with; true_rates: the rates of the service
         dynamics, (K,), (M, K) or per cell (N, M, K) (the replication
-        seam scales them per cell); ancestors: the (depth, M) table.
-        Returns (state, completions (N,) int32).
+        seam scales them per cell); ancestors: the (depth, M) table;
+        signals: the recorder's (N,) readings, given only to a policy
+        that `uses_signals` when telemetry is on.  Returns (state,
+        completions (N,) int32).
         """
 
     @abc.abstractmethod
@@ -116,6 +125,14 @@ class SlotPolicy(abc.ABC):
     def extra_metrics(self, state) -> Dict[str, torch.Tensor]:
         """Per-policy end-of-run values per cell (e.g. FIFO's drop count);
         merged into the simulator's metrics."""
+        return {}
+
+    def telemetry_gauges(self, state) -> Dict[str, torch.Tensor]:
+        """Per-slot (N,) float32 gauges for the telemetry time series
+        (`repro_torch.telemetry`): queue/occupancy readings off the live
+        state, one value per track name and cell.  Pure observation (no
+        draw, no state change) and fixed-keyed: the track list is
+        resolved once a run.  Default: no per-policy tracks."""
         return {}
 
 

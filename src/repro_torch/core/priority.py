@@ -29,6 +29,10 @@ def init_state(topo: loc.Topology, device=None, batch=()) -> PriorityState:
     return PriorityState(*jsq.init_state(topo, device, batch))
 
 
+def num_in_system(s: PriorityState) -> torch.Tensor:
+    return jsq.num_in_system(s)
+
+
 def slot_step(s: PriorityState, draws: DenseDraws, types: torch.Tensor,
               active: torch.Tensor, est: torch.Tensor,
               true_rates: torch.Tensor, ancestors: torch.Tensor):
@@ -75,4 +79,7 @@ class PriorityPolicy(SlotPolicy):
         return slot_step(s, draws, types, active, est, true_rates, ancestors)
 
     def num_in_system(self, s: PriorityState) -> torch.Tensor:
-        return jsq.num_in_system(s)
+        return num_in_system(s)
+
+    def telemetry_gauges(self, s: PriorityState):
+        return claiming.telemetry_gauges(s.q, s.serving_tier)

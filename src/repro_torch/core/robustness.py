@@ -33,8 +33,12 @@ failure scenario x scheduler, at loads x the healthy static capacity:
 what failure-driven repair and adaptive replication buy (availability,
 data loss, replication factor) and cost (migration moves, delay).
 
-The tail-latency and control studies of the reference come with later
-slices of the port and raise until then.
+Tail-latency study (`tail_study`): p50/p95/p99 sojourn from the
+telemetry recorder next to the Little's-law mean for each scheduler at
+heavy-traffic loads, where mean ordering and tail ordering can diverge.
+
+The control study of the reference comes with the control slice of the
+port and raises until then.
 """
 
 from __future__ import annotations
@@ -68,6 +72,11 @@ PLACEMENT_SCENARIOS = ("static", "hot_shift", "rack_congestion")
 REPLICATIONS = ("fixed", "popularity", "repair")
 REPLICATION_SCENARIOS = ("server_loss", "rack_loss")
 REPLICATION_POLICIES = ("balanced_pandas", "jsq_maxweight")
+# Tail-latency study grid: heavy-traffic loads where mean ordering and
+# tail ordering can diverge, for the delay-optimal arm, the
+# throughput-optimal arm, and the Hadoop floor.
+TAIL_POLICIES = ("balanced_pandas", "jsq_maxweight", "fifo")
+TAIL_LOADS = (0.90, 0.95, 0.99)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,8 +105,11 @@ def run_study(cfg: StudyConfig, algos: Optional[Sequence[str]] = None,
     """Returns nested results: delay[algo], throughput[algo] and
     final_n[algo] of shape (L, E, S) with E = 1 (exact) +
     len(eps_grid) * len(signs) for rate-aware algorithms and E = 1 for
-    oblivious ones, plus the grids needed to plot.  ``device=None`` runs
-    on the card."""
+    oblivious ones, plus the grids needed to plot.  With `telemetry`
+    enabled (True / TelemetryConfig) the result grows
+    delay_p50/delay_p95/delay_p99[algo] arrays of the same shape, the
+    FCFS-coupled sojourn percentiles.  ``device=None`` runs on the
+    card."""
     algos = list(algos or (RATE_AWARE + RATE_OBLIVIOUS))
     cap = loc.capacity_hot_rack(cfg.sim.topo, cfg.sim.true_rates,
                                 cfg.sim.p_hot)
@@ -116,6 +128,10 @@ def run_study(cfg: StudyConfig, algos: Optional[Sequence[str]] = None,
     out: Dict = {"capacity": cap, "loads": np.asarray(cfg.loads),
                  "lam": lam, "est_settings": est_settings,
                  "delay": {}, "throughput": {}, "final_n": {}}
+    pct_keys = ("delay_p50", "delay_p95", "delay_p99")
+    if telemetry is not None:
+        for k in pct_keys:
+            out[k] = {}
     for algo in algos:
         stack = est_stack if algo in RATE_AWARE else est_stack[:1]
         res = sim.sweep(algo, cfg.sim, lam, stack, seeds, scenario=scenario,
@@ -124,6 +140,9 @@ def run_study(cfg: StudyConfig, algos: Optional[Sequence[str]] = None,
         out["delay"][algo] = res["mean_delay"]
         out["throughput"][algo] = res["throughput"]
         out["final_n"][algo] = res["final_n"]
+        if telemetry is not None:
+            for k in pct_keys:
+                out[k][algo] = res[k]
     return out
 
 
@@ -381,15 +400,73 @@ def summarize_replication(study: Dict) -> str:
     return "\n".join(lines)
 
 
-def _later(study: str, slice_name: str):
-    def run(*args, **kwargs):
-        raise NotImplementedError(f"the {study} study comes with the "
-                                  f"{slice_name} slice of the port")
-    run.__name__ = f"{study}_study"
-    run.__doc__ = (f"The reference's {study} study; comes with the "
-                   f"{slice_name} slice of the port.")
-    return run
+def tail_study(cfg: StudyConfig,
+               policies: Sequence[str] = TAIL_POLICIES,
+               loads: Sequence[float] = TAIL_LOADS,
+               scenario: ScenarioLike = None,
+               telemetry=True, device=None) -> Dict:
+    """Heavy-traffic tail-latency study: p50/p95/p99 sojourn next to the
+    Little's-law mean for each scheduler across a rho grid.
+
+    Mean-delay ordering between schedulers need not match tail ordering:
+    a policy can win on average and still lose the p99.  All arms run at
+    exact rate estimates; percentiles come from the recorder's
+    FCFS-coupled histogram, so values are upper bin edges (error <= one
+    bin width; see `repro_torch.telemetry`).  Returns nested dicts
+    ``out[metric][policy]`` with shape (L, S_seeds) for metric in mean /
+    p50 / p95 / p99, plus accounting (`dropped`, `unmatched`).
+    ``device=None`` runs on the card.
+    """
+    cap = loc.capacity_hot_rack(cfg.sim.topo, cfg.sim.true_rates,
+                                cfg.sim.p_hot)
+    lam = np.asarray(loads, np.float32) * cap
+    seeds = np.asarray(cfg.seeds)
+    est_exact = sim.make_estimates(cfg.sim, "network", 0.0, -1)[None]
+
+    keymap = {"mean": "mean_delay", "p50": "delay_p50", "p95": "delay_p95",
+              "p99": "delay_p99", "dropped": "telemetry_dropped",
+              "unmatched": "telemetry_unmatched"}
+    out: Dict = {"capacity": cap, "loads": np.asarray(loads),
+                 "policies": tuple(policies)}
+    for m in keymap:
+        out[m] = {}
+    for pol in policies:
+        res = sim.sweep(pol, cfg.sim, lam, est_exact, seeds,
+                        scenario=scenario, telemetry=telemetry,
+                        device=device)
+        for m, k in keymap.items():
+            out[m][pol] = res[k][:, 0]  # drop the singleton est axis
+    return out
 
 
-tail_study = _later("tail", "telemetry")
-control_study = _later("control", "control")
+def summarize_tail(study: Dict) -> str:
+    """Human-readable tail-latency table (one row per policy x load),
+    flagging loads where the p99 winner differs from the mean winner."""
+    width = max([16] + [len(p) for p in study["policies"]])
+    lines = [f"loads x static capacity ({study['capacity']:.2f} tasks/slot);"
+             f" delays in slots, mean over seeds; percentiles are upper "
+             f"histogram-bin edges (inf = past hist_max)"]
+    lines.append(f"{'policy':{width}s} {'rho':>5s} {'mean':>9s} "
+                 f"{'p50':>8s} {'p95':>8s} {'p99':>8s}")
+    for li, rho in enumerate(study["loads"]):
+        by = {m: {p: float(np.mean(study[m][p][li]))
+                  for p in study["policies"]}
+              for m in ("mean", "p50", "p95", "p99")}
+        for pol in study["policies"]:
+            lines.append(
+                f"{pol:{width}s} {float(rho):5.2f} {by['mean'][pol]:9.2f} "
+                f"{by['p50'][pol]:8.1f} {by['p95'][pol]:8.1f} "
+                f"{by['p99'][pol]:8.1f}")
+        mean_win = min(by["mean"], key=by["mean"].get)
+        p99_win = min(by["p99"], key=by["p99"].get)
+        if mean_win != p99_win:
+            lines.append(f"{'':{width}s}       ^ tail flip: mean winner "
+                         f"{mean_win}, p99 winner {p99_win}")
+    return "\n".join(lines)
+
+
+def control_study(*args, **kwargs):
+    """The reference's control study; comes with the control slice of
+    the port."""
+    raise NotImplementedError("the control study comes with the control "
+                              "slice of the port")

@@ -48,8 +48,21 @@ them (`core.rng`), so counts and hot uniforms stay the same under every
 placement.  ``"uniform"`` gives the run without a placement bit for bit.
 The fleet path stays uniform-only, as in the reference: ``fleet=True``
 with another placement raises its ``ValueError``, ``fleet=None`` runs it
-on the dense path.  For a non-default telemetry or control seam, both
-entry points raise `NotImplementedError` naming the slice that adds it.
+on the dense path.
+
+Telemetry (`repro_torch.telemetry`: None / True / `TelemetryConfig`)
+builds the recorder into the dense step: a FIFO-coupled sojourn
+histogram (-> ``delay_p50/p95/p99``), a queue-length histogram and
+downsampled time series (the base tracks, then ``alive_servers`` and
+``open_lanes`` when replication is engaged, then the policy's sorted
+`telemetry_gauges`), per cell.  Its state rides the carry after the
+replication slice.  The recorder draws nothing, so every metric of the
+run without it stays bit for bit; a policy that `uses_signals`
+(``slo_pandas``) reads the recorder's live p99 of the slot before as
+``signals``.  Array metrics (the histograms, the series) come back as
+arrays: (L, E, S, ...) from `sweep`.  The fleet path refuses telemetry,
+as the reference's does.  For a control seam, both entry points raise
+`NotImplementedError` naming the slice that adds it.
 
 Mean task completion time is measured via Little's law:
 ``W = mean(N_in_system over measurement window) / (lambda_total x the
@@ -78,9 +91,7 @@ from repro_torch.core.policy import PolicyLike, make_policy
 from repro_torch.core.rng import DenseDeviceSource, DenseSource
 from repro_torch.placement import make_placement
 from repro_torch.replication import make_replication
-# non-default seams and the slice of the port that adds each
-_SEAMS = (("telemetry", (None, False), "telemetry"),
-          ("control", (None,), "control"))
+from repro_torch.telemetry import SimTelemetry, as_telemetry_config
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,33 +162,33 @@ def _merge_metrics(out: Dict[str, Any], extra: Dict[str, Any],
     out.update(extra)
 
 
-def _check_seams(telemetry, control) -> None:
-    given = dict(telemetry=telemetry, control=control)
-    for arg, defaults, slice_name in _SEAMS:
-        if given[arg] not in defaults:
-            raise NotImplementedError(
-                f"{arg}={given[arg]!r} comes with the {slice_name} slice of "
-                f"the port")
+def _check_control(control) -> None:
+    if control is not None:
+        raise NotImplementedError(f"control={control!r} comes with the "
+                                  f"control slice of the port")
 
 
 # dense carry: (policy state, mean_n (N,) f32, n_meas (N,) f32,
 #               completions (N,) int32)[, RepState when replication is
-#               engaged]
+#               engaged][, TelState when telemetry is on]; the control
+#               plane's state will sit between the two, as in the
+#               reference
 DenseCarry = Tuple[Any, ...]
 
 
 def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
                       est: torch.Tensor, device, sched=None, placement=None,
-                      replication=None):
+                      replication=None, telemetry=None):
     """Returns (policy, init() -> carry, step(carry, t, draws) -> carry,
-    rep) for the N cells whose (N, M, K) estimated rates are `est` under
-    the compiled scenario `sched` (None: static), `placement` (None:
-    uniform) and `replication` (None: fixed): the counterpart of the
-    reference's scan body, one slot per call.  The draws' counts already
-    follow the slot's arrival rate, and they carry the placement's Gumbel
-    blocks and, when the lifecycle machinery is engaged, the chunk reads
-    (`core.rng`).  `rep` is the run's `SimReplication`, None when the
-    machinery is not engaged."""
+    rep, tel) for the N cells whose (N, M, K) estimated rates are `est`
+    under the compiled scenario `sched` (None: static), `placement`
+    (None: uniform), `replication` (None: fixed) and `telemetry` (None:
+    off): the counterpart of the reference's scan body, one slot per
+    call.  The draws' counts already follow the slot's arrival rate, and
+    they carry the placement's Gumbel blocks and, when the lifecycle
+    machinery is engaged, the chunk reads (`core.rng`).  `rep` is the
+    run's `SimReplication`, None when the machinery is not engaged; `tel`
+    its `SimTelemetry`, None when telemetry is off."""
     pol = make_policy(policy_like)
     dev = torch.device(device)
     topo = cfg.topo
@@ -194,6 +205,17 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
         all_alive = torch.ones(topo.num_servers, dtype=torch.float32,
                                device=dev)
     n_cells = est.shape[0]
+    tel = None
+    if telemetry is not None and telemetry is not False:
+        tracks = ["alive_servers", "open_lanes"] if rep is not None else []
+        tracks += sorted(pol.telemetry_gauges(
+            pol.init_state(topo, device=dev, batch=(1,))))
+        tel = SimTelemetry(as_telemetry_config(telemetry), cfg.horizon,
+                           cfg.warmup, topo.num_servers, cfg.max_arrivals,
+                           tracks, device=dev)
+    uses_signals = pol.uses_signals and tel is not None
+    i_rep = 4 if rep is not None else None
+    i_tel = 4 + (rep is not None) if tel is not None else None
     anc = torch.as_tensor(np.array(topo.ancestors), device=dev)
     rack_of = torch.as_tensor(np.array(topo.rack_of), device=dev)
     true_k = cfg.true_rates.as_array(dev)
@@ -213,11 +235,18 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
                  torch.zeros((n_cells,), **f32),
                  torch.zeros((n_cells,), **f32),
                  torch.zeros((n_cells,), dtype=torch.int32, device=dev))
-        return carry if rep is None else carry + (rep.init(n_cells),)
+        if rep is not None:
+            carry += (rep.init(n_cells),)
+        if tel is not None:
+            carry += (tel.init(n_cells),)
+        return carry
 
     @torch.inference_mode()  # no autograd bookkeeping: less host time a op
     def step(carry: DenseCarry, t: int, draws) -> DenseCarry:
         state, mean_n, n_meas, compl = carry[:4]
+        if tel is not None:
+            # observed BEFORE this slot's arrivals and service touch it
+            n_prev = pol.num_in_system(state).to(torch.int32)
         knobs, true_mk = const if const is not None else knobs_at(t)
         types, active = loc.sample_arrivals_at(
             draws.n, draws.u_hot, draws.g_type, rack_of, knobs.p_hot,
@@ -225,28 +254,48 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
             type_sampler=sample_types, g_place=draws.g_place)
         if rep is not None:
             alive = knobs.alive if knobs.alive is not None else all_alive
-            rep_state, fg_mult = rep.step(carry[4], alive, draws.read,
+            rep_state, fg_mult = rep.step(carry[i_rep], alive, draws.read,
                                           active, t >= warmup)
             true_mk = true_mk * fg_mult[..., None]   # (N, M, K)
+        step_kw = {}
+        if uses_signals:  # the recorder as the previous slot left it
+            step_kw["signals"] = {
+                "delay_p99": tel.live_quantile(carry[i_tel], 0.99)}
         state, compl_t = pol.slot_step(state, draws, types, active, est,
-                                       true_mk, anc)
-        n = pol.num_in_system(state).to(torch.float32)
+                                       true_mk, anc, **step_kw)
+        n_now = pol.num_in_system(state)
+        n = n_now.to(torch.float32)
         in_w = float(t >= warmup)
         n_meas = n_meas + in_w
         mean_n = mean_n + in_w * (n - mean_n) / torch.clamp(n_meas, min=1.0)
         compl = compl + compl_t * int(t >= warmup)
         out = (state, mean_n, n_meas, compl)
-        return out if rep is None else out + (rep_state,)
+        if rep is not None:
+            out += (rep_state,)
+        if tel is not None:
+            # admissions inferred from the state delta, so arrivals the
+            # policy rejected (FIFO's drops) never enter the pairing
+            n_now = n_now.to(torch.int32)
+            extras = dict(pol.telemetry_gauges(state))
+            if rep is not None:
+                extras["alive_servers"] = (alive > 0.5).sum().to(
+                    torch.float32).expand(n_cells)
+                extras["open_lanes"] = (rep_state.lane_left > 0.0).sum(
+                    dim=-1).to(torch.float32)
+            out += (tel.record(carry[i_tel], t, n_now - n_prev + compl_t,
+                               compl_t, n_now, extras),)
+        return out
 
-    return pol, init, step, rep
+    return pol, init, step, rep, tel
 
 
 def _dense_metrics(pol, carry: DenseCarry, lam: torch.Tensor,
-                   rep=None) -> Dict[str, np.ndarray]:
-    """(N,) metrics per cell from a final carry: Little's law over the
+                   rep=None, tel=None) -> Dict[str, np.ndarray]:
+    """(N, ...) metrics per cell from a final carry: Little's law over the
     measurement window, as the reference computes it in float32; `lam`
     is each cell's offered rate over the window; `rep` the run's
-    `SimReplication` (None: not engaged), whose metrics join."""
+    `SimReplication` and `tel` its `SimTelemetry` (None: not engaged),
+    whose metrics join."""
     state, mean_n, n_meas, compl = carry[:4]
     out = {
         "mean_n": mean_n,
@@ -258,6 +307,8 @@ def _dense_metrics(pol, carry: DenseCarry, lam: torch.Tensor,
     _merge_metrics(out, pol.extra_metrics(state), "SlotPolicy.extra_metrics")
     if rep is not None:
         _merge_metrics(out, rep.metrics(carry[4]), "replication lifecycle")
+    if tel is not None:
+        _merge_metrics(out, tel.metrics(carry[-1]), "telemetry")
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -269,18 +320,18 @@ def _as_numpy(x) -> np.ndarray:
 
 def _dense_run(policy, cfg: SimConfig, cells: Sequence[Tuple[int, float]],
                est_cells: np.ndarray, device, rng: DenseSource = None,
-               scenario=None, placement=None,
-               replication=None) -> Dict[str, np.ndarray]:
+               scenario=None, placement=None, replication=None,
+               telemetry=None) -> Dict[str, np.ndarray]:
     """Runs the cells ``[(seed, lam), ...]`` with (N, M, K) estimates as
-    one batch under `scenario`, `placement` and `replication`; returns
-    (N,) metric arrays."""
+    one batch under `scenario`, `placement`, `replication` and
+    `telemetry`; returns (N, ...) metric arrays."""
     dev = resolve_device(device)
     est = torch.as_tensor(est_cells, device=dev).contiguous()
     sched = wl.compile_schedule(wl.make_scenario(scenario), cfg.topo,
                                 cfg.horizon, cfg.p_hot, device=dev)
     plc = make_placement(placement)
-    pol, init, step, rep = _build_dense_step(policy, cfg, est, dev, sched,
-                                             plc, replication)
+    pol, init, step, rep, tel = _build_dense_step(
+        policy, cfg, est, dev, sched, plc, replication, telemetry)
     if rng is None:
         rng = DenseDeviceSource(cells, pol.draw_plan(cfg.topo.num_servers),
                                 cfg.max_arrivals, cfg.topo.num_servers, dev,
@@ -294,7 +345,7 @@ def _dense_run(policy, cfg: SimConfig, cells: Sequence[Tuple[int, float]],
     # Little's law over the window: the offered rate is lam_total x the
     # window's mean arrival multiplier (1.0 for the static scenario)
     lam_scale = wl.mean_lam_mult_over(sched, cfg.warmup, cfg.horizon)
-    return _dense_metrics(pol, carry, lam * lam_scale, rep)
+    return _dense_metrics(pol, carry, lam * lam_scale, rep, tel)
 
 
 def _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
@@ -325,7 +376,9 @@ def simulate(policy, cfg: SimConfig, lam_total: float, est, seed: int = 0,
              scenario=None, placement=None, replication=None,
              telemetry=None, control=None, fleet=None, device=None,
              rng=None) -> Dict[str, Any]:
-    """Single-configuration run; scalar metrics come back as floats.
+    """Single-configuration run; scalar metrics come back as floats,
+    array-valued telemetry metrics (histograms, the series) as numpy
+    arrays.
 
     ``lam_total == 0`` yields ``mean_delay = NaN``; negative loads raise.
     ``device=None`` runs on the card (raising when there is none);
@@ -334,7 +387,7 @@ def simulate(policy, cfg: SimConfig, lam_total: float, est, seed: int = 0,
     """
     if lam_total < 0:
         raise ValueError(f"lam_total must be >= 0, got {lam_total}")
-    _check_seams(telemetry, control)
+    _check_control(control)
     if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
                       telemetry, control):
         from repro_torch.sharding import sim as fleet_sim
@@ -342,8 +395,8 @@ def simulate(policy, cfg: SimConfig, lam_total: float, est, seed: int = 0,
                                         fleet, device=device, rng=rng)
     out = _dense_run(policy, cfg, [(int(seed), np.float32(lam_total))],
                      _as_numpy(est)[None], device, rng, scenario, placement,
-                     replication)
-    return {k: float(v[0]) for k, v in out.items()}
+                     replication, telemetry)
+    return {k: float(v[0]) if v.ndim == 1 else v[0] for k, v in out.items()}
 
 
 def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
@@ -355,12 +408,13 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
     lam_grid: (L,) loads; est_stack: (E, M, K); seeds: (S,).  The grid
     runs as one batch of N = L*E*S cells, cell (l, e, s) at flat index
     ``(l*E + e)*S + s``; a cell's result equals `simulate` at its load,
-    estimates and seed.
+    estimates and seed.  Telemetry metrics batch like everything else:
+    histograms (L, E, S, bins+1), the series (L, E, S, T_s, n_tracks).
     """
     lam_grid = np.asarray(lam_grid, np.float32).reshape(-1)
     if np.any(lam_grid < 0):
         raise ValueError(f"lam_grid must be >= 0, got {lam_grid}")
-    _check_seams(telemetry, control)
+    _check_control(control)
     if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
                       telemetry, control):
         from repro_torch.sharding import sim as fleet_sim
@@ -373,5 +427,5 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
             for e in range(shape[1]) for s in seeds]
     out = _dense_run(policy, cfg, [(s, lam) for lam, _, s in grid],
                      est_stack[[e for _, e, _ in grid]], device, rng,
-                     scenario, placement, replication)
-    return {k: v.reshape(shape) for k, v in out.items()}
+                     scenario, placement, replication, telemetry)
+    return {k: v.reshape(shape + v.shape[1:]) for k, v in out.items()}

@@ -1,15 +1,28 @@
 """SLO-conditioned Balanced-PANDAS (``slo_pandas``), port of
-`repro.core.slo_pandas` (its signal-free program).
+`repro.core.slo_pandas`.
 
-The reference reads the in-scan telemetry recorder's running sojourn-p99
-estimate (the ``signals`` of its `slot_step`) and, while it breaches
-``slo_target``, adds a ``drain_bias`` x workload penalty to routing and
-lets idle servers drain their longest queue.  Without signals there is
-nothing to condition on, and the policy is the exact Balanced-PANDAS
-program, bit for bit: same draws, same scores, same tie-breaks.  That is
-all that runs without telemetry, in the reference too, and all this
-port runs: the simulator refuses ``telemetry=``, and a `slot_step` given
-signals raises until the telemetry slice brings the breach branch.
+Balanced-PANDAS optimizes the MEAN workload; at rho = 0.99 the
+mean-optimal policy is no longer the p99 winner.  This policy closes the
+loop: it reads the telemetry recorder's running sojourn-p99 estimate
+(`SimTelemetry.live_quantile`, delivered by the simulator as the
+``signals`` of `slot_step`, one value a cell) and switches behaviour,
+cell by cell, only while the estimate breaches ``slo_target``:
+
+  * **routing** — the score gains a ``drain_bias * W_m`` penalty, added
+    after ``W_m / rate - rate * 1e-6`` is formed, as the reference
+    orders the float operations;
+  * **scheduling** — idle servers serve their LONGEST queue (the first of
+    equals) instead of their fastest nonempty tier.
+
+Outside a breach — and whenever ``signals`` is absent (``telemetry=None``:
+there is nothing to read) — every decision is the exact Balanced-PANDAS
+program: same draws, same scores, same tie-breaks.  This is the
+documented exception to the telemetry-purity invariant
+(``uses_signals = True``).
+
+The breach flag is NaN-safe: the live p99 is NaN until a cell's first
+completion is binned (NaN > target is False -> no breach) and inf once
+the estimate passes the histogram range (inf > target -> breach).
 """
 
 from __future__ import annotations
@@ -27,10 +40,10 @@ class SloPandasPolicy(SlotPolicy):
     ``drain_bias`` x workload penalty and idle servers drain their
     longest queue; otherwise — and always when telemetry is off — it IS
     Balanced-PANDAS, bitwise.  (The port's "in-scan" estimate is the
-    dense slot loop's; its breach branch comes with the telemetry
-    slice.)"""
+    dense slot loop's recorder, per cell.)"""
 
     name = "slo_pandas"
+    uses_signals = True
 
     def __init__(self, slo_target: float = 96.0, drain_bias: float = 0.25):
         if slo_target <= 0.0:
@@ -49,13 +62,18 @@ class SloPandasPolicy(SlotPolicy):
 
     def slot_step(self, s, draws, types, active, est, true_rates, ancestors,
                   signals=None):
-        if signals is not None:
-            raise NotImplementedError(
-                "slo_pandas's breach branch reads the live p99 of the "
-                "telemetry recorder; it comes with the telemetry slice of "
-                "the port")
-        return bp.slot_step(s, draws, types, active, est, true_rates,
-                            ancestors)
+        if signals is None:
+            # no telemetry -> nothing to condition on: the exact
+            # Balanced-PANDAS program
+            return bp.slot_step(s, draws, types, active, est, true_rates,
+                                ancestors)
+        breach = (signals["delay_p99"] > self.slo_target)[:, None]  # (N, 1)
+        s = bp.route_lanes(s, draws, types, active, est, ancestors,
+                           breach=breach, drain_bias=self.drain_bias)
+        return bp.serve_and_schedule(s, draws.u_serve, true_rates, breach)
 
     def num_in_system(self, s: bp.PandasState):
         return bp.num_in_system(s)
+
+    def telemetry_gauges(self, s: bp.PandasState):
+        return bp.telemetry_gauges(s)

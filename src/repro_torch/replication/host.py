@@ -14,11 +14,11 @@ the scenario playback's liveness mask, then read placements through
 State round-trips through `state_dict()` / `load_state_dict()` as plain
 JSON types, as the placement popularity state does.
 
-The reference also emits ``server_down``/``server_up``/``repair_start``/
-``repair_commit`` events to an installed tracer; those need the event
-recorder and its clock (`EventRecorder`, ``CLOCK_UNIT_US``), which come
-with the telemetry slice of the port.  Until then `tracer` stays None
-and no event is emitted.
+With an `EventRecorder` installed as `tracer` (the engine installs its
+own), `observe` emits ``server_down``/``server_up`` (cat ``failure``,
+tid the server) and ``repair_start``/``repair_commit`` (cat
+``replication``, tid the destination) instants on the ``CLOCK_UNIT_US``
+clock, the reference's events exactly.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 
 from repro_torch.core.cluster import tier_of
+from repro_torch.telemetry import CLOCK_UNIT_US
 
 
 class HostReplication:
@@ -58,8 +59,8 @@ class HostReplication:
         self.lost_reads = 0
         self._alive = np.ones(spec.num_workers, bool)
         self._busy: set = set()
-        # Structured event tracing comes with the telemetry slice of the
-        # port: None -> no events emitted.
+        # Structured event tracing: the engine installs its EventRecorder
+        # here; None -> no events emitted.
         self.tracer = None
 
     @property
@@ -72,6 +73,14 @@ class HostReplication:
         wipe replicas on dead hosts, kill/commit in-flight moves, drop
         surpluses, start deficit repairs within the lane cap."""
         alive = np.asarray(alive, bool)
+        if self.tracer is not None:
+            ts = float(t) * CLOCK_UNIT_US
+            for h in np.nonzero(self._alive & ~alive)[0]:
+                self.tracer.instant("server_down", cat="failure", ts_us=ts,
+                                    tid=int(h))
+            for h in np.nonzero(~self._alive & alive)[0]:
+                self.tracer.instant("server_up", cat="failure", ts_us=ts,
+                                    tid=int(h))
         self._alive = alive
         self.mask &= alive[self.ids]
         survivors = []
@@ -82,6 +91,11 @@ class HostReplication:
                 self.ids[ln["chunk"], ln["slot"]] = ln["dst"]
                 self.mask[ln["chunk"], ln["slot"]] = True
                 self.moves += 1
+                if self.tracer is not None:
+                    self.tracer.instant(
+                        "repair_commit", cat="replication",
+                        ts_us=float(t) * CLOCK_UNIT_US, tid=ln["dst"],
+                        chunk=ln["chunk"], src=ln["src"])
             else:
                 survivors.append(ln)
         self.lanes = survivors
@@ -131,6 +145,12 @@ class HostReplication:
                                    "src": src, "dst": int(dst),
                                    "done_t": float(t)
                                    + float(self.cost[tier])})
+                if self.tracer is not None:
+                    self.tracer.instant(
+                        "repair_start", cat="replication",
+                        ts_us=float(t) * CLOCK_UNIT_US, tid=int(dst),
+                        chunk=int(c), src=src,
+                        eta=self.lanes[-1]["done_t"])
                 held[dst] += 1.0
                 started += 1
         self._rebuild_busy()

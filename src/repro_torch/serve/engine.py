@@ -46,9 +46,19 @@ counts in `lost_routes`); an admission's observed prefill time is
 divided by its replica's migration contention and, on a dead replica,
 multiplied by `DEAD_SLOWDOWN`, so the EWMA estimator sheds it.  With
 None/"fixed" and no failures nothing is built and the engine is the one
-without replication.  Ported so far besides: no control plane and no
-event tracer; those raise `NotImplementedError` naming the slice of the
-port that adds them.
+without replication.
+
+Tracing (`EngineConfig.tracer`, a `repro_torch.telemetry.EventRecorder`):
+the engine names its threads (router on tid 0, replica i on tid i+1),
+emits ``submit``/``route``/``lost_route``/``admit`` instants and the
+``queued`` counter on the step clock (one step = ``CLOCK_UNIT_US``),
+one wall-clock-wide ``decode`` span (cat ``kernel``) per replica step
+and one ``request{rid}`` span per finished request, and installs the
+tracer on its `HostReplication`.  With None the step is the untraced
+one.  `arrival_log` keeps every submit's step, and `recorded_trace`
+re-records it as a replayable `workloads.Trace`.  No control plane yet:
+``control=`` raises `NotImplementedError` naming the slice that adds
+it.
 """
 
 from __future__ import annotations
@@ -70,8 +80,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.placement import make_placement
 from repro_torch.replication import make_replication
-from repro_torch.telemetry import percentiles_from_hist
-from repro_torch.workloads import host_playback, make_scenario
+from repro_torch.telemetry import CLOCK_UNIT_US, percentiles_from_hist
+from repro_torch.workloads import (Trace, host_playback, make_scenario,
+                                   trace_from_arrivals)
 
 # Observed-service-time inflation for a request admitted on a DEAD replica
 # (failure scenarios): large enough that the EWMA estimator sheds the
@@ -119,8 +130,9 @@ class EngineConfig:
     # `rebalance_every` routed requests (0: never); `replication` (name /
     # ReplicationConfig / controller; None -> fixed) runs the lifecycle
     # over a catalogue of `num_prefixes` prefixes (prefix ids wrap mod
-    # it) when engaged; `tracer` and `control` support only their
-    # defaults so far (see `_check_supported`).
+    # it) when engaged; `tracer` (an EventRecorder; None: no events)
+    # records the run's events; `control` supports only its default so
+    # far (see `_check_supported`).
     scenario: object = None
     scenario_horizon: int = 400  # engine steps per playback cycle
     placement: object = None
@@ -138,15 +150,10 @@ class EngineConfig:
 def _check_supported(ecfg: EngineConfig) -> None:
     """Raise for a seam the port has not ported yet, naming the slice of
     the port that adds it."""
-    unported = (
-        ("tracer", ecfg.tracer is not None, "telemetry"),
-        ("control", ecfg.control is not None, "control"),
-    )
-    for name, bad, slice_name in unported:
-        if bad:
-            raise NotImplementedError(
-                f"EngineConfig.{name}={getattr(ecfg, name)!r} comes with "
-                f"the {slice_name} slice of the port")
+    if ecfg.control is not None:
+        raise NotImplementedError(
+            f"EngineConfig.control={ecfg.control!r} comes with the control "
+            f"slice of the port")
 
 
 class Replica:
@@ -301,18 +308,38 @@ class ServingEngine:
         self.completed = 0
         self.steps = 0
         self.assign_tiers = {t: 0 for t in range(self.spec.num_tiers)}
-        self.submitted = 0
+        # engine-step index of every submit, for trace export
+        # (`recorded_trace`)
+        self.arrival_log: List[int] = []
+        # Structured event tracing: router events on tid 0, each replica
+        # on tid i+1; the virtual clock is the engine-step counter.
+        self.tracer = ecfg.tracer
+        if self.replication is not None:
+            self.replication.tracer = self.tracer
+        if self.tracer is not None:
+            self.tracer.metadata("process_name", name="serving_engine")
+            self.tracer.metadata("thread_name", tid=0, name="router")
+            for i in range(n_rep):
+                self.tracer.metadata("thread_name", tid=i + 1,
+                                     name=f"replica{i}")
+
+    def _ts(self) -> float:
+        """Virtual-clock timestamp (us) of the current engine step."""
+        return self.steps * CLOCK_UNIT_US
 
     def submit(self, req: Request) -> None:
         req.arrival = time.monotonic()
         req._submit_step = self.steps  # type: ignore[attr-defined]
-        self.submitted += 1
+        self.arrival_log.append(self.steps)
         self.queue.append(req)
+        if self.tracer is not None:
+            self.tracer.instant("submit", cat="engine", ts_us=self._ts(),
+                                rid=req.rid, prefix=req.prefix_id)
 
     @property
     def in_system(self) -> int:
         """Submitted-but-unfinished requests (queued, waiting, decoding)."""
-        return self.submitted - self.completed
+        return len(self.arrival_log) - self.completed
 
     def _note_finished(self, finished: List[Request]) -> None:
         """Sojourn accounting (submit -> finish on the engine-step clock)."""
@@ -328,6 +355,24 @@ class ServingEngine:
         from the overflow bin)."""
         return percentiles_from_hist(self.sojourn_hist, self._soj_width, qs)
 
+    @property
+    def sojourn_overflow_frac(self) -> float:
+        """Fraction of completions whose sojourn exceeded
+        ``sojourn_hist_max`` (quantiles landing there report inf)."""
+        total = int(self.sojourn_hist.sum())
+        return float(self.sojourn_hist[-1]) / max(total, 1)
+
+    def recorded_trace(self, num_intervals: int = 32,
+                       name: str = "engine") -> Trace:
+        """Re-record this run's arrival stream as a replayable `Trace`
+        (per-interval submit counts on the engine-step clock), which
+        ``scenario="trace"`` replays through this engine or the
+        simulator."""
+        horizon = float(max([self.steps, 1]
+                            + [s + 1 for s in self.arrival_log]))
+        return trace_from_arrivals(self.arrival_log, num_intervals,
+                                   name=name, horizon=horizon)
+
     # -- scheduling ----------------------------------------------------------
     def _route_arrivals(self) -> None:
         while self.queue:
@@ -340,6 +385,10 @@ class ServingEngine:
                 self.replication.note_read(req.prefix_id)
                 if not locs:
                     self.lost_routes += 1
+                    if self.tracer is not None:
+                        self.tracer.instant("lost_route", cat="engine",
+                                            ts_us=self._ts(), rid=req.rid,
+                                            prefix=req.prefix_id)
                     locs = self.placement.replicas(self.spec, req.prefix_id,
                                                    3, self.ecfg.seed)
             else:
@@ -352,6 +401,10 @@ class ServingEngine:
                 self.rebalanced += self.placement.rebalance()
             req._locs = locs  # type: ignore[attr-defined]
             decision = self.router.route(locs)
+            if self.tracer is not None:
+                self.tracer.instant(
+                    "route", cat="engine", ts_us=self._ts(), rid=req.rid,
+                    replica=-1 if decision.deferred else decision.worker)
             if decision.deferred:
                 self.pending.append(req)  # assigned at claim time
             else:
@@ -372,6 +425,11 @@ class ServingEngine:
                 req.replica = i
                 req.tier = tier_of(self.spec, req._locs, req.replica)
                 self.assign_tiers[req.tier] += 1
+                req._admit_step = self.steps  # type: ignore[attr-defined]
+                if self.tracer is not None:
+                    self.tracer.instant("admit", cat="engine",
+                                        ts_us=self._ts(), tid=i + 1,
+                                        rid=req.rid, tier=req.tier)
                 t0 = time.monotonic()
                 rep.admit(req)
                 # wall clock of the prefill (it ends in a host read of the
@@ -398,8 +456,33 @@ class ServingEngine:
                                      self.playback.alive_mask_at(self.steps))
         self._route_arrivals()
         self._admit()
-        for rep in self.replicas:
-            self._note_finished(rep.decode_once())
+        if self.tracer is None:
+            for rep in self.replicas:
+                self._note_finished(rep.decode_once())
+        else:
+            self.tracer.counter(
+                "queued", len(self.queue) + len(self.pending)
+                + sum(len(w) for w in self.waiting), ts_us=self._ts())
+            for i, rep in enumerate(self.replicas):
+                active = sum(r is not None for r in rep.slot_req)
+                t0 = self.tracer.now_us()
+                finished = rep.decode_once()
+                self._note_finished(finished)
+                if active:
+                    # virtual-clock placement, wall-clock width: the
+                    # replica step's host time (its decode ends in a host
+                    # read of the next tokens)
+                    self.tracer.complete("decode", self._ts(),
+                                         self.tracer.now_us() - t0,
+                                         cat="kernel", tid=i + 1,
+                                         batch=active)
+                for r in finished:
+                    a = getattr(r, "_admit_step", self.steps)
+                    self.tracer.complete(
+                        f"request{r.rid}", a * CLOCK_UNIT_US,
+                        (self.steps - a + 1) * CLOCK_UNIT_US, cat="request",
+                        tid=r.replica + 1, rid=r.rid, tier=r.tier,
+                        tokens=len(r.generated or ()))
         self.steps += 1
 
     def run_until_drained(self, all_requests: Sequence[Request],

@@ -1,6 +1,8 @@
 """Shared by the port's tests: the replays of the reference's draws (fleet
-and dense paths), a fixture that keeps torch to one intra-op thread, and
-the TF32 rounding of the float32 tensor-core kernels' models."""
+and dense paths), a hook that reads per-slot values out of the
+reference's compiled scan, a fixture that keeps torch to one intra-op
+thread, and the TF32 rounding of the float32 tensor-core kernels'
+models."""
 
 import functools
 
@@ -206,6 +208,21 @@ class JaxDenseReplay(DenseSource):
     def slot(self, t):
         return DenseDraws(**{f: self._all[f][t] if f in self._all else None
                              for f in DenseDraws._fields})
+
+
+def read_out_of_scan(monkeypatch, cls, method, store):
+    """Wrap the reference's ``cls.method`` so a compiled scan hands each
+    call's result to the host, in slot order, appended to `store` as
+    numpy (call `jax.effects_barrier()` before reading it)."""
+    real = getattr(cls, method)
+
+    def wrapped(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        jax.debug.callback(lambda o: store.append(
+            jax.tree.map(np.asarray, o)), out, ordered=True)
+        return out
+
+    monkeypatch.setattr(cls, method, wrapped)
 
 
 @pytest.fixture(autouse=True, scope="module")

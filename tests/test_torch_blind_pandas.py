@@ -25,6 +25,7 @@ from repro.core.policy import make_policy as rmake_policy
 from repro_torch.core import estimator as est_mod, locality as loc
 from repro_torch.core import simulator as sim
 from repro_torch.core.policy import PolicyConfig, make_policy
+from repro_torch.core.rng import DenseDeviceSource
 from _torch_port import JaxDenseReplay, single_torch_thread  # noqa: F401
 from test_fleet_scale import _DENSE_PINS
 
@@ -178,8 +179,30 @@ def test_options_and_refusals():
     for bad in ({"slo_target": 0.0}, {"drain_bias": -1.0}):
         with pytest.raises(ValueError):
             make_policy(PolicyConfig("slo_pandas", bad))
-    pol = make_policy("slo_pandas")
+    # with signals that read no breach (NaN: nothing binned yet; a p99
+    # at the target) SLO-PANDAS is Balanced-PANDAS bit for bit, per cell
+    pol, bp_pol = make_policy("slo_pandas"), make_policy("balanced_pandas")
+    assert pol.uses_signals and not bp_pol.uses_signals
     topo = loc.Topology(12, 4)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        pol.slot_step(pol.init_state(topo, batch=(1,)), None, None, None,
-                      None, None, None, signals={"delay_p99": 1.0})
+    lam = 0.9 * loc.capacity_hot_rack(topo, loc.Rates(), 0.5)
+    src = DenseDeviceSource([(0, lam), (1, lam)], pol.draw_plan(12), 16, 12,
+                            "cpu")
+    anc = torch.as_tensor(np.array(topo.ancestors))
+    rack = torch.as_tensor(np.array(topo.rack_of))
+    est = torch.as_tensor(sim.make_estimates(_SMALL, "network", 0.0, -1)
+                          ).expand(2, 12, 3)
+    p99 = torch.tensor([float("nan"), pol.slo_target])
+    s, s_bp = pol.init_state(topo, batch=(2,)), bp_pol.init_state(
+        topo, batch=(2,))
+    for t in range(40):
+        d = src.slot(t)
+        types, active = loc.sample_arrivals_at(d.n, d.u_hot, d.g_type, rack,
+                                               torch.tensor(0.5))
+        s, c = pol.slot_step(s, d, types, active, est,
+                             loc.Rates().as_array(), anc,
+                             signals={"delay_p99": p99})
+        s_bp, c_bp = bp_pol.slot_step(s_bp, d, types, active, est,
+                                      loc.Rates().as_array(), anc)
+        assert torch.equal(c, c_bp)
+        for a, b in zip(s, s_bp):
+            assert torch.equal(a, b)

@@ -218,3 +218,55 @@ def test_single_step_pieces_match_reference():
         for k, v in rcl.telemetry_gauges(jnp.asarray(ql),
                                          jnp.asarray(serving)).items():
             assert float(gauges[k]) == float(v)
+
+
+def test_route_one_po_d_priority_count_and_gauges_match_reference():
+    """pandas_po2.route_one_po_d on the reference's candidate and tie
+    draws, priority.num_in_system, and the PANDAS-structure and FIFO
+    telemetry gauges, one call at a time."""
+    from repro.core import balanced_pandas as rbp, fifo as rfifo
+    from repro.core import pandas_po2 as rpo2, priority as rprio
+    from repro_torch.core import balanced_pandas as bp, fifo
+    from repro_torch.core import pandas_po2 as po2, priority
+    rng = np.random.default_rng(8)
+    rtopo, topo = rloc.Topology(24, 6), loc.Topology(24, 6)
+    r_anc = jnp.asarray(rtopo.ancestors)
+    anc = torch.as_tensor(np.array(topo.ancestors))
+    rcfg = rsim.SimConfig(rtopo, rloc.Rates(), horizon=10, warmup=1)
+    est = rsim.make_estimates(rcfg, "per_server", 0.3, 1, seed=2)
+    for i in range(20):
+        q = rng.integers(0, 3, (24, 3)).astype(np.int32)
+        serving = rng.integers(0, 4, 24).astype(np.int32)
+        task = np.sort(rng.choice(24, 3, replace=False)).astype(np.int32)
+        key, d = jax.random.PRNGKey(100 + i), 1 + i % 3
+        k_cand, k_tie = jax.random.split(key)
+        want = rpo2.route_one_po_d(
+            rbp.PandasState(jnp.asarray(q), jnp.asarray(serving)), key,
+            jnp.asarray(task), jnp.bool_(True), jnp.asarray(est), r_anc, d)
+        sampled = jax.random.choice(k_cand, 24, (d,), replace=False)
+        state = bp.PandasState(torch.as_tensor(q)[None],
+                               torch.as_tensor(serving)[None])
+        got = po2.route_one_po_d(
+            state, torch.as_tensor(np.array(jax.random.gumbel(
+                k_tie, (24,))))[None],
+            torch.as_tensor(np.array(sampled))[None],
+            torch.as_tensor(task)[None], torch.tensor([True]),
+            torch.as_tensor(est)[None], anc)
+        np.testing.assert_array_equal(got.q[0].numpy(), np.asarray(want.q))
+        gauges = bp.telemetry_gauges(state)
+        for k, v in rbp.telemetry_gauges(rbp.PandasState(
+                jnp.asarray(q), jnp.asarray(serving))).items():
+            assert float(gauges[k][0]) == float(v), k
+        ql = q[:, 0]
+        assert int(priority.num_in_system(priority.PriorityState(
+            torch.as_tensor(ql)[None], torch.as_tensor(serving)[None]))[0]) \
+            == int(rprio.num_in_system(rprio.PriorityState(
+                jnp.asarray(ql), jnp.asarray(serving))))
+        fstate = fifo.init_state(topo, cap=8, batch=(1,))._replace(
+            count=torch.tensor([int(ql.sum())], dtype=torch.int32),
+            serving_tier=torch.as_tensor(serving)[None])
+        rstate = rfifo.init_state(rtopo, cap=8)._replace(
+            count=jnp.int32(int(ql.sum())), serving_tier=jnp.asarray(serving))
+        got = fifo.FifoPolicy(8).telemetry_gauges(fstate)
+        for k, v in rfifo.FifoPolicy(8).telemetry_gauges(rstate).items():
+            assert float(got[k][0]) == float(v), k

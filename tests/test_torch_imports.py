@@ -41,7 +41,8 @@ def test_port_imports_neither_jax_nor_reference():
                  "workloads.trace", "workloads.ingest", "utils.doc",
                  "placement.policy", "placement.capacity", "replication",
                  "replication.lifecycle", "replication.controllers",
-                 "replication.simproj", "replication.host"):
+                 "replication.simproj", "replication.host", "telemetry",
+                 "telemetry.events"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -120,8 +120,8 @@ def test_state_equals_reference_after_every_slot(name, placement, weighted):
 
     sched, src = _replay(name, spec, placement, topo, SLOTS, [(seed, lam)],
                          batch)
-    _, init, step, _ = sim._build_dense_step(pol, cfg, torch.as_tensor(est)[None],
-                                          "cpu", sched, placement)
+    _, init, step, _, _ = sim._build_dense_step(
+        pol, cfg, torch.as_tensor(est)[None], "cpu", sched, placement)
     sample = make_placement(placement).build_sampler(topo, "cpu")
     carry = init()
     for t in range(SLOTS):

@@ -24,10 +24,12 @@ from repro.replication import MigrationModel as RMigrationModel
 from repro.replication import lifecycle as rlife
 from repro.replication import make_replication as rmake_replication
 from repro.replication import replication_descriptions as rdescriptions
+from repro.telemetry import EventRecorder as REventRecorder
 from repro_torch.core import locality as loc, policy, simulator as sim
 from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.rng import DenseDeviceSource
 from repro_torch.placement import make_placement
+from repro_torch.telemetry import EventRecorder
 from repro_torch.replication import (MigrationModel, ReplicationConfig,
                                      ReplicationController,
                                      available_replications,
@@ -193,6 +195,8 @@ def test_host_lifecycle_matches_reference_observe_by_observe(name, topo):
         rtopo, rmake_placement(None), 20, 3, 1, rates)
     mine = make_replication(ReplicationConfig(name, opts)).build_host(
         ptopo, make_placement(None), 20, 3, 1, rates)
+    assert mine.tracer is None
+    ref.tracer, mine.tracer = REventRecorder(), EventRecorder()
     rng = np.random.default_rng(m)
     alive = np.ones(m, bool)
     for t in range(120):
@@ -221,7 +225,9 @@ def test_host_lifecycle_matches_reference_observe_by_observe(name, topo):
                 mine.data_loss_frac()) == (ref.availability(),
                                            ref.mean_replication(),
                                            ref.data_loss_frac())
-    assert mine.tracer is None
+    # the lifecycle's events: the reference's, event for event
+    assert mine.tracer.events() == ref.tracer.events()
+    assert mine.tracer.emitted == ref.tracer.emitted > 0
     state = json.loads(json.dumps(mine.state_dict()))
     again = make_replication(ReplicationConfig(name, opts)).build_host(
         ptopo, make_placement(None), 20, 3, 1, rates)
@@ -299,6 +305,6 @@ def test_fixed_without_failures_is_the_run_without_replication(name):
                            scenario="static", device="cpu")
         assert got == base and set(got) == set(base)
     # nothing is built: the carry and the draws are the run's without it
-    _, init, _, rep = sim._build_dense_step(
+    _, init, _, rep, _ = sim._build_dense_step(
         pol, cfg, torch.as_tensor(est)[None], "cpu", replication="fixed")
     assert rep is None and len(init()) == 4

@@ -28,6 +28,7 @@ from repro.models import params as RP
 from repro.placement import make_placement as rmake_placement
 from repro.replication import make_replication as rmake_replication
 from repro.serve import engine as rengine
+from repro.telemetry import EventRecorder as REventRecorder
 from repro_torch.configs import registry
 from repro_torch.core import locality as loc, robustness as rb
 from repro_torch.kernels import ops
@@ -36,6 +37,7 @@ from repro_torch.placement import make_placement
 from repro_torch.replication import make_replication
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
+from repro_torch.telemetry import EventRecorder
 from _torch_port import single_torch_thread  # noqa: F401
 
 ARCH = "chatglm3_6b"
@@ -77,9 +79,14 @@ def test_engine_replication_gate_and_repair(model):
                              device="cpu").replication is None
     ecfg = dict(BASE, scenario="server_loss", replication="repair",
                 scenario_horizon=12)
-    ref = rengine.ServingEngine(rcfg, rprm, rengine.EngineConfig(**ecfg))
-    eng = ServingEngine(cfg, prm, EngineConfig(**ecfg), device="cpu")
-    assert eng.replication is not None and eng.replication.tracer is None
+    ref = rengine.ServingEngine(rcfg, rprm, rengine.EngineConfig(
+        **ecfg, tracer=REventRecorder()))
+    eng = ServingEngine(cfg, prm, EngineConfig(**ecfg,
+                                               tracer=EventRecorder()),
+                        device="cpu")
+    # the engine installs its tracer on the lifecycle
+    assert eng.replication is not None and \
+        eng.replication.tracer is eng.tracer
     want, got = _drip(ref, rengine.Request, rcfg), _drip(eng, Request, cfg)
     assert all(r.finish_time > 0 and len(r.generated) == 3 for r in got)
     for e in (ref, eng):   # the same engine-step clock on both
@@ -88,6 +95,13 @@ def test_engine_replication_gate_and_repair(model):
     assert eng.replication.moves > 0          # the window forced repairs
     assert eng.replication.availability() == pytest.approx(1.0)
     assert eng.replication.state_dict() == ref.replication.state_dict()
+    # the lifecycle's events follow the step clock alone: the reference's
+
+    def lifecycle(tracer):
+        return [e for e in tracer.events()
+                if e.get("cat") in ("failure", "replication")]
+    assert lifecycle(eng.tracer) == lifecycle(ref.tracer)
+    assert any(e["name"] == "repair_commit" for e in lifecycle(eng.tracer))
     assert eng.lost_routes == ref.lost_routes == 0
     assert eng.routed == len(want) == len(got)
     # a failure track engages the lifecycle under the default controller

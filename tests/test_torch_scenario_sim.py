@@ -130,8 +130,8 @@ def test_state_equals_reference_after_every_slot(name, scenario, topo_spec):
     r_leaves = jax.tree_util.tree_leaves(r_states)
 
     sched, src = _replay(name, spec, topo, SLOTS, [(seed, lam)], batch)
-    _, init, step, _ = sim._build_dense_step(pol, cfg, torch.as_tensor(est)[None],
-                                          "cpu", sched)
+    _, init, step, _, _ = sim._build_dense_step(
+        pol, cfg, torch.as_tensor(est)[None], "cpu", sched)
     carry = init()
     for t in range(SLOTS):
         done_before = int(carry[3][0])

@@ -31,7 +31,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import params as P
 from repro_torch.placement import make_placement, policies as place
 from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
-from repro_torch.telemetry import percentiles_from_hist
+from repro_torch.telemetry import EventRecorder, percentiles_from_hist
 from _torch_port import single_torch_thread  # noqa: F401
 
 ROUTERS = ("balanced_pandas", "pandas_po2", "jsq_maxweight", "fifo")
@@ -195,9 +195,20 @@ def test_oversubscribed_engine_drains_on_every_replica(model):
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("tracer", object(), "telemetry"), ("control", "admission", "control")])
+    ("tracer", EventRecorder, "telemetry"),
+    ("control", "admission", "control")])
 def test_unported_engine_settings_raise(model, field, value, slice_name):
+    """`control=` still raises, naming its slice; the telemetry slice's
+    `tracer=` is taken (its events: tests/test_torch_events.py)."""
     _, _, cfg, prm = model
+    if slice_name == "telemetry":
+        tracer = value()
+        eng = ServingEngine(cfg, prm, EngineConfig(**ECFG, tracer=tracer),
+                            device="cpu")
+        assert eng.tracer is tracer
+        assert [e["args"]["name"] for e in tracer.events()] == [
+            "serving_engine", "router"] + [f"replica{i}" for i in range(4)]
+        return
     ecfg = EngineConfig(**dict(ECFG, **{field: value}))
     with pytest.raises(NotImplementedError,
                        match=f"the {slice_name} slice of the port"):

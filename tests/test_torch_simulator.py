@@ -139,17 +139,31 @@ def test_engage_rule_matches_reference():
 
 
 def test_unported_paths_raise_naming_their_slice():
-    _, cfg = _small()
+    rcfg, cfg = _small()
     est = sim.make_estimates(cfg, "network", 0.0, -1)
-    for kw, slice_name in (({"telemetry": True}, "telemetry"),
-                           ({"control": "admission"}, "control")):
-        for fleet in (True, False):
-            with pytest.raises(NotImplementedError, match=slice_name):
-                sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=fleet,
-                             device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match=slice_name):
-            sim.sweep("balanced_pandas", cfg, [5.0], est[None], [0],
-                      device="cpu", **kw)
+    for fleet in (True, False):
+        with pytest.raises(NotImplementedError, match="control"):
+            sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=fleet,
+                         device="cpu", control="admission")
+    with pytest.raises(NotImplementedError, match="control"):
+        sim.sweep("balanced_pandas", cfg, [5.0], est[None], [0],
+                  device="cpu", control="admission")
+    # telemetry runs on the dense path; the fleet path refuses it with
+    # the reference's message
+    with pytest.raises(ValueError) as want:
+        rsim.simulate("balanced_pandas", rcfg, 5.0, est, fleet=True,
+                      telemetry=True)
+    with pytest.raises(ValueError) as got:
+        sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=True,
+                     telemetry=True, device="cpu")
+    assert str(got.value) == str(want.value)
+    for fleet in (None, False):
+        out = sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=fleet,
+                           telemetry=True, device="cpu")
+        assert out["delay_hist"].shape == (257,)
+    grid = sim.sweep("balanced_pandas", cfg, [5.0], est[None], [0],
+                     telemetry=True, device="cpu")
+    assert grid["delay_p99"].shape == (1, 1, 1)
     with pytest.raises(ValueError, match="unsupported"):
         sim.simulate("fifo", cfg, 5.0, est, fleet=True, device="cpu")
     # placement runs on the dense path; the fleet path stays uniform-only
