@@ -143,7 +143,7 @@ on failure:
 12. the scenario slice.  (a, run after 8) the drift study
    (examples/drift_study.py: `drift_study` over the 7 DRIFT_SCENARIOS,
    fixed-prior against blind-EWMA Balanced-PANDAS, Topology(24, 6), load
-   0.75, seeds 0-7, depth cut to horizon 1000 / warmup 250 from 8000 /
+   0.75, seeds 0-7, depth cut to horizon 600 / warmup 150 from 8000 /
    2000), counts set to 0 before and read after (no kernel on the dense
    path); its table, each arm's seconds and cell-slots/s, `blind_wins`;
    fatal: a delay not finite, an arm's throughput in any seed under 0.9
@@ -229,8 +229,8 @@ on failure:
    (examples/tail_latency_study.py: `tail_study` over the TAIL_POLICIES
    Balanced-PANDAS, JSQ-MaxWeight and FIFO at the TAIL_LOADS 0.90/0.95/
    0.99 of the hot-rack capacity, Topology(24, 6), exact estimates,
-   seeds 0-7, `TelemetryConfig()` defaults, depth cut to horizon 2000 /
-   warmup 500 from 12000 / 3000), counts set to 0 before and read after
+   seeds 0-7, `TelemetryConfig()` defaults, depth cut to horizon 1000 /
+   warmup 250 from 12000 / 3000), counts set to 0 before and read after
    (no kernel on the dense path); its table and each sweep's seconds
    and cell-slots/s; fatal: the histogram mass plus
    `telemetry_unmatched` unequal to a cell's in-window completions, an
@@ -254,7 +254,41 @@ on failure:
    decode spans of cat kernel, a server_down, repair_commit events equal
    to the lifecycle's moves and a repair_start, the router's and the
    four replicas' thread names, no dropped event; tokens/s beside 14b's
-   and the median decode span.
+   and the median decode span;
+16. the control slice.  (a, run after 15a) the SLO-control study
+   (examples/slo_control_study.py: `control_study` over the
+   CONTROL_ARMS none / admission / autoscale / both x Balanced-PANDAS and
+   SLO-PANDAS at the CONTROL_LOADS 0.90/0.95/0.99 of the hot-rack
+   capacity, Topology(24, 6), exact estimates, seeds 0-7, telemetry on,
+   `slo_target` 40, `admit_frac` 0.93, depth cut to horizon 600 /
+   warmup 150 from 12000 / 3000), counts set to 0 before and read after
+   (no kernel on the dense path); its table and each sweep's seconds and
+   cell-slots/s; fatal: a delay not finite, offered unequal to admitted
+   + shed in a cell of a controlled arm, a shed rate other than NaN for
+   the none arm, the admission arm shedding nothing at rho 0.99 or over
+   1% in a cell at 0.90 or its p99 at 0.99 not below the none arm's,
+   the autoscale arm's ctl_active_min under 24 or its percentiles,
+   throughput or sample path unequal to the none arm's, "both" unequal
+   to "admission" in any metric but ctl_active_*; at 300 slots: open
+   loop unequal to the uncontrolled run, closed loop (64 users, think
+   8) over 64 in the system or unconserved, the autoscaler at 0.3 of
+   capacity keeping all 24 servers or off lam by over 15%, the
+   deferring bucket unconserved; a host sync in 19 slots of admission,
+   autoscale, both, closed loop and SLO-PANDAS with signals under both
+   (sync debug mode "error"); profiled windows of 8 recorder-on
+   Balanced-PANDAS slots under "both" and without control.  (b, run
+   after 15b)
+   chatglm3-6b at full width through the same engine, defaults and
+   requests under a token bucket (16 at once; fatal unless it sheds,
+   admitted + shed = 16, admitted = completed = prefills = routed, no
+   shed request routed), a traced autoscaler (one request every two
+   steps; fatal unless an autoscale event targets under 4 replicas and
+   no later route goes to a parked one) and a closed loop of 8 users
+   (polled every step until 16 completions; fatal if in-flight passes 8
+   or the budget takes 600 steps), counts set to 0 before each and read
+   after: every admitted request drains with 17 tokens, flash_attention
+   = 28 x prefills, logits finite; tokens/s beside phase 9's, the steps
+   and the sojourn p95 of each arm.
 
 Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1388,8 +1422,9 @@ def phase_dense_loop(dev, slots: int = 32, fleet_cfg=None):
 # ---------------------------------------------------------------------------
 
 # examples/drift_study.py's study (Topology(24, 6), load 0.75, the seven
-# DRIFT_SCENARIOS), its depth cut from 8000 / 2000 slots
-DRIFT_HORIZON, DRIFT_WARMUP = 1000, 250
+# DRIFT_SCENARIOS), its depth cut from 8000 / 2000 slots (to 600 / 150
+# from 1000 / 250 to make room for phase 16 within the time limit)
+DRIFT_HORIZON, DRIFT_WARMUP = 600, 150
 DRIFT_SEEDS = tuple(range(8))
 DRIFT_LOAD = 0.75
 DRIFT_GATED = ("static", "stragglers", "rack_congestion")
@@ -2038,9 +2073,10 @@ def phase_replication_kernels(dev) -> dict:
 # examples/tail_latency_study.py's study (Topology(24, 6), the TAIL_LOADS
 # 0.90/0.95/0.99 of the hot-rack capacity, exact estimates, the
 # TAIL_POLICIES, `TelemetryConfig()` defaults), its depth cut from
-# 12000 / 3000 slots to hold phase 15 near 100 s; the checks that need no
-# long run at TAIL_CHECK_HORIZON
-TAIL_HORIZON, TAIL_WARMUP = 2000, 500
+# 12000 / 3000 slots (to 1000 / 250 from 2000 / 500 to make room for
+# phase 16 within the time limit); the checks that need no long run at
+# TAIL_CHECK_HORIZON
+TAIL_HORIZON, TAIL_WARMUP = 1000, 250
 TAIL_CHECK_HORIZON = 100
 TAIL_SEEDS = tuple(range(8))
 TAIL_CLEAN = ("balanced_pandas", "jsq_maxweight")   # gated at 0.90/0.95
@@ -2236,6 +2272,219 @@ def phase_tail(dev) -> dict:
     return dict(wall_s=wall, sweeps=rates, table=table,
                 fifo_overflow=overflow["fifo"], warned=fired,
                 slo_target_40=slo_row, windows=windows)
+
+
+# phase 16a: the SLO-control study (examples/slo_control_study.py's grid:
+# CONTROL_ARMS x CONTROL_POLICIES at CONTROL_LOADS, Topology(24, 6), exact
+# estimates, telemetry on), its depth cut from 12000 / 3000 slots (to
+# 600 / 150 after a first whole run took 171 s for phase 16 on a slow
+# host); the checks that need no long run at CTL_CHECK_HORIZON
+CTL_HORIZON, CTL_WARMUP = 600, 150
+CTL_CHECK_HORIZON = 300
+CTL_SEEDS = tuple(range(8))
+CTL_SLO_TARGET, CTL_ADMIT_FRAC = 40.0, 0.93
+CTL_SYNC_SLOTS = 20
+# what the autoscaler leaves alone when every server stays active
+CTL_MASK_FREE = ("delay_p50", "delay_p95", "delay_p99", "throughput",
+                 "mean_n", "final_n", "delay_hist")
+
+
+def phase_control(dev) -> dict:
+    """Phase 16a: `control_study` on the card, each sweep timed, launch
+    counts 0 before and after (the dense path runs no kernel); its table
+    and cell-slots/s; the checks that need no long run (300 slots,
+    Balanced-PANDAS); no host sync in 20 slots of each plane; profiled
+    windows of 8 recorder-on Balanced-PANDAS slots under "both" and
+    without control.
+    Fatal: a delay not finite; offered unequal to admitted + shed in a
+    cell of a controlled arm; a shed rate other than NaN for the none
+    arm; the admission arm shedding nothing at rho 0.99 or over 1% in a
+    cell at 0.90, or its p99 at 0.99 not below the none arm's; the
+    autoscale arm's ctl_active_min under 24 (1.35 x lam / 0.5 >= 24 at
+    these loads), its percentiles, throughput or sample path unequal to
+    the none arm's, or "both" unequal to "admission" in any metric but
+    ctl_active_*; open loop off the uncontrolled run's throughput,
+    final_n or percentiles; closed loop (64 users, think 8) over 64 in
+    the system or unconserved; the autoscaler at 0.3 of capacity keeping
+    every server or off lam by over 15%; the deferring bucket
+    unconserved; a host sync."""
+    from repro_torch.core import locality as loc, robustness as rb
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.policy import PolicyConfig, make_policy
+    from repro_torch.core.rng import DenseDeviceSource
+    from repro_torch.telemetry import TelemetryConfig
+
+    cfg = rb.StudyConfig(sim=sim.default_config(horizon=CTL_HORIZON,
+                                                warmup=CTL_WARMUP),
+                         seeds=CTL_SEEDS)
+    scfg = cfg.sim
+    m = scfg.topo.num_servers
+    calls, sweep = [], sim.sweep
+
+    def timed_sweep(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(sim, "sweep", timed_sweep):
+        study = rb.control_study(cfg, admit_frac=CTL_ADMIT_FRAC,
+                                 slo_target=CTL_SLO_TARGET, device=dev)
+    wall = time.perf_counter() - t0
+    _check_counts("control study", {})
+    print(rb.summarize_control(study), flush=True)
+    keys = [(p, a) for p in rb.CONTROL_POLICIES for a in rb.CONTROL_ARMS]
+    runs = dict(zip(keys, calls))
+    cells = len(rb.CONTROL_LOADS) * len(CTL_SEEDS)
+    rates = {f"{p}/{a}": dict(wall_s=sec, cell_slots_per_s=cells
+                              * CTL_HORIZON / sec)
+             for (p, a), (sec, _) in runs.items()}
+    print(f"phase 16a, control study sweeps: {json.dumps(rates)}; "
+          f"{wall:.1f} s for {len(runs)} sweeps of {cells} cells x "
+          f"{CTL_HORIZON} slots", flush=True)
+
+    bad = []
+    for (pol, arm), (_, out) in runs.items():
+        for k in ("mean_delay", "delay_p50", "delay_p95", "delay_p99"):
+            if not np.isfinite(out[k]).all():
+                bad.append(f"{pol}/{arm}: {k} not finite")
+        if arm != "none" and not np.array_equal(
+                out["ctl_offered"], out["ctl_admitted"] + out["ctl_shed"]):
+            bad.append(f"{pol}/{arm}: offered != admitted + shed")
+        shed = study["shed_rate"][pol][arm]
+        if arm == "none" and not np.isnan(shed).all():
+            bad.append(f"{pol}/none: shed rate {shed.tolist()}")
+    for pol in rb.CONTROL_POLICIES:
+        shed = study["shed_rate"][pol]["admission"]
+        if not shed[2].mean() > 0 or (shed[0] > 0.01).any():
+            bad.append(f"{pol}/admission: shed {shed.mean(-1).tolist()}")
+        p99 = {a: study["p99"][pol][a][2].mean() for a in ("none",
+                                                          "admission")}
+        if not p99["admission"] < p99["none"]:
+            bad.append(f"{pol}: p99 at 0.99 {p99}")
+        auto, none = runs[(pol, "autoscale")][1], runs[(pol, "none")][1]
+        if (auto["ctl_active_min"] < m).any():
+            bad.append(f"{pol}/autoscale: ctl_active_min "
+                       f"{auto['ctl_active_min'].min()}")
+        moved = [k for k in CTL_MASK_FREE
+                 if not np.array_equal(auto[k], none[k])]
+        both, adm = runs[(pol, "both")][1], runs[(pol, "admission")][1]
+        moved += [f"both/{k}" for k in adm if not np.array_equal(
+            both[k], adm[k], equal_nan=True)]
+        if moved:
+            bad.append(f"{pol}: an all-active autoscaler moved {moved}")
+    table = {f"{p}/{a}": {k: study[k][p][a].mean(-1).tolist() for k in (
+        "mean", "p50", "p95", "p99", "shed_rate", "throughput")}
+        for p, a in keys}
+    print(f"phase 16a, table (means over seeds, one entry a load): "
+          f"{json.dumps(table)}", flush=True)
+    if bad:
+        raise AssertionError(f"control study: {'; '.join(bad)}")
+    print("phase 16a: conservation in every cell; the all-active "
+          "autoscaler leaves both policies bit for bit", flush=True)
+
+    # the checks that need no long run
+    cap = loc.capacity_hot_rack(scfg.topo, scfg.true_rates, scfg.p_hot)
+    lam = np.asarray(rb.CONTROL_LOADS, np.float32) * np.float32(cap)
+    est = sim.make_estimates(scfg, "network", 0.0, -1)[None]
+    seeds = np.asarray(CTL_SEEDS)
+    ccfg = sim.default_config(horizon=CTL_CHECK_HORIZON,
+                              warmup=CTL_CHECK_HORIZON // 4)
+    zcfg = sim.default_config(horizon=CTL_CHECK_HORIZON, warmup=0)
+    bp = "balanced_pandas"
+    checks = {}
+    off = sweep(bp, ccfg, lam, est, seeds, telemetry=True, device=dev)
+    lg = sweep(bp, ccfg, lam, est, seeds, telemetry=True,
+               control="open_loop", device=dev)
+    moved = [k for k in ("throughput", "final_n", "delay_p50", "delay_p95",
+                         "delay_p99") if not np.array_equal(off[k], lg[k])]
+    if moved:
+        raise AssertionError(f"open_loop moved {moved}")
+    users = {"name": "closed_loop", "options": {"users": 64,
+                                                "think_time": 8.0}}
+    cl = sweep(bp, zcfg, lam[:1], est, seeds, control=users, device=dev)
+    done = np.rint(cl["throughput"].astype(np.float64) * CTL_CHECK_HORIZON)
+    checks["closed_loop"] = dict(final_n_max=float(cl["final_n"].max()),
+                                 admitted=float(cl["ctl_admitted"].mean()))
+    if (cl["final_n"] > 64).any() or not np.array_equal(
+            cl["ctl_admitted"] - done, cl["final_n"]) or not np.array_equal(
+            cl["ctl_offered"], cl["ctl_admitted"]):
+        raise AssertionError(f"closed loop: final_n {cl['final_n'].ravel()}"
+                             f", admitted {cl['ctl_admitted'].ravel()}, "
+                             f"completed {done.ravel()}")
+    low = np.float32(0.3 * cap)
+    au = sweep(bp, ccfg, [low], est, seeds, control="autoscale", device=dev)
+    checks["autoscale_0.3"] = dict(
+        active_mean=float(au["ctl_active_mean"].mean()),
+        active_min=float(au["ctl_active_min"].min()),
+        throughput=float(au["throughput"].mean()), lam=float(low))
+    if not (au["ctl_active_mean"] < m).all() or \
+            (np.abs(au["throughput"] / low - 1.0) > 0.15).any():
+        raise AssertionError(f"autoscale at 0.3: {checks['autoscale_0.3']}")
+    defer = {"name": "token_bucket", "options": {
+        "rate": CTL_ADMIT_FRAC * cap, "burst": 8.0 * cap, "defer": True}}
+    df = sweep(bp, zcfg, lam[2:] * np.float32(1.2), est, seeds,
+               control=defer, device=dev)
+    checks["defer"] = dict(backlog=float(df["ctl_backlog"].mean()),
+                           shed=float(df["ctl_shed"].mean()))
+    if not np.array_equal(df["ctl_offered"], df["ctl_admitted"]
+                          + df["ctl_shed"] + df["ctl_backlog"]):
+        raise AssertionError(f"deferring bucket unconserved: {checks}")
+    print(f"phase 16a, checks at {CTL_CHECK_HORIZON} slots: open_loop is "
+          f"the uncontrolled run; {json.dumps(checks)}", flush=True)
+
+    # no host sync in the controlled loops, and profiled windows
+    cells_l = [(s, np.float32(rho * cap)) for rho in rb.CONTROL_LOADS
+               for s in CTL_SEEDS]
+    est_t = torch.as_tensor(np.repeat(est, len(cells_l), 0), device=dev)
+    lam_t = torch.tensor([x for _, x in cells_l], device=dev)
+    qcfg = sim.default_config(horizon=CTL_CHECK_HORIZON, warmup=4)
+    both = rb.control_arm_spec("both", cap, CTL_ADMIT_FRAC)
+    slo = PolicyConfig("slo_pandas", {"slo_target": CTL_SLO_TARGET})
+
+    def build(policy, control, telemetry=None):
+        ctl = sim.build_control(control, qcfg, None, dev)
+        _, init, step, _, _ = sim._build_dense_step(
+            policy, qcfg, est_t, dev, telemetry=telemetry, ctl=ctl,
+            lam=lam_t)
+        src = DenseDeviceSource(cells_l, make_policy(policy).draw_plan(m),
+                                qcfg.max_arrivals, m, dev,
+                                **({} if ctl is None else ctl.count_law()))
+        return init(), step, src
+
+    planes = (("admission", bp, rb.control_arm_spec("admission", cap,
+                                                     CTL_ADMIT_FRAC), None),
+              ("autoscale", bp, "autoscale", None), ("both", bp, both, None),
+              ("closed_loop", bp, users, None),
+              ("slo_pandas+both", slo, both, True))
+    for label, policy, control, telemetry in planes:
+        carry, step, src = build(policy, control, telemetry)
+        _no_sync(step, carry, src.slot, CTL_SYNC_SLOTS)
+    print(f"phase 16a: no host sync in {CTL_SYNC_SLOTS - 1} slots of "
+          f"{[p[0] for p in planes]}", flush=True)
+    windows = {}
+    for label, control in (("both", both), ("none", None)):
+        carry, step, src = build(bp, control, TelemetryConfig())
+        t = 0
+
+        def one():
+            nonlocal carry, t
+            carry = step(carry, t, src.slot(t))
+            t += 1
+
+        for _ in range(8):
+            one()
+        windows[label] = _profile_window(dev, one, 8)
+    print(f"phase 16a, profiled windows of the recorder-on "
+          f"Balanced-PANDAS slot at {len(cells_l)} cells under \"both\" "
+          f"and without control: "
+          f"{json.dumps(windows)}", flush=True)
+    return dict(wall_s=wall, sweeps=rates, table=table, checks=checks,
+                windows=windows)
 
 
 # ---------------------------------------------------------------------------
@@ -3085,6 +3334,9 @@ def phase_serving(dev, arch=SERVE_ARCH):
         t0 = time.perf_counter()
         run["traced"] = traced_serving(dev, cfg, params, run["replication"])
         run["traced_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run["control"] = control_serving(dev, cfg, params, run)
+        run["control_s"] = time.perf_counter() - t0
     if arch == MAMBA_ARCH:
         run["tokens_per_s_tc_vs_recurrent"] = ssd_ab(eng, reqs)
 
@@ -3117,13 +3369,16 @@ def serve_requests(cfg):
             for i in range(SERVE_REQUESTS)]
 
 
-def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None) -> dict:
+def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None,
+                drive=None) -> dict:
     """Drives `eng` until every request of `reqs` is drained: all
-    submitted at once (`run_until_drained`), or request i at engine step
-    ``submit_at[i]``.  Launch counts are set to 0 before and must equal
-    layers x prefills of the arch's kernel after; every logits tensor is
-    checked finite on the card (no host read); every request must drain
-    with SERVE_NEW + 1 tokens."""
+    submitted at once (`run_until_drained`), request i at engine step
+    ``submit_at[i]``, or by ``drive(eng)``, which submits and steps and
+    returns the requests it made.  Launch counts are set to 0 before and
+    must equal layers x prefills of the arch's kernel after; every
+    logits tensor is checked finite on the card (no host read); every
+    request the control plane did not shed (``finish_time == -1.0``)
+    must be prefilled once and drain with SERVE_NEW + 1 tokens."""
     from repro_torch.models import transformer as T
 
     impl, kernel = SERVE_ROUTES[arch][:2]
@@ -3142,7 +3397,9 @@ def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None) -> dict:
     _zero_counts()
     try:
         t0 = time.perf_counter()
-        if submit_at is None:
+        if drive is not None:
+            out = drive(eng)
+        elif submit_at is None:
             out = eng.run_until_drained(reqs)
         else:
             out, nxt = list(reqs), 0
@@ -3158,21 +3415,23 @@ def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None) -> dict:
     finally:
         T.forward = forward
     launches = _check_counts(path, {kernel: cfg.num_layers * prefills})
-    if prefills != len(reqs):
-        raise AssertionError(f"{prefills} prefills for {len(reqs)} "
-                             f"requests")
-    short = [r.rid for r in out
+    kept = [r for r in out if r.finish_time != -1.0]
+    if prefills != len(kept):
+        raise AssertionError(f"{prefills} prefills for {len(kept)} "
+                             f"admitted requests")
+    short = [r.rid for r in kept
              if r.finish_time <= 0 or len(r.generated) != SERVE_NEW + 1]
     if short:
         raise AssertionError(f"requests {short} did not drain with "
                              f"{SERVE_NEW + 1} tokens")
     if not bool(finite):
         raise AssertionError(f"non-finite logits in the {path} run")
-    tokens = sum(len(r.generated) for r in out)
-    return dict(requests=len(out), prefills=prefills, steps=eng.steps,
+    tokens = sum(len(r.generated) for r in kept)
+    return dict(requests=len(out), shed=len(out) - len(kept),
+                prefills=prefills, steps=eng.steps,
                 wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
                 tier_mix=eng.assign_tiers,
-                routed=np.bincount([r.replica for r in out],
+                routed=np.bincount([r.replica for r in kept],
                                    minlength=len(eng.replicas)).tolist(),
                 sojourn_p50_p95_p99_steps=eng.sojourn_percentiles().tolist(),
                 launches=launches)
@@ -3403,6 +3662,128 @@ def traced_serving(dev, cfg, params, repl_run) -> dict:
     if bad:
         raise AssertionError(f"traced serving: {'; '.join(bad)}")
     return run
+
+
+# phase 16b's arms: a token bucket of 0.25 a step and 8 tokens for 16
+# requests at once, and an autoscaler that shrinks on every reading
+CTL_SERVE_BUCKET = {"name": "token_bucket",
+                    "options": {"rate": 0.25, "burst": 8}}
+CTL_SERVE_AUTOSCALE = {"name": "autoscale", "options": {
+    "p95_high": 1e9, "p95_low": 1e8, "down_after": 2, "cooldown": 2,
+    "min_servers": 1, "step_frac": 0.5}}
+CTL_SERVE_USERS = {"name": "closed_loop",
+                   "options": {"users": 8, "think_time": 4.0}}
+CTL_SERVE_MAX_STEPS = 600
+
+
+def control_serving(dev, cfg, params, static_run) -> dict:
+    """Phase 16b: the same engine, defaults and requests as phase 9 under
+    each control arm, counts set to 0 before each run and read after.
+    Admission (`CTL_SERVE_BUCKET`, all 16 submitted at once): fatal
+    unless it sheds at least one, admitted + shed = 16, admitted =
+    completed = prefills, every admitted request drains with 17 tokens,
+    flash_attention = 28 x prefills and no shed request was routed.
+    Autoscale (`CTL_SERVE_AUTOSCALE`, traced, one request every two
+    steps): fatal unless an ``autoscale`` event has a target under 4, no
+    route after an event goes to a replica that event parked, every
+    request drains and flash_attention = 28 x prefills.  Closed loop (8
+    users, think time 4, the client pool polled every step until 16
+    completions, as benchmarks/bench_serving.py drives it, then drained):
+    fatal unless in-flight never passes 8 and the 16 completions take
+    under 600 steps.  Every logits tensor finite.  Prints tokens/s beside
+    phase 9's, the steps and the sojourn p95 of each arm."""
+    from repro_torch.control import scale_priority
+    from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
+    from repro_torch.telemetry import EventRecorder
+
+    out = {}
+    n = SERVE_REQUESTS
+
+    def report(label, eng, run):
+        run.update(sojourn_p95_steps=float(eng.sojourn_percentiles(
+            (0.95,))[0]), control=eng.control.metrics(),
+            static_tokens_per_s=static_run["tokens_per_s"])
+        print(f"phase 16b, serving {cfg.name} under {label}: "
+              f"{json.dumps(run)}", flush=True)
+        out[label] = run
+
+    # admission
+    eng = ServingEngine(cfg, params, EngineConfig(control=CTL_SERVE_BUCKET),
+                        device=dev)
+    reqs = serve_requests(cfg)
+    run = drained_run(dev, SERVE_ARCH, cfg, eng, reqs,
+                      f"{SERVE_ARCH} token-bucket serving")
+    m = eng.control.metrics()
+    shed = [r for r in reqs if r.finish_time == -1.0]
+    report("admission", eng, run)
+    if not (1 <= m["ctl_shed"] == len(shed) and m["ctl_admitted"]
+            + m["ctl_shed"] == n and m["ctl_admitted"] == eng.completed
+            == run["prefills"] == eng.routed):
+        raise AssertionError(f"admission: {m}, {len(shed)} shed, "
+                             f"{eng.completed} completed, {eng.routed} "
+                             f"routed, {run['prefills']} prefills")
+    if any(r.replica != -1 or r.generated is not None for r in shed):
+        raise AssertionError("admission: a shed request was routed")
+
+    # autoscale, traced
+    tracer = EventRecorder()
+    eng = ServingEngine(cfg, params, EngineConfig(
+        control=CTL_SERVE_AUTOSCALE, tracer=tracer), device=dev)
+    run = drained_run(dev, SERVE_ARCH, cfg, eng, serve_requests(cfg),
+                      f"{SERVE_ARCH} autoscale serving",
+                      submit_at=[2 * i for i in range(n)])
+    rank = scale_priority(eng.spec)
+    events = [e for e in tracer.events() if e["name"] in ("autoscale",
+                                                          "route")]
+    targets = [(e["ts"], e["args"]["target"]) for e in events
+               if e["name"] == "autoscale"]
+    late, target = [], len(eng.replicas)
+    for e in events:   # in emission order: a step's routes precede it
+        if e["name"] == "autoscale":
+            target = e["args"]["target"]
+        elif rank[e["args"]["replica"]] >= target:
+            late.append((e["ts"], e["args"]["replica"], target))
+    run.update(autoscale_events=targets,
+               routes_after_first=sum(e["name"] == "route" and targets
+                                      and e["ts"] > targets[0][0]
+                                      for e in events))
+    report("autoscale", eng, run)
+    if not any(t < len(eng.replicas) for _, t in targets) or late:
+        raise AssertionError(f"autoscale: events {targets}, routes to "
+                             f"parked replicas {late}")
+
+    # closed loop, as the serving bench drives it
+    eng = ServingEngine(cfg, params, EngineConfig(control=CTL_SERVE_USERS),
+                        device=dev)
+    flight, budget_steps = [], []
+
+    def drive(e):
+        rng, made = np.random.default_rng(0), []
+        clients = e.control.clients
+        while e.completed < n:
+            for _ in range(clients.poll(e.steps, e.completed)):
+                made.append(Request(rid=len(made), prompt=rng.integers(
+                    0, cfg.vocab_size, int(rng.integers(24, 121))
+                ).astype(np.int32), max_new_tokens=SERVE_NEW,
+                    prefix_id=len(made) % 5))
+                e.submit(made[-1])
+            flight.append(clients.in_flight)
+            e.step()
+            if e.steps >= CTL_SERVE_MAX_STEPS:
+                break
+        budget_steps.append(e.steps)
+        while any(r.finish_time == 0.0 for r in made):   # drain the rest
+            e.step()
+        return made
+
+    run = drained_run(dev, SERVE_ARCH, cfg, eng, None,
+                      f"{SERVE_ARCH} closed-loop serving", drive=drive)
+    run.update(steps_to_budget=budget_steps[0], max_in_flight=max(flight))
+    report("closed_loop", eng, run)
+    if max(flight) > 8 or budget_steps[0] >= CTL_SERVE_MAX_STEPS:
+        raise AssertionError(f"closed loop: in flight up to {max(flight)}, "
+                             f"{budget_steps[0]} steps to {n} completions")
+    return out
 
 
 def attention_fault_reading(dev, cfg, params, ecfg, prompt, logit_tol):
@@ -3731,6 +4112,8 @@ def main(argv=None) -> int:
     done("14a")
     phase_tail(dev)
     done("15a")
+    phase_control(dev)
+    done("16a")
     place_kernels = phase_placement_kernels(dev)
     done("13c")
     repl_kernels = phase_replication_kernels(dev)
@@ -3752,6 +4135,7 @@ def main(argv=None) -> int:
     seconds["13b (within 9+12b)"] = serve_run["placement_s"]
     seconds["14b (within 9+12b)"] = serve_run["replication_s"]
     seconds["15b (within 9+12b)"] = serve_run["traced_s"]
+    seconds["16b (within 9+12b)"] = serve_run["control_s"]
     print(f"phase seconds (build excluded): {json.dumps(seconds)}",
           flush=True)
 

@@ -11,7 +11,10 @@ fleet-scale path for Balanced-PANDAS and power-of-d, one run or a whole
 `fleet_sweep` -> the hand-written CUDA `fleet_route` kernel), the CUDA
 `wwl_route` and `maxweight_claim` kernels behind `kernels.ops`, the
 scenario subsystem (`workloads`: time-varying traffic and rates on the
-dense simulator, the drift study and the serving engine), and the
+dense simulator, the drift study and the serving engine), replica
+placement, the replication lifecycle, telemetry, the control plane
+(`control`: load generation, admission and autoscaling on the dense
+simulator and the serving engine, and the SLO-control study), and the
 serving engine with its two model kernels; see ROADMAP.md for what is
 still to port.
 

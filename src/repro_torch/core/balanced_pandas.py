@@ -191,30 +191,37 @@ def serve_and_schedule(s: PandasState, u_serve: torch.Tensor,
 def route_lanes(s: PandasState, draws: DenseDraws, types: torch.Tensor,
                 active: torch.Tensor, est: torch.Tensor,
                 ancestors: torch.Tensor, breach=None,
-                drain_bias: float = 0.0) -> PandasState:
+                drain_bias: float = 0.0, server_mask=None) -> PandasState:
     """The slot's B arrival lanes for N cells, routed one after another
     (each sees the workloads the earlier lanes left).
 
     types (N, B, 3), active (N, B), est (N, M, K) estimated rates; the
     draws' route Gumbels are (N, B, M); `breach` (N, 1) and `drain_bias`
-    as `_route_min` takes them."""
+    as `_route_min` takes them; `server_mask` (N, M) bool, the
+    autoscaling seam, is the candidate set of every lane (descaled
+    servers score +inf and take no new work; their queues keep draining
+    through the service phase)."""
     cell, est_rate, pref = lane_rates(types, est, ancestors)
     resid = _in_service_work(s.serving, est)
     lanes = zip(draws.route.unbind(-2), cell.unbind(-2), est_rate.unbind(-2),
                 pref.unbind(-2), active.to(s.q.dtype).unbind(-1))
     for gumbel, cell_i, rate_i, pref_i, inc in lanes:
         s = _route_min(s, gumbel, cell_i, rate_i, pref_i, inc, est, resid,
-                       breach=breach, drain_bias=drain_bias)
+                       candidates=server_mask, breach=breach,
+                       drain_bias=drain_bias)
     return s
 
 
 def slot_step(s: PandasState, draws: DenseDraws, types: torch.Tensor,
               active: torch.Tensor, est: torch.Tensor,
-              true_rates: torch.Tensor, ancestors: torch.Tensor):
-    """One dense slot for N cells: the arrival lanes (`route_lanes`), then
-    service completions and scheduling.  Returns (state, completions
-    (N,))."""
-    s = route_lanes(s, draws, types, active, est, ancestors)
+              true_rates: torch.Tensor, ancestors: torch.Tensor,
+              server_mask=None):
+    """One dense slot for N cells: the arrival lanes (`route_lanes`, over
+    the (N, M) `server_mask` when given), then service completions and
+    scheduling.  ``server_mask=None`` is the step without the autoscaling
+    seam.  Returns (state, completions (N,))."""
+    s = route_lanes(s, draws, types, active, est, ancestors,
+                    server_mask=server_mask)
     return serve_and_schedule(s, draws.u_serve, true_rates)
 
 
@@ -225,6 +232,7 @@ class BalancedPandasPolicy(SlotPolicy):
     policy."""
 
     name = "balanced_pandas"
+    supports_server_mask = True
 
     def draw_plan(self, num_servers: int) -> DrawPlan:
         return DrawPlan(route="servers")
@@ -233,8 +241,10 @@ class BalancedPandasPolicy(SlotPolicy):
                    **opts) -> PandasState:
         return init_state(topo, device, batch)
 
-    def slot_step(self, s, draws, types, active, est, true_rates, ancestors):
-        return slot_step(s, draws, types, active, est, true_rates, ancestors)
+    def slot_step(self, s, draws, types, active, est, true_rates, ancestors,
+                  server_mask=None):
+        return slot_step(s, draws, types, active, est, true_rates, ancestors,
+                         server_mask=server_mask)
 
     def num_in_system(self, s: PandasState) -> torch.Tensor:
         return num_in_system(s)

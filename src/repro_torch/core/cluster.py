@@ -11,9 +11,10 @@ Every router subclasses `repro_torch.core.policy.Router` and speaks the
 uniform ``route(locals_) -> Decision`` / ``claim(worker) -> Claim | None``
 surface.  Each draws its tie-breaks from ``np.random.default_rng(seed)``
 in the reference's order, so under one seed and one sequence of calls
-the port and the reference make the same decisions.  The reference's
-autoscaling seam (`Router.set_active`, a routable-worker mask) comes
-with the control slice of the port.
+the port and the reference make the same decisions, also after the
+autoscaling seam (`Router.set_active`, a routable-worker mask) has
+parked some workers: the three per-worker-queue routers fall back to
+the active fleet as the reference's do, drawing the same numbers.
 """
 
 from __future__ import annotations
@@ -97,6 +98,10 @@ class BalancedPandasRouter(Router):
         tier = self.tiers(locals_)
         rate = np.take_along_axis(est, tier[:, None], axis=1)[:, 0]
         score = self.workload() / rate
+        if not self.active_mask.all():
+            # descaled workers take no NEW work (the simulator's
+            # server_mask seam); their queues keep draining via claim()
+            score = np.where(self.active_mask, score, np.inf)
         mins = np.flatnonzero(score <= score.min() * (1 + 1e-9))
         best_rate = rate[mins].max()
         cand = mins[rate[mins] >= best_rate * (1 - 1e-9)]
@@ -142,6 +147,11 @@ class PandasPoDRouter(BalancedPandasRouter):
         locals_ = [int(x) for x in locals_]
         sampled = self.rng.choice(m, size=min(self.d, m), replace=False)
         cand = sorted(set(locals_) | {int(x) for x in sampled})
+        if not self.active_mask.all():
+            live = [c for c in cand if self.active_mask[c]]
+            # all candidates descaled: fall back to the active fleet
+            # rather than routing to a parked worker
+            cand = live or np.flatnonzero(self.active_mask).tolist()
         # O(d * depth) tier derivation: never touch all M workers
         tier = np.array([tier_of(self.spec, locals_, c) for c in cand],
                         np.int64)
@@ -176,6 +186,12 @@ class JsqMaxWeightRouter(Router):
 
     def route(self, locals_: Sequence[int]) -> Decision:
         locals_ = list(locals_)
+        if not self.active_mask.all():
+            live = [w for w in locals_ if self.active_mask[w]]
+            # JSQ routes among the task's locals; when every local is
+            # descaled, widen to the active fleet (claim-side stealing
+            # still drains parked queues)
+            locals_ = live or np.flatnonzero(self.active_mask).tolist()
         j = _rand_argmin(self.rng, self.q[locals_].astype(np.float64))
         m_star = int(locals_[j])
         self.q[m_star] += 1

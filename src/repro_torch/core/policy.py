@@ -84,6 +84,10 @@ class SlotPolicy(abc.ABC):
     """
 
     name: str = ""
+    #: whether slot_step accepts a ``server_mask=`` kwarg ((N, M) bool,
+    #: True = routable) — the autoscaling seam (`repro_torch.control`):
+    #: masked servers take no NEW work but keep draining their queues.
+    supports_server_mask: bool = False
     #: whether slot_step accepts a ``signals=`` kwarg of in-loop telemetry
     #: readings (SLO-conditioned policies).  Such policies are the
     #: documented exception to the telemetry-purity invariant: enabling
@@ -114,8 +118,10 @@ class SlotPolicy(abc.ABC):
         dynamics, (K,), (M, K) or per cell (N, M, K) (the replication
         seam scales them per cell); ancestors: the (depth, M) table;
         signals: the recorder's (N,) readings, given only to a policy
-        that `uses_signals` when telemetry is on.  Returns (state,
-        completions (N,) int32).
+        that `uses_signals` when telemetry is on.  A policy that
+        `supports_server_mask` also takes ``server_mask=``, the (N, M)
+        routable servers, given only under an autoscaler.  Returns
+        (state, completions (N,) int32).
         """
 
     @abc.abstractmethod
@@ -163,6 +169,9 @@ class Router(abc.ABC):
                 f"fleet topology has {self.num_tiers} tiers")
         self.estimator = estimator
         self.rng = np.random.default_rng(seed)
+        # (M,) bool routable mask (autoscaling seam): masked-out workers
+        # receive no NEW work at route time but drain what they hold.
+        self.active_mask = np.ones(spec.num_workers, bool)
 
     # -- estimated rates ----------------------------------------------------
     def _est(self) -> np.ndarray:
@@ -189,6 +198,19 @@ class Router(abc.ABC):
     def queue_depths(self) -> np.ndarray:
         """(M,) tasks queued per worker (0s for global-queue routers)."""
         return np.zeros(self.spec.num_workers)
+
+    def set_active(self, mask: Sequence[bool]) -> None:
+        """Install the routable-worker mask (autoscaling seam).  At least
+        one worker must stay active; routers fall back to the full fleet
+        for a task whose every candidate is masked (better a remote
+        assignment than a stuck task)."""
+        m = np.asarray(mask, bool)
+        if m.shape != (self.spec.num_workers,):
+            raise ValueError(f"active mask must have shape "
+                             f"({self.spec.num_workers},), got {m.shape}")
+        if not m.any():
+            raise ValueError("active mask must keep at least one worker")
+        self.active_mask = m
 
 
 _POLICIES: Dict[str, Type[SlotPolicy]] = {}

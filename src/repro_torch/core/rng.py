@@ -69,6 +69,19 @@ from a third generator per distinct seed, seeded apart from the arrival
 and policy generators.  Those two never move, so every other draw keeps
 its place, as the reference's dedicated key fold for the reads keeps
 its bits.
+
+Under a control plane's load generator (`repro_torch.control`) the count
+follows the loadgen, and nothing else moves.  Open loop's
+``extra_mult`` folds into each CDF at the reference's float32 product
+``(lam x lam_mult) x extra_mult``.  Closed loop's rate in slot t is
+``thinking / think_time``, thinking the users not in the system, a
+value of the carry: the source cannot know it before the slot.  But it
+can only be k / think_time for an integer k in 0..U, U the largest user
+count over the schedule, so the source yields ``n_by_k`` (N, U+1), the
+count at each k from the slot's one count uniform (U+1 CDFs, built once
+a run on the host), and the step gathers the entry at thinking on the
+device.  A run without a loadgen keeps its block layout and sample path
+bit for bit.
 """
 
 from __future__ import annotations
@@ -93,18 +106,34 @@ def poisson_cdf(lam: float, batch: int) -> np.ndarray:
     return np.minimum(np.cumsum(np.exp(logpmf)), 1.0)
 
 
-def _cell_cdf(cells, batch: int, device, lam_mult=None) -> torch.Tensor:
+def _cell_cdf(cells, batch: int, device, lam_mult=None,
+              extra_mult: float = 1.0) -> torch.Tensor:
     """(N, batch) Poisson CDFs of the cells' loads; given the S
     multipliers `lam_mult`, (N, S, batch) at the loads times each, the
     product formed in float32 as the reference forms
-    ``lam_total * lam_mult``."""
+    ``lam_total * lam_mult``, then times `extra_mult` in float32 (open
+    loop's ``(lam_total * lam_mult) * extra_mult``; 1.0 leaves it)."""
     if lam_mult is None:
         return torch.tensor(np.stack([poisson_cdf(float(lam), batch)
                                       for _, lam in cells]), device=device)
     mult = np.asarray(lam_mult, np.float32)
+    extra = np.float32(extra_mult)
+
+    def rate(lam, m):
+        r = np.float32(lam) * m
+        return float(r if extra_mult == 1.0 else r * extra)
+
     return torch.tensor(np.stack([
-        [poisson_cdf(float(np.float32(lam) * m), batch) for m in mult]
+        [poisson_cdf(rate(lam, m), batch) for m in mult]
         for _, lam in cells]), device=device)
+
+
+def closed_loop_rates(users: int, think_time: float) -> np.ndarray:
+    """(U+1,) float32 closed-loop rates ``float32(k) / float32(think_time)``
+    for k = 0..U, as the reference's compiled step forms them: a product
+    with the float32 reciprocal of the float32 think time."""
+    recip = np.float32(1.0) / np.float32(think_time)
+    return np.arange(users + 1, dtype=np.float32) * recip
 
 
 def _seed_generators(cells, device, stride: int, offset: int):
@@ -219,6 +248,7 @@ class DenseDraws(NamedTuple):
     g_rack: Optional[torch.Tensor] = None  # (N, B, R) rack Gumbels
     g_place: Optional[torch.Tensor] = None  # (N, P, B, M) placement Gumbels
     read: Optional[torch.Tensor] = None     # (N, B) int64 chunk read a lane
+    n_by_k: Optional[torch.Tensor] = None   # (N, U+1) int64 closed-loop count
 
 
 class DenseSource(abc.ABC):
@@ -248,11 +278,15 @@ class DenseDeviceSource(DenseSource):
     `place_blocks` the (B, M) Gumbel blocks the run's placement draws
     (`PlacementPolicy.gumbel_blocks`); `read_cdf` the (C,) float64 CDF of
     the chunk-read law when the replication machinery is engaged (None:
-    no reads drawn)."""
+    no reads drawn); `extra_mult` open loop's rate factor and `users`
+    closed loop's ``(U, think_time)`` (`count_law` of the run's
+    `control.SimControl`; then ``n`` is None and ``n_by_k`` the count
+    table)."""
 
     def __init__(self, cells: Sequence[Tuple[int, float]], plan: DrawPlan,
                  batch: int, num_servers: int, device, sched=None,
-                 place_blocks: int = 0, read_cdf=None):
+                 place_blocks: int = 0, read_cdf=None,
+                 extra_mult: float = 1.0, users=None):
         dev = self.device = torch.device(device)
         self.arr_gens, self.cell_seed = _seed_generators(cells, dev, 2, 0)
         self.pol_gens, _ = _seed_generators(cells, dev, 2, 1)
@@ -263,12 +297,18 @@ class DenseDeviceSource(DenseSource):
             self.read_cdf = torch.as_tensor(np.asarray(read_cdf, np.float64),
                                             device=dev)
         self.seg = None   # one CDF a cell (None) or a segment index a slot
-        if sched is None:
+        self.cdf_k = None  # closed loop: one CDF a user count k
+        if users is not None:
+            self.cdf_k = torch.tensor(np.stack([
+                poisson_cdf(float(r), batch)
+                for r in closed_loop_rates(*users)]), device=dev)
+        elif sched is None and extra_mult == 1.0:
             self.cdf = _cell_cdf(cells, batch, dev)
         else:
-            self.cdf = _cell_cdf(cells, batch, dev,
-                                 sched.lam_mult.cpu().numpy())  # (N, S, B)
-            if sched.num_segments == 1:
+            mult = [1.0] if sched is None else sched.lam_mult.cpu().numpy()
+            self.cdf = _cell_cdf(cells, batch, dev, mult,
+                                 extra_mult)  # (N, S, B)
+            if sched is None or sched.num_segments == 1:
                 self.cdf = self.cdf[:, 0]
             else:
                 self.seg = sched.seg
@@ -292,9 +332,13 @@ class DenseDeviceSource(DenseSource):
         b, m, plan = self.batch, self.m, self.plan
         arr = _cell_block(self.arr_gens, self.cell_seed, self.n_arr,
                           self.device)
-        cdf = self.cdf if self.seg is None else \
-            self.cdf.index_select(1, self.seg[t:t + 1])[:, 0]
-        n = (cdf <= arr[:, :1].double()).sum(dim=1)
+        n = n_by_k = None
+        if self.cdf_k is not None:
+            n_by_k = (self.cdf_k <= arr[:, :1, None].double()).sum(dim=-1)
+        else:
+            cdf = self.cdf if self.seg is None else \
+                self.cdf.index_select(1, self.seg[t:t + 1])[:, 0]
+            n = (cdf <= arr[:, :1].double()).sum(dim=1)
         u_hot = arr[:, 1:1 + b]
         g_type = gumbel(arr[:, 1 + b:1 + b + b * m]).view(-1, b, m)
         off = 1 + b + b * m
@@ -323,4 +367,4 @@ class DenseDeviceSource(DenseSource):
                 self.read_cdf, u.double(), right=True),
                 max=len(self.read_cdf) - 1)
         return DenseDraws(n, u_hot, g_type, u_serve, route, cand, perm, claim,
-                          g_rack, g_place, read)
+                          g_rack, g_place, read, n_by_k)

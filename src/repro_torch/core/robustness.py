@@ -37,8 +37,10 @@ Tail-latency study (`tail_study`): p50/p95/p99 sojourn from the
 telemetry recorder next to the Little's-law mean for each scheduler at
 heavy-traffic loads, where mean ordering and tail ordering can diverge.
 
-The control study of the reference comes with the control slice of the
-port and raises until then.
+SLO-control study (`control_study`): the control plane's arms (none,
+admission, autoscale, both; `repro_torch.control`) x the mean-optimal and
+the SLO-conditioned scheduler at heavy-traffic loads, telemetry on: what
+each control lever buys at the tail.
 """
 
 from __future__ import annotations
@@ -77,6 +79,11 @@ REPLICATION_POLICIES = ("balanced_pandas", "jsq_maxweight")
 # throughput-optimal arm, and the Hadoop floor.
 TAIL_POLICIES = ("balanced_pandas", "jsq_maxweight", "fifo")
 TAIL_LOADS = (0.90, 0.95, 0.99)
+# SLO-control study grid: control-plane arms x {mean-optimal,
+# SLO-conditioned} schedulers at heavy-traffic loads.
+CONTROL_ARMS = ("none", "admission", "autoscale", "both")
+CONTROL_POLICIES = ("balanced_pandas", "slo_pandas")
+CONTROL_LOADS = (0.90, 0.95, 0.99)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -465,8 +472,99 @@ def summarize_tail(study: Dict) -> str:
     return "\n".join(lines)
 
 
-def control_study(*args, **kwargs):
-    """The reference's control study; comes with the control slice of
-    the port."""
-    raise NotImplementedError("the control study comes with the control "
-                              "slice of the port")
+def control_arm_spec(arm: str, cap: float, admit_frac: float = 0.93):
+    """The ``control=`` value for one study arm.
+
+    The admission arm is a token bucket refilling at ``admit_frac`` x the
+    fluid capacity (burst = 8 x cap): it clips the offered load to just
+    under the stability boundary, which is precisely the regime where
+    shedding a few percent of arrivals collapses the queueing tail.  The
+    autoscale arm is the planned headroom autoscaler; "both" composes the
+    two in one plane.
+    """
+    bucket = {"name": "token_bucket",
+              "options": {"rate": admit_frac * cap, "burst": 8.0 * cap}}
+    return {"none": None, "admission": bucket, "autoscale": "autoscale",
+            "both": (bucket, "autoscale")}[arm]
+
+
+def control_study(cfg: StudyConfig,
+                  policies: Sequence[str] = CONTROL_POLICIES,
+                  arms: Sequence[str] = CONTROL_ARMS,
+                  loads: Sequence[float] = CONTROL_LOADS,
+                  admit_frac: float = 0.93,
+                  slo_target: float = 40.0, device=None) -> Dict:
+    """SLO-control study: {no control, admission, autoscale, both} x
+    {balanced_pandas, slo_pandas} at heavy-traffic loads, telemetry on.
+
+    Admission trades throughput (shed arrivals) for p99; autoscaling
+    trades fleet size for nothing at high rho (it keeps everything on)
+    but shows its descale floor at moderate rho; the SLO-conditioned
+    scheduler moves the tail with zero shed.  Under admission or loadgen
+    control the Little's-law mean uses the measured admitted rate as its
+    denominator, so means stay comparable across arms.  ``slo_target``
+    (slots) is applied to every signal-reading policy
+    (``uses_signals``).  Returns ``out[metric][policy][arm]`` arrays of
+    shape (L, S_seeds) for metric in mean / p50 / p95 / p99 / shed_rate
+    / throughput (shed_rate is NaN for the uncontrolled arm).
+    ``device=None`` runs on the card.
+    """
+    from repro_torch.core.policy import get_policy_cls
+    cap = loc.capacity_hot_rack(cfg.sim.topo, cfg.sim.true_rates,
+                                cfg.sim.p_hot)
+    lam = np.asarray(loads, np.float32) * cap
+    seeds = np.asarray(cfg.seeds)
+    est_exact = sim.make_estimates(cfg.sim, "network", 0.0, -1)[None]
+
+    keymap = {"mean": "mean_delay", "p50": "delay_p50", "p95": "delay_p95",
+              "p99": "delay_p99", "throughput": "throughput"}
+    out: Dict = {"capacity": cap, "loads": np.asarray(loads),
+                 "policies": tuple(policies), "arms": tuple(arms),
+                 "admit_frac": admit_frac, "slo_target": slo_target}
+    for m in list(keymap) + ["shed_rate"]:
+        out[m] = {p: {} for p in policies}
+    for pol in policies:
+        pol_like: PolicyLike = pol
+        if get_policy_cls(pol).uses_signals:
+            pol_like = PolicyConfig(pol, {"slo_target": slo_target})
+        for arm in arms:
+            res = sim.sweep(pol_like, cfg.sim, lam, est_exact, seeds,
+                            telemetry=True,
+                            control=control_arm_spec(arm, cap, admit_frac),
+                            device=device)
+            for m, k in keymap.items():
+                out[m][pol][arm] = res[k][:, 0]  # drop singleton est axis
+            out["shed_rate"][pol][arm] = (
+                res["ctl_shed_rate"][:, 0] if "ctl_shed_rate" in res
+                else np.full((len(loads), len(seeds)), np.nan))
+    return out
+
+
+def summarize_control(study: Dict) -> str:
+    """Human-readable SLO-control table (policy x arm rows per load),
+    flagging loads where a controlled arm beats the uncontrolled p99."""
+    width = max([16] + [len(p) for p in study["policies"]])
+    lines = [f"loads x static capacity ({study['capacity']:.2f} tasks/slot); "
+             f"admission bucket at {study['admit_frac']:.0%} of capacity; "
+             f"SLO target {study['slo_target']:.0f} slots; delays in slots "
+             f"(mean via measured admitted rate), mean over seeds"]
+    lines.append(f"{'policy':{width}s} {'arm':>10s} {'rho':>5s} "
+                 f"{'mean':>9s} {'p99':>8s} {'shed':>7s} {'thru':>7s}")
+    for li, rho in enumerate(study["loads"]):
+        for pol in study["policies"]:
+            base_p99 = float(np.mean(study["p99"][pol]["none"][li])) \
+                if "none" in study["arms"] else np.nan
+            for arm in study["arms"]:
+                mean = float(np.mean(study["mean"][pol][arm][li]))
+                p99 = float(np.mean(study["p99"][pol][arm][li]))
+                shed = float(np.mean(study["shed_rate"][pol][arm][li]))
+                thru = float(np.mean(study["throughput"][pol][arm][li]))
+                mark = " <- beats uncontrolled p99" \
+                    if arm != "none" and p99 < base_p99 else ""
+                lines.append(
+                    f"{pol:{width}s} {arm:>10s} {float(rho):5.2f} "
+                    f"{mean:9.2f} {p99:8.1f} "
+                    f"{('-' if np.isnan(shed) else f'{shed:.1%}'):>7s} "
+                    f"{thru:7.3f}{mark}")
+        lines.append("")
+    return "\n".join(lines[:-1])

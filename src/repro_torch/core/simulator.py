@@ -61,8 +61,24 @@ run without it stays bit for bit; a policy that `uses_signals`
 (``slo_pandas``) reads the recorder's live p99 of the slot before as
 ``signals``.  Array metrics (the histograms, the series) come back as
 arrays: (L, E, S, ...) from `sweep`.  The fleet path refuses telemetry,
-as the reference's does.  For a control seam, both entry points raise
-`NotImplementedError` naming the slice that adds it.
+as the reference's does.
+
+Control (`repro_torch.control`: None, a controller name, `ControlConfig`,
+instance or a sequence, at most one a kind) engages the control plane
+on the dense path (with ``fleet=True`` it raises, as the reference's
+does).  Its state (`CtlState`, per cell) rides the carry between the
+replication and telemetry slices.  Each slot the loadgen shapes the
+offered rate before the arrivals (open loop's ``extra_mult`` folded
+into the count law, closed loop's count gathered from the draw seam's
+``n_by_k`` at the thinking population); after them and before the
+replication lifecycle and the routing, admission trims the lane mask
+(shed tasks never touch a queue or the sojourn pairing) and the
+autoscaler hands a mask-aware policy (``supports_server_mask``) an
+(N, M) routable-server mask; an autoscaler on another policy raises the
+reference's ``ValueError``.  The controllers draw nothing.  ``ctl_*``
+metrics join the output, before telemetry's, and ``mean_delay``'s
+Little's-law denominator becomes the measured admitted rate.  ``None``
+builds nothing: the run without control bit for bit.
 
 Mean task completion time is measured via Little's law:
 ``W = mean(N_in_system over measurement window) / (lambda_total x the
@@ -86,6 +102,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, workloads as wl
+from repro_torch.control import resolve_control
 from repro_torch.core import locality as loc
 from repro_torch.core.policy import PolicyLike, make_policy
 from repro_torch.core.rng import DenseDeviceSource, DenseSource
@@ -162,33 +179,40 @@ def _merge_metrics(out: Dict[str, Any], extra: Dict[str, Any],
     out.update(extra)
 
 
-def _check_control(control) -> None:
-    if control is not None:
-        raise NotImplementedError(f"control={control!r} comes with the "
-                                  f"control slice of the port")
+def build_control(control, cfg: SimConfig, sched, device):
+    """The run's `control.SimControl` on `device` (None for
+    ``control=None``: nothing is built)."""
+    plane = resolve_control(control)
+    if plane is None:
+        return None
+    return plane.build_sim(cfg.topo, cfg, sched,
+                           float(np.asarray(cfg.true_rates.values)[0]),
+                           device)
 
 
 # dense carry: (policy state, mean_n (N,) f32, n_meas (N,) f32,
 #               completions (N,) int32)[, RepState when replication is
-#               engaged][, TelState when telemetry is on]; the control
-#               plane's state will sit between the two, as in the
-#               reference
+#               engaged][, CtlState under a control plane][, TelState
+#               when telemetry is on], as in the reference
 DenseCarry = Tuple[Any, ...]
 
 
 def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
                       est: torch.Tensor, device, sched=None, placement=None,
-                      replication=None, telemetry=None):
+                      replication=None, telemetry=None, ctl=None, lam=None):
     """Returns (policy, init() -> carry, step(carry, t, draws) -> carry,
     rep, tel) for the N cells whose (N, M, K) estimated rates are `est`
     under the compiled scenario `sched` (None: static), `placement`
-    (None: uniform), `replication` (None: fixed) and `telemetry` (None:
-    off): the counterpart of the reference's scan body, one slot per
-    call.  The draws' counts already follow the slot's arrival rate, and
-    they carry the placement's Gumbel blocks and, when the lifecycle
-    machinery is engaged, the chunk reads (`core.rng`).  `rep` is the
-    run's `SimReplication`, None when the machinery is not engaged; `tel`
-    its `SimTelemetry`, None when telemetry is off."""
+    (None: uniform), `replication` (None: fixed), `telemetry` (None:
+    off) and the control plane `ctl` (a `control.SimControl` from
+    `build_control`; None: none): the counterpart of the reference's
+    scan body, one slot per call.  The draws' counts already follow the
+    slot's arrival rate (closed loop: the ``n_by_k`` table), and they
+    carry the placement's Gumbel blocks and, when the lifecycle
+    machinery is engaged, the chunk reads (`core.rng`).  `lam` is the
+    cells' (N,) float32 configured rates, which an autoscaler reads.
+    `rep` is the run's `SimReplication`, None when the machinery is not
+    engaged; `tel` its `SimTelemetry`, None when telemetry is off."""
     pol = make_policy(policy_like)
     dev = torch.device(device)
     topo = cfg.topo
@@ -213,9 +237,19 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
         tel = SimTelemetry(as_telemetry_config(telemetry), cfg.horizon,
                            cfg.warmup, topo.num_servers, cfg.max_arrivals,
                            tracks, device=dev)
+    if ctl is not None and ctl.has_mask and not pol.supports_server_mask:
+        raise ValueError(
+            f"control plane {ctl.plane.describe()!r} autoscales, but policy "
+            f"{pol.name!r} does not accept a server mask "
+            f"(supports_server_mask=False); drop the autoscale "
+            f"controller or pick a mask-aware policy")
+    if ctl is not None and ctl.has_mask:
+        lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
     uses_signals = pol.uses_signals and tel is not None
     i_rep = 4 if rep is not None else None
-    i_tel = 4 + (rep is not None) if tel is not None else None
+    i_ctl = 4 + (rep is not None) if ctl is not None else None
+    i_tel = 4 + (rep is not None) + (ctl is not None) \
+        if tel is not None else None
     anc = torch.as_tensor(np.array(topo.ancestors), device=dev)
     rack_of = torch.as_tensor(np.array(topo.rack_of), device=dev)
     true_k = cfg.true_rates.as_array(dev)
@@ -237,6 +271,8 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
                  torch.zeros((n_cells,), dtype=torch.int32, device=dev))
         if rep is not None:
             carry += (rep.init(n_cells),)
+        if ctl is not None:
+            carry += (ctl.init(n_cells),)
         if tel is not None:
             carry += (tel.init(n_cells),)
         return carry
@@ -244,20 +280,39 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
     @torch.inference_mode()  # no autograd bookkeeping: less host time a op
     def step(carry: DenseCarry, t: int, draws) -> DenseCarry:
         state, mean_n, n_meas, compl = carry[:4]
-        if tel is not None:
+        if tel is not None or ctl is not None:
             # observed BEFORE this slot's arrivals and service touch it
             n_prev = pol.num_in_system(state).to(torch.int32)
         knobs, true_mk = const if const is not None else knobs_at(t)
+        count = draws.n
+        if ctl is not None:
+            # the loadgen shapes the offered rate (closed loop gates on
+            # the policy's in-system count); its count is the draw
+            # seam's table entry at the thinking population
+            lam_t, arr_cap = ctl.offered_lam(n_prev, lam, knobs)
+            if ctl.closed_loop:
+                if draws.n_by_k is None:
+                    raise ValueError("a closed-loop control plane needs "
+                                     "the draws' n_by_k table")
+                count = draws.n_by_k.gather(
+                    1, arr_cap.long()[:, None])[:, 0]
         types, active = loc.sample_arrivals_at(
-            draws.n, draws.u_hot, draws.g_type, rack_of, knobs.p_hot,
+            count, draws.u_hot, draws.g_type, rack_of, knobs.p_hot,
             knobs.hot_rack, knobs.rack_weights, draws.g_rack,
             type_sampler=sample_types, g_place=draws.g_place)
+        step_kw = {}
+        if ctl is not None:
+            # admission trims the lane mask BEFORE routing; the
+            # autoscaler computes this slot's routable-server mask
+            ctl_state, active, server_mask = ctl.pre(
+                carry[i_ctl], active, arr_cap, n_prev, lam_t, t >= warmup)
+            if server_mask is not None:
+                step_kw["server_mask"] = server_mask
         if rep is not None:
             alive = knobs.alive if knobs.alive is not None else all_alive
             rep_state, fg_mult = rep.step(carry[i_rep], alive, draws.read,
                                           active, t >= warmup)
             true_mk = true_mk * fg_mult[..., None]   # (N, M, K)
-        step_kw = {}
         if uses_signals:  # the recorder as the previous slot left it
             step_kw["signals"] = {
                 "delay_p99": tel.live_quantile(carry[i_tel], 0.99)}
@@ -272,6 +327,8 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
         out = (state, mean_n, n_meas, compl)
         if rep is not None:
             out += (rep_state,)
+        if ctl is not None:
+            out += (ctl_state,)
         if tel is not None:
             # admissions inferred from the state delta, so arrivals the
             # policy rejected (FIFO's drops) never enter the pairing
@@ -290,12 +347,13 @@ def _build_dense_step(policy_like: PolicyLike, cfg: SimConfig,
 
 
 def _dense_metrics(pol, carry: DenseCarry, lam: torch.Tensor,
-                   rep=None, tel=None) -> Dict[str, np.ndarray]:
+                   rep=None, tel=None, ctl=None) -> Dict[str, np.ndarray]:
     """(N, ...) metrics per cell from a final carry: Little's law over the
     measurement window, as the reference computes it in float32; `lam`
     is each cell's offered rate over the window; `rep` the run's
-    `SimReplication` and `tel` its `SimTelemetry` (None: not engaged),
-    whose metrics join."""
+    `SimReplication`, `ctl` its `SimControl` and `tel` its
+    `SimTelemetry` (None: not engaged), whose metrics join.  Under
+    control, Little's law divides by the measured admitted rate."""
     state, mean_n, n_meas, compl = carry[:4]
     out = {
         "mean_n": mean_n,
@@ -304,9 +362,14 @@ def _dense_metrics(pol, carry: DenseCarry, lam: torch.Tensor,
         "throughput": compl.to(torch.float32) / torch.clamp(n_meas, min=1.0),
         "final_n": pol.num_in_system(state).to(torch.float32),
     }
+    if ctl is not None:
+        ctl_state = carry[4 + (rep is not None)]
+        out["mean_delay"] = ctl.mean_delay(ctl_state, mean_n, n_meas)
     _merge_metrics(out, pol.extra_metrics(state), "SlotPolicy.extra_metrics")
     if rep is not None:
         _merge_metrics(out, rep.metrics(carry[4]), "replication lifecycle")
+    if ctl is not None:
+        _merge_metrics(out, ctl.metrics(ctl_state), "control plane")
     if tel is not None:
         _merge_metrics(out, tel.metrics(carry[-1]), "telemetry")
     return {k: v.cpu().numpy() for k, v in out.items()}
@@ -321,31 +384,33 @@ def _as_numpy(x) -> np.ndarray:
 def _dense_run(policy, cfg: SimConfig, cells: Sequence[Tuple[int, float]],
                est_cells: np.ndarray, device, rng: DenseSource = None,
                scenario=None, placement=None, replication=None,
-               telemetry=None) -> Dict[str, np.ndarray]:
+               telemetry=None, control=None) -> Dict[str, np.ndarray]:
     """Runs the cells ``[(seed, lam), ...]`` with (N, M, K) estimates as
-    one batch under `scenario`, `placement`, `replication` and
-    `telemetry`; returns (N, ...) metric arrays."""
+    one batch under `scenario`, `placement`, `replication`, `telemetry`
+    and `control`; returns (N, ...) metric arrays."""
     dev = resolve_device(device)
     est = torch.as_tensor(est_cells, device=dev).contiguous()
     sched = wl.compile_schedule(wl.make_scenario(scenario), cfg.topo,
                                 cfg.horizon, cfg.p_hot, device=dev)
     plc = make_placement(placement)
+    ctl = build_control(control, cfg, sched, dev)
+    lam = torch.tensor([lam for _, lam in cells], dtype=torch.float32,
+                       device=dev)
     pol, init, step, rep, tel = _build_dense_step(
-        policy, cfg, est, dev, sched, plc, replication, telemetry)
+        policy, cfg, est, dev, sched, plc, replication, telemetry, ctl, lam)
     if rng is None:
         rng = DenseDeviceSource(cells, pol.draw_plan(cfg.topo.num_servers),
                                 cfg.max_arrivals, cfg.topo.num_servers, dev,
                                 sched, plc.gumbel_blocks(cfg.topo),
-                                None if rep is None else rep.read_cdf)
+                                None if rep is None else rep.read_cdf,
+                                **({} if ctl is None else ctl.count_law()))
     carry = init()
     for t in range(cfg.horizon):
         carry = step(carry, t, rng.slot(t))
-    lam = torch.tensor([lam for _, lam in cells], dtype=torch.float32,
-                       device=dev)
     # Little's law over the window: the offered rate is lam_total x the
     # window's mean arrival multiplier (1.0 for the static scenario)
     lam_scale = wl.mean_lam_mult_over(sched, cfg.warmup, cfg.horizon)
-    return _dense_metrics(pol, carry, lam * lam_scale, rep, tel)
+    return _dense_metrics(pol, carry, lam * lam_scale, rep, tel, ctl)
 
 
 def _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
@@ -381,13 +446,14 @@ def simulate(policy, cfg: SimConfig, lam_total: float, est, seed: int = 0,
     arrays.
 
     ``lam_total == 0`` yields ``mean_delay = NaN``; negative loads raise.
+    ``control`` engages the control plane on the dense path (the module
+    docstring); with ``fleet=True`` it raises, as in the reference.
     ``device=None`` runs on the card (raising when there is none);
     ``rng`` overrides the default draw source: a `core.rng.DrawSource` on
     the fleet path, a `core.rng.DenseSource` on the dense path.
     """
     if lam_total < 0:
         raise ValueError(f"lam_total must be >= 0, got {lam_total}")
-    _check_control(control)
     if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
                       telemetry, control):
         from repro_torch.sharding import sim as fleet_sim
@@ -395,7 +461,7 @@ def simulate(policy, cfg: SimConfig, lam_total: float, est, seed: int = 0,
                                         fleet, device=device, rng=rng)
     out = _dense_run(policy, cfg, [(int(seed), np.float32(lam_total))],
                      _as_numpy(est)[None], device, rng, scenario, placement,
-                     replication, telemetry)
+                     replication, telemetry, control)
     return {k: float(v[0]) if v.ndim == 1 else v[0] for k, v in out.items()}
 
 
@@ -414,7 +480,6 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
     lam_grid = np.asarray(lam_grid, np.float32).reshape(-1)
     if np.any(lam_grid < 0):
         raise ValueError(f"lam_grid must be >= 0, got {lam_grid}")
-    _check_control(control)
     if _fleet_engaged(fleet, policy, cfg, scenario, placement, replication,
                       telemetry, control):
         from repro_torch.sharding import sim as fleet_sim
@@ -427,5 +492,5 @@ def sweep(policy, cfg: SimConfig, lam_grid, est_stack, seeds,
             for e in range(shape[1]) for s in seeds]
     out = _dense_run(policy, cfg, [(s, lam) for lam, _, s in grid],
                      est_stack[[e for _, e, _ in grid]], device, rng,
-                     scenario, placement, replication, telemetry)
+                     scenario, placement, replication, telemetry, control)
     return {k: v.reshape(shape + v.shape[1:]) for k, v in out.items()}

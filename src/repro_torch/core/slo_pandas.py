@@ -20,6 +20,9 @@ program: same draws, same scores, same tie-breaks.  This is the
 documented exception to the telemetry-purity invariant
 (``uses_signals = True``).
 
+Under an autoscaler the (N, M) ``server_mask`` restricts every lane's
+candidates, in a breach or not, as in Balanced-PANDAS.
+
 The breach flag is NaN-safe: the live p99 is NaN until a cell's first
 completion is binned (NaN > target is False -> no breach) and inf once
 the estimate passes the histogram range (inf > target -> breach).
@@ -43,6 +46,7 @@ class SloPandasPolicy(SlotPolicy):
     dense slot loop's recorder, per cell.)"""
 
     name = "slo_pandas"
+    supports_server_mask = True
     uses_signals = True
 
     def __init__(self, slo_target: float = 96.0, drain_bias: float = 0.25):
@@ -61,15 +65,16 @@ class SloPandasPolicy(SlotPolicy):
         return bp.init_state(topo, device, batch)
 
     def slot_step(self, s, draws, types, active, est, true_rates, ancestors,
-                  signals=None):
+                  server_mask=None, signals=None):
         if signals is None:
             # no telemetry -> nothing to condition on: the exact
             # Balanced-PANDAS program
             return bp.slot_step(s, draws, types, active, est, true_rates,
-                                ancestors)
+                                ancestors, server_mask=server_mask)
         breach = (signals["delay_p99"] > self.slo_target)[:, None]  # (N, 1)
         s = bp.route_lanes(s, draws, types, active, est, ancestors,
-                           breach=breach, drain_bias=self.drain_bias)
+                           breach=breach, drain_bias=self.drain_bias,
+                           server_mask=server_mask)
         return bp.serve_and_schedule(s, draws.u_serve, true_rates, breach)
 
     def num_in_system(self, s: bp.PandasState):

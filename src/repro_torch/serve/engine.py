@@ -56,9 +56,19 @@ one wall-clock-wide ``decode`` span (cat ``kernel``) per replica step
 and one ``request{rid}`` span per finished request, and installs the
 tracer on its `HostReplication`.  With None the step is the untraced
 one.  `arrival_log` keeps every submit's step, and `recorded_trace`
-re-records it as a replayable `workloads.Trace`.  No control plane yet:
-``control=`` raises `NotImplementedError` naming the slice that adds
-it.
+re-records it as a replayable `workloads.Trace`.
+
+Control (`EngineConfig.control`, `repro_torch.control`: a controller
+name, `ControlConfig`, instance or sequence) builds the host projection
+(`HostControl`).  `submit` asks admission first: a shed request is
+settled at ``finish_time = -1.0`` (a ``shed`` instant when traced) and
+is never routed, prefilled or counted in `completed`; `in_system` is
+then admitted minus completed.  At the end of each step the autoscaler
+reads the sojourn p95; a new target parks the replicas past it in the
+`scale_priority` order (`Router.set_active`, an ``autoscale`` instant):
+a parked replica drains its own routed queue and then claims nothing.
+A closed-loop loadgen's client pool is `control.clients`, polled by the
+caller.  With None nothing is built.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.control import resolve_control, scale_priority
 from repro_torch.core.cluster import tier_of
 from repro_torch.core.estimator import EwmaRateEstimator
 from repro_torch.core.locality import Topology
@@ -131,8 +142,9 @@ class EngineConfig:
     # ReplicationConfig / controller; None -> fixed) runs the lifecycle
     # over a catalogue of `num_prefixes` prefixes (prefix ids wrap mod
     # it) when engaged; `tracer` (an EventRecorder; None: no events)
-    # records the run's events; `control` supports only its default so
-    # far (see `_check_supported`).
+    # records the run's events; `control` (name / ControlConfig /
+    # controller / sequence; None -> no control plane) sheds at submit and
+    # parks replicas under an autoscaler.
     scenario: object = None
     scenario_horizon: int = 400  # engine steps per playback cycle
     placement: object = None
@@ -145,15 +157,6 @@ class EngineConfig:
     # by `sojourn_percentiles()`
     sojourn_hist_bins: int = 512
     sojourn_hist_max: float = 512.0
-
-
-def _check_supported(ecfg: EngineConfig) -> None:
-    """Raise for a seam the port has not ported yet, naming the slice of
-    the port that adds it."""
-    if ecfg.control is not None:
-        raise NotImplementedError(
-            f"EngineConfig.control={ecfg.control!r} comes with the control "
-            f"slice of the port")
 
 
 class Replica:
@@ -248,7 +251,6 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  slow_replicas: Optional[Dict[int, float]] = None,
                  device=None):
-        _check_supported(ecfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"the parameters live on "
@@ -293,6 +295,14 @@ class ServingEngine:
                 self.spec, self.placement, ecfg.num_prefixes, 3,
                 ecfg.seed, prior)
         self.lost_routes = 0  # arrivals whose prefix had no live replica
+        # Host control plane: admission and autoscaling on the engine-step
+        # clock.  None -> nothing is built.
+        plane = resolve_control(ecfg.control)
+        self.control = None if plane is None else \
+            plane.build_host(self.spec, float(prior[0]), seed=ecfg.seed)
+        # autoscale parking: rank r is the r-th replica kept on shrink
+        self._scale_rank = scale_priority(self.spec)
+        self._parked = np.zeros(n_rep, bool)
         self.replicas = [Replica(cfg, params, ecfg, self.device)
                          for _ in range(n_rep)]
         self.queue: deque = deque()            # not-yet-routed arrivals
@@ -331,6 +341,16 @@ class ServingEngine:
         req.arrival = time.monotonic()
         req._submit_step = self.steps  # type: ignore[attr-defined]
         self.arrival_log.append(self.steps)
+        if self.control is not None and \
+                not self.control.admit(self.steps, self.in_system):
+            # shed BEFORE routing: the request never touches a queue;
+            # finish_time = -1.0 settles it (run_until_drained waits on
+            # == 0.0) without its ever having started
+            req.finish_time = -1.0
+            if self.tracer is not None:
+                self.tracer.instant("shed", cat="engine", ts_us=self._ts(),
+                                    rid=req.rid, prefix=req.prefix_id)
+            return
         self.queue.append(req)
         if self.tracer is not None:
             self.tracer.instant("submit", cat="engine", ts_us=self._ts(),
@@ -338,7 +358,10 @@ class ServingEngine:
 
     @property
     def in_system(self) -> int:
-        """Submitted-but-unfinished requests (queued, waiting, decoding)."""
+        """Admitted-but-unfinished requests (queued, waiting, decoding):
+        admitted == completed + in_system at every step."""
+        if self.control is not None:
+            return self.control.admitted - self.completed
         return len(self.arrival_log) - self.completed
 
     def _note_finished(self, finished: List[Request]) -> None:
@@ -413,6 +436,11 @@ class ServingEngine:
 
     def _admit(self) -> None:
         for i, rep in enumerate(self.replicas):
+            # a parked (descaled) replica drains its already-routed queue,
+            # then stops claiming: it must not pull from the global
+            # deferred queue or steal other replicas' work
+            if self._parked[i] and not self.waiting[i]:
+                continue
             while rep.free_slots():
                 claim = self.router.claim(i)
                 if claim is None:
@@ -483,6 +511,18 @@ class ServingEngine:
                         (self.steps - a + 1) * CLOCK_UNIT_US, cat="request",
                         tid=r.replica + 1, rid=r.rid, tier=r.tier,
                         tokens=len(r.generated or ()))
+        if self.control is not None and self.control.autoscaler is not None:
+            # reactive autoscaling: feed the measured sojourn p95; a new
+            # target reshapes the routing mask (parked replicas drain)
+            p95 = float(self.sojourn_percentiles((0.95,))[0])
+            target = self.control.observe(self.steps, p95)
+            if target is not None:
+                mask = self._scale_rank < target
+                self.router.set_active(mask)
+                self._parked = ~mask
+                if self.tracer is not None:
+                    self.tracer.instant("autoscale", cat="engine",
+                                        ts_us=self._ts(), target=int(target))
         self.steps += 1
 
     def run_until_drained(self, all_requests: Sequence[Request],

@@ -96,17 +96,30 @@ def type_draws(k_t, b, m, racks=0, place=0):
     return out
 
 
-@functools.partial(jax.jit, static_argnames=("b", "m", "racks", "place"))
-def _arrival_draws(seeds, lams, ts, lam_mult, b, m, racks=0, place=0):
+@functools.partial(jax.jit, static_argnames=("b", "m", "racks", "place",
+                                             "users", "think_time"))
+def _arrival_draws(seeds, lams, ts, lam_mult, extra, b, m, racks=0, place=0,
+                   users=None, think_time=None):
     """(T, N) arrival draws of the reference's `sample_arrivals_at` at the
-    slot's rate ``lam * lam_mult[t]`` (float32, the reference's order);
-    with ``racks`` > 0 the weighted path's three-way split of k_t and the
-    (B, racks) Gumbels its ``categorical`` draws the hot racks from; with
-    ``place`` > 0 the placement sampler's blocks (`type_draws`)."""
+    slot's rate ``lam * lam_mult[t] * extra`` (float32, the reference's
+    order; `extra` open loop's ``extra_mult``); with ``racks`` > 0 the
+    weighted path's three-way split of k_t and the (B, racks) Gumbels its
+    ``categorical`` draws the hot racks from; with ``place`` > 0 the
+    placement sampler's blocks (`type_draws`).  Given ``users`` (U) the
+    closed loop's ``n_by_k`` (U+1,) a cell: the count at the rate
+    ``k / think_time`` for every k in 0..U, from the same k_n, the rate
+    formed in the compiled step as the reference's loadgen forms it."""
     def one(seed, lam, t, mult):
         k_n, k_t = jax.random.split(_slot_keys(seed, t)[0])
-        out = dict(n=jnp.minimum(jax.random.poisson(k_n, lam * mult), b),
+        out = dict(n=jnp.minimum(jax.random.poisson(k_n, lam * mult * extra),
+                                 b),
                    **type_draws(k_t, b, m, racks, place))
+        if users is not None:
+            def at(k):
+                rate = k.astype(jnp.float32) / jnp.float32(think_time)
+                return jnp.minimum(jax.random.poisson(k_n, rate), b)
+            out["n_by_k"] = jax.vmap(at)(jnp.arange(users + 1,
+                                                    dtype=jnp.int32))
         return out
     return jax.vmap(jax.vmap(one, (0, 0, None, None)), (None, None, 0, 0))(
         seeds, lams, ts, lam_mult)
@@ -181,19 +194,26 @@ class JaxDenseReplay(DenseSource):
     replica `placement` (name or `PlacementConfig`) that draws blocks of
     its own, ``g_place`` replays them (`type_draws`).  With ``reads=(C,
     read_skew)`` (the replication machinery engaged) ``read`` replays the
-    lifecycle's chunk reads (`_read_draws`)."""
+    lifecycle's chunk reads (`_read_draws`).  Under a control plane's
+    loadgen, ``extra`` is open loop's ``extra_mult`` (applied after
+    `lam_mult`, in float32) and ``think=(U, think_time)`` closed loop's
+    count table ``n_by_k`` (every k in 0..U, U the largest user count)."""
 
     def __init__(self, policy: str, cells, batch: int, num_servers: int,
                  horizon: int, d: int = 2, lam_mult=None, racks: int = 0,
-                 placement=None, reads=None):
+                 placement=None, reads=None, extra: float = 1.0,
+                 think=None):
         seeds = jnp.asarray([s for s, _ in cells], jnp.uint32)
         lams = jnp.asarray([lam for _, lam in cells], jnp.float32)
         ts = jnp.arange(horizon, dtype=jnp.int32)
         mult = jnp.ones(horizon, jnp.float32) if lam_mult is None else \
             jnp.asarray(lam_mult, jnp.float32)
-        out = dict(_arrival_draws(seeds, lams, ts, mult, b=batch,
+        users, think_time = (None, None) if think is None else think
+        out = dict(_arrival_draws(seeds, lams, ts, mult,
+                                  jnp.float32(extra), b=batch,
                                   m=num_servers, racks=racks,
-                                  place=place_blocks(placement)))
+                                  place=place_blocks(placement),
+                                  users=users, think_time=think_time))
         out.update(_policy_draws(seeds, ts, family=_FAMILY[policy],
                                  b=batch, m=num_servers, d=d))
         if reads is not None:
@@ -201,7 +221,7 @@ class JaxDenseReplay(DenseSource):
                                       b=batch)
         self._all = {k: torch.from_numpy(np.array(v)) for k, v in
                      out.items()}
-        for k in ("n", "cand", "perm", "read"):
+        for k in ("n", "cand", "perm", "read", "n_by_k"):
             if k in self._all:
                 self._all[k] = self._all[k].long()
 

@@ -42,7 +42,9 @@ def test_port_imports_neither_jax_nor_reference():
                  "placement.policy", "placement.capacity", "replication",
                  "replication.lifecycle", "replication.controllers",
                  "replication.simproj", "replication.host", "telemetry",
-                 "telemetry.events"):
+                 "telemetry.events", "control", "control.plane",
+                 "control.controllers", "control.simproj", "control.host",
+                 "launch.elastic"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -100,6 +102,12 @@ def test_default_device_is_the_card():
         rb.replication_study(study, replications=("fixed",),
                              scenarios=("rack_loss",),
                              policies=("balanced_pandas",), loads=(0.5,))
+    # the control slice: the controlled simulator and the control study
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.simulate("balanced_pandas", cfg, 5.0, est, control="autoscale")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rb.control_study(study, policies=("balanced_pandas",),
+                         arms=("admission",), loads=(0.9,))
     # the serving slice: parameters, caches, the engine and its launcher
     mcfg = registry.get_smoke_config("chatglm3_6b")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -70,12 +70,26 @@ def test_every_policy_runs_the_study_grid():
 @pytest.mark.parametrize("study,slice_name", [
     ("tail_study", "telemetry"), ("control_study", "control")])
 def test_later_studies_raise_naming_their_slice(study, slice_name):
-    """The control study still raises, naming its slice; the tail study
-    of the telemetry slice runs (its numbers: tests/test_torch_tail.py)."""
+    """The studies of the telemetry and control slices run, with the
+    reference's keys and shapes (their numbers:
+    tests/test_torch_tail.py, tests/test_torch_control_study.py)."""
     assert getattr(rb, study).__name__ == getattr(rrb, study).__name__
     if slice_name == "control":
-        with pytest.raises(NotImplementedError, match=slice_name):
-            rb.control_study(rb.default_study(fast=True))
+        kw = dict(max_arrivals=16, horizon=60, warmup=15)
+        args = dict(policies=("balanced_pandas",), arms=("none", "both"),
+                    loads=(0.9, 0.99))
+        got = rb.control_study(rb.StudyConfig(
+            sim=sim.default_config(**kw), seeds=(0, 1, 2)), device="cpu",
+            **args)
+        want = rrb.control_study(rrb.StudyConfig(
+            sim=rsim.default_config(**kw), seeds=(0, 1, 2)), **args)
+        assert set(got) == set(want)
+        for m in ("mean", "p50", "p95", "p99", "shed_rate", "throughput"):
+            for arm in args["arms"]:
+                assert got[m]["balanced_pandas"][arm].shape == \
+                    want[m]["balanced_pandas"][arm].shape == (2, 3)
+        assert np.isnan(got["shed_rate"]["balanced_pandas"]["none"]).all()
+        assert np.isfinite(got["shed_rate"]["balanced_pandas"]["both"]).all()
         return
     cfg = rb.StudyConfig(sim=sim.SimConfig(
         loc.Topology(12, 4), loc.Rates(), max_arrivals=16, horizon=120,

@@ -196,10 +196,13 @@ def test_oversubscribed_engine_drains_on_every_replica(model):
 
 @pytest.mark.parametrize("field,value,slice_name", [
     ("tracer", EventRecorder, "telemetry"),
-    ("control", "admission", "control")])
+    ("control", {"name": "queue_threshold", "options": {"threshold": 3}},
+     "control")])
 def test_unported_engine_settings_raise(model, field, value, slice_name):
-    """`control=` still raises, naming its slice; the telemetry slice's
-    `tracer=` is taken (its events: tests/test_torch_events.py)."""
+    """The telemetry slice's `tracer=` is taken (its events:
+    tests/test_torch_events.py); the control slice's `control=` sheds and
+    drains (tests/test_torch_control_serving.py), and a name that is no
+    registered controller raises the reference's error."""
     _, _, cfg, prm = model
     if slice_name == "telemetry":
         tracer = value()
@@ -209,10 +212,21 @@ def test_unported_engine_settings_raise(model, field, value, slice_name):
         assert [e["args"]["name"] for e in tracer.events()] == [
             "serving_engine", "router"] + [f"replica{i}" for i in range(4)]
         return
-    ecfg = EngineConfig(**dict(ECFG, **{field: value}))
-    with pytest.raises(NotImplementedError,
-                       match=f"the {slice_name} slice of the port"):
-        ServingEngine(cfg, prm, ecfg, device="cpu")
+    eng = ServingEngine(cfg, prm, EngineConfig(**dict(ECFG, **{
+        field: value})), device="cpu")
+    reqs = _requests(Request, cfg, 10, 8, 2, 0, prefix=lambda i: i % 3)
+    out = eng.run_until_drained(reqs, max_steps=400)
+    shed = [r for r in out if r.finish_time == -1.0]
+    assert eng.control.metrics()["ctl_shed"] == len(shed) > 0
+    assert eng.completed == len(out) - len(shed) and eng.in_system == 0
+    assert eng.queue_depths.sum() == 0
+    from repro.control import make_controller as rmake
+    with pytest.raises(ValueError) as want:
+        rmake("admission")
+    with pytest.raises(ValueError) as got:
+        ServingEngine(cfg, prm, EngineConfig(**dict(ECFG, control=(
+            "admission"))), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_scenario_slowdowns_reach_the_router(model, monkeypatch):

@@ -141,13 +141,34 @@ def test_engage_rule_matches_reference():
 def test_unported_paths_raise_naming_their_slice():
     rcfg, cfg = _small()
     est = sim.make_estimates(cfg, "network", 0.0, -1)
-    for fleet in (True, False):
-        with pytest.raises(NotImplementedError, match="control"):
-            sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=fleet,
-                         device="cpu", control="admission")
-    with pytest.raises(NotImplementedError, match="control"):
-        sim.sweep("balanced_pandas", cfg, [5.0], est[None], [0],
-                  device="cpu", control="admission")
+    # the control slice: the fleet path refuses a control plane with the
+    # reference's message; the dense path runs it and grows ctl_* metrics
+    bucket = {"name": "token_bucket", "options": {"rate": 3.0, "burst": 6}}
+    with pytest.raises(ValueError) as want:
+        rsim.simulate("balanced_pandas", rcfg, 5.0, est, fleet=True,
+                      control=bucket)
+    with pytest.raises(ValueError) as got:
+        sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=True,
+                     device="cpu", control=bucket)
+    assert str(got.value) == str(want.value)
+    for fleet in (None, False):
+        out = sim.simulate("balanced_pandas", cfg, 5.0, est, fleet=fleet,
+                           device="cpu", control=bucket)
+        assert out["ctl_offered"] == out["ctl_admitted"] + out["ctl_shed"]
+        assert out["ctl_shed"] > 0
+    grid = sim.sweep("balanced_pandas", cfg, [5.0], est[None], [0],
+                     device="cpu", control=["queue_threshold", "autoscale"])
+    for k in ("ctl_offered", "ctl_shed_rate", "ctl_active_mean",
+              "ctl_active_min"):
+        assert grid[k].shape == (1, 1, 1), k
+    # "admission" is a kind, not a registered controller
+    with pytest.raises(ValueError) as want:
+        rsim.simulate("balanced_pandas", rcfg, 5.0, est,
+                      control="admission")
+    with pytest.raises(ValueError) as got:
+        sim.simulate("balanced_pandas", cfg, 5.0, est, device="cpu",
+                     control="admission")
+    assert str(got.value) == str(want.value)
     # telemetry runs on the dense path; the fleet path refuses it with
     # the reference's message
     with pytest.raises(ValueError) as want:

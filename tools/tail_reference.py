@@ -2,7 +2,7 @@
 phase 15a runs on the card, computed on the CPU for comparison.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/tail_reference.py \
-        [--horizon 2000 --warmup 500 --seeds 8]
+        [--horizon 1000 --warmup 250 --seeds 8]
 
 `repro.core.robustness.tail_study` at `default_config()` (Topology(24,
 6), Rates(0.5, 0.45, 0.25), max_arrivals 24), loads 0.90/0.95/0.99 of
@@ -23,8 +23,8 @@ from repro.core import robustness as rb, simulator as sim
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--horizon", type=int, default=2000)
-    ap.add_argument("--warmup", type=int, default=500)
+    ap.add_argument("--horizon", type=int, default=1000)
+    ap.add_argument("--warmup", type=int, default=250)
     ap.add_argument("--seeds", type=int, default=8)
     args = ap.parse_args(argv)
     cfg = rb.StudyConfig(sim=sim.default_config(horizon=args.horizon,
