@@ -290,6 +290,33 @@ on failure:
    = 28 x prefills, logits finite; tokens/s beside phase 9's, the steps
    and the sojourn p95 of each arm.
 
+17. the training slice (run after 10), counts set to 0 before and read
+   after (training runs none of the five kernels: the reference trains
+   with impl="xla", and none has a backward).  (a) mamba2-1.3b at full
+   width in bf16 (48 layers, d_model 2048, random weights from a seed)
+   through `Trainer`, fed by `DataPipeline(PipelineConfig(vocab 50280,
+   seq_len 512, global_batch 8, token_skew 1.2, chunks of 256 tokens))`
+   with host 0 reading 10x slower, under `plan_for(cfg, "train_4k",
+   "train")` (4 microbatches, float32 accumulation and moments, remat)
+   with the quickstart's 5-step warmup, 8 steps, then one microbatch's
+   forward and backward under `torch.profiler`: each step's loss, grad
+   norm, ms and tokens/s, the model FLOPs a step (6 N D) and their share
+   of the bf16 dense peak, `max_memory_allocated` beside the reckoned 16
+   bytes a parameter, the locality fractions, and host 0's reads beside
+   its reads in the same pipeline without the slowdown; fatal: a loss or
+   grad norm not finite, a first loss off ln(padded vocab) by over 1
+   nat, a last loss not below the first, host 0 serving as many reads as
+   the mean host or over half its reads without the slowdown.
+   (b) chatglm3-6b's and mamba2-1.3b's smoke configs (float32) take one
+   `build_train_step` step on the card and on the CPU from the same
+   weights and batch, TF32 off: loss and grad norm within 1e-4
+   relative.  (c) chatglm3-6b's smoke config trains 2 steps on the card
+   with a checkpoint at step 2; a new `Trainer` restores it: every
+   tensor bit for bit, and the restored pipeline's next batch the
+   uninterrupted one's.  (d) `launch.train.main(["--arch", "mamba2_13b",
+   "--full", "--steps", "2", "--seq-len", "512", "--global-batch",
+   "8"])` on the card.
+
 Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when there is no card.
@@ -3239,15 +3266,18 @@ def phase_ssd(dev, prev_fn=None):
             build, f32_rows)
 
 
-def _profile_window(dev, fn, steps: int) -> dict:
+def _profile_window(dev, fn, steps: int, cpu: bool = True, top: int = 6,
+                    chars: int = 60) -> dict:
     """The device's busy share over `steps` calls of `fn` under
-    torch.profiler: kernel time over wall time, and the top kernels."""
+    torch.profiler: kernel time over wall time, and the `top` kernels
+    (names cut to `chars`).  ``cpu=False`` records the device alone,
+    which costs far less a launch on a window of tens of thousands."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -3261,8 +3291,9 @@ def _profile_window(dev, fn, steps: int) -> dict:
             "window_ms_per_step": window_us / steps / 1e3,
             "device_busy_share": busy_us / window_us if kern else None,
             "device_launches_per_step": sum(k[1] for k in kern) / steps,
-            "top_kernels_us_per_step": [[k[2][:60], k[0] / steps]
-                                        for k in kern[:6]]}
+            "top_kernels_us_per_step": [[k[2][:chars], k[0] / steps,
+                                         k[1] / steps]
+                                        for k in kern[:top]]}
 
 
 # per served arch: the prefill's kernel route, its kernel, the limit of
@@ -4045,6 +4076,299 @@ def phase_launcher(dev):
     return got, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training (the pipeline, lm_loss, AdamW, the trainer, the
+# checkpointer, the launcher)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = MAMBA_ARCH
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 8, 512, 8
+# chunks of 256 tokens: 8 steps of 8 x 513 tokens make 129 chunk reads
+# (at the default 65 536 they would make one, and the straggler check
+# would say nothing)
+TRAIN_TOKENS_PER_CHUNK = 256
+TRAIN_SLOW = {0: 0.1}                 # host 0 reads 10x slower
+# the straggler must serve at most this share of the reads host 0 serves
+# in the same pipeline without it (seed 0: 17 of 129 there)
+TRAIN_STRAGGLER_SHARE = 0.5
+TRAIN_CHECK_ARCHS = (SERVE_ARCH, MAMBA_ARCH)
+TRAIN_CHECK_TOL = 1e-4                # card vs CPU, float32, TF32 off
+TRAIN_SMOKE_SEQ = 32
+TRAIN_LAUNCHER_ARGS = ["--arch", TRAIN_ARCH, "--full", "--steps", "2",
+                       "--seq-len", str(TRAIN_SEQ), "--global-batch",
+                       str(TRAIN_BATCH)]
+
+
+def _train_plan(cfg):
+    """`plan_for(cfg, "train_4k", "train")` with the warmup shortened as
+    examples/quickstart.py shortens it (5 steps, decay over 200): the
+    production warmup of 100 steps would leave a short run's loss flat."""
+    from repro_torch.configs import runtime
+    plan = runtime.plan_for(cfg, "train_4k", "train")
+    return dataclasses.replace(plan, opt=dataclasses.replace(
+        plan.opt, warmup_steps=5, decay_steps=200))
+
+
+def _train_tensors(state):
+    from repro_torch.models.params import tree_leaves
+    return (tree_leaves(state.params) + tree_leaves(state.opt.mu)
+            + tree_leaves(state.opt.nu) + [state.opt.count, state.step])
+
+
+def train_full_width(dev) -> dict:
+    """17a: mamba2-1.3b at full width in bf16 through `Trainer`, fed by
+    the locality-aware pipeline with a 10x straggler, 8 steps; then one
+    microbatch's forward and backward under the profiler, and the same
+    pipeline without the straggler for the same batches (the control of
+    the straggler check)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import count_params, tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = registry.get_config(TRAIN_ARCH)
+    pcfg = PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, token_skew=1.2,
+        tokens_per_chunk=TRAIN_TOKENS_PER_CHUNK)
+    pipe = DataPipeline(pcfg, slow_hosts=TRAIN_SLOW)
+    plan = _train_plan(cfg)
+    n_mb = steps.num_microbatches(plan, TRAIN_BATCH)
+    tr = Trainer(cfg, TrainerConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    steps=TRAIN_STEPS, log_every=1),
+                 plan, pipeline=pipe, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr.init_state()
+    n = count_params(tr.state.params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        rec = tr.history[-1]
+        print(f"  17a step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
+              f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e} "
+              f"{step_s[-1] * 1e3:.1f} ms, {tokens / step_s[-1]:.0f} "
+              f"tokens/s", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(step_s[1:])         # not the first
+    med_s = steady[len(steady) // 2]
+    flops = 6 * n * tokens             # model FLOPs, recompute excluded
+    reads = pipe.metrics["host_reads"]
+    # the control: the same pipeline and seed without the straggler, for
+    # the same batches (its last one feeds the profiled microbatch)
+    ctrl = DataPipeline(pcfg, slow_hosts={})
+    for _ in range(TRAIN_STEPS):
+        last = next(ctrl)
+    ctrl_reads = ctrl.metrics["host_reads"]
+    # one microbatch's forward and backward under the profiler (a whole
+    # step's profile costs 10x its time); a step runs n_mb of them, and
+    # the accumulation and the update besides
+    leaves = [p.requires_grad_(True) for p in tree_leaves(tr.state.params)]
+    mb = {k: steps.microbatch(torch.as_tensor(last[k], device=dev), n_mb, 0)
+          for k in ("tokens", "labels")}
+    fwd_bwd = lambda: torch.autograd.grad(
+        T.lm_loss(tr.state.params, cfg, mb, remat=plan.remat)[0], leaves)
+    prof = _profile_window(dev, fwd_bwd, 1, cpu=False, top=12, chars=160)
+    busy_ms = (prof["device_busy_share"] or 0.0) * prof["window_ms_per_step"]
+    losses = [r["loss"] for r in tr.history]
+    norms = [r["grad_norm"] for r in tr.history]
+    out = {
+        "arch": cfg.name, "params": n, "dtype": cfg.dtype,
+        "steps": TRAIN_STEPS, "seq_len": TRAIN_SEQ,
+        "global_batch": TRAIN_BATCH,
+        "microbatches": plan.microbatches, "remat": plan.remat,
+        "losses": losses, "grad_norms": norms,
+        "lrs": [r["lr"] for r in tr.history],
+        "step_ms": [x * 1e3 for x in step_s],
+        "median_step_ms": med_s * 1e3, "tokens_per_s": tokens / med_s,
+        "model_flops_per_step": flops,
+        "bf16_peak_share": flops / med_s / BF16_OPS_PER_S,
+        "max_memory_allocated_bytes": peak,
+        # bf16 params + float32 mu, nu and accumulator + one
+        # microbatch's bf16 gradients
+        "reckoned_state_bytes": 16 * n,
+        "locality_fractions": pipe.locality_fractions,
+        "host_reads": reads.tolist(),
+        "host0_reads": int(reads[0]), "mean_host_reads": float(reads.mean()),
+        "host0_share": float(reads[0] / reads.sum()),
+        "control_host_reads": ctrl_reads.tolist(),
+        "control_host0_reads": int(ctrl_reads[0]),
+        "microbatch_fwd_bwd_profile": prof,
+        # n_mb profiled microbatches: a step's launches and busy time
+        # less the accumulation's and the update's
+        "fwd_bwd_launches_per_step": n_mb * prof["device_launches_per_step"],
+        "fwd_bwd_busy_over_median_step": n_mb * busy_ms / (med_s * 1e3)}
+    print(f"  17a: {n} params, median step {med_s * 1e3:.1f} ms, "
+          f"{tokens / med_s:.0f} tokens/s, model FLOPs {flops:.3e} a step "
+          f"({flops / med_s / BF16_OPS_PER_S:.4f} of the bf16 dense "
+          f"peak), max_memory_allocated {peak / 1e9:.2f} GB beside the "
+          f"reckoned state {16 * n / 1e9:.2f} GB, locality "
+          f"{pipe.locality_fractions}, host 0 {int(reads[0])} of "
+          f"{int(reads.sum())} reads (mean {reads.mean():.2f}; without "
+          f"the straggler {int(ctrl_reads[0])} of {int(ctrl_reads.sum())}), "
+          f"one microbatch's forward and backward "
+          f"{prof['window_ms_per_step']:.1f} ms profiled, "
+          f"{prof['device_launches_per_step']:.0f} launches, busy "
+          f"{busy_ms:.1f} ms: x{n_mb} is "
+          f"{out['fwd_bwd_busy_over_median_step']:.3f} of the median "
+          f"step", flush=True)
+    bad = [x for x in losses + norms if not math.isfinite(x)]
+    if bad:
+        raise AssertionError(f"17a: a loss or grad norm is not finite: "
+                             f"{losses} {norms}")
+    if abs(losses[0] - math.log(cfg.padded_vocab)) > 1.0:
+        raise AssertionError(f"17a: first loss {losses[0]} not within 1 "
+                             f"nat of ln({cfg.padded_vocab})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"17a: last loss {losses[-1]} not below the "
+                             f"first {losses[0]}")
+    if not reads[0] < reads.mean():
+        raise AssertionError(f"17a: the straggler host 0 served "
+                             f"{reads[0]} reads, the mean host "
+                             f"{reads.mean()}")
+    if not (reads.sum() == ctrl_reads.sum() and reads[0]
+            <= TRAIN_STRAGGLER_SHARE * ctrl_reads[0]):
+        raise AssertionError(f"17a: the straggler host 0 served "
+                             f"{reads[0]} of {reads.sum()} reads, without "
+                             f"the slowdown {ctrl_reads[0]} of "
+                             f"{ctrl_reads.sum()}: not at most "
+                             f"{TRAIN_STRAGGLER_SHARE} of it")
+    return out
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """17b: one `build_train_step` step of each smoke config (float32) on
+    the card and on the CPU, from the same weights and batch."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import params as P
+    from repro_torch.optim import adamw
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 products
+    out = {}
+    try:
+        for arch in TRAIN_CHECK_ARCHS:
+            cfg = registry.get_smoke_config(arch)
+            plan = _train_plan(cfg)
+            batch = next(DataPipeline(PipelineConfig(
+                vocab_size=cfg.vocab_size, seq_len=TRAIN_SMOKE_SEQ,
+                global_batch=TRAIN_BATCH, token_skew=1.2)))
+            prm = P.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+            got = {}
+            for where in ("cpu", dev):
+                p = P.tree_map(lambda t: t.to(where, copy=True), prm)
+                state = steps.TrainState(
+                    p, adamw.init(plan.opt, p),
+                    torch.zeros((), dtype=torch.int32, device=where))
+                fn, _, _ = steps.build_train_step(
+                    cfg, plan, TRAIN_BATCH, TRAIN_SMOKE_SEQ, device=where)
+                _, met = fn(state, batch)
+                got[str(where)] = {k: float(v) for k, v in met.items()}
+            want, card = got["cpu"], got[str(dev)]
+            rel = {k: abs(card[k] - want[k]) / abs(want[k])
+                   for k in ("loss", "grad_norm")}
+            out[arch] = {"cpu": want, "card": card, "rel": rel}
+            print(f"  17b {arch}: card {card}, cpu {want}, rel {rel}",
+                  flush=True)
+            if max(rel.values()) > TRAIN_CHECK_TOL:
+                raise AssertionError(f"17b {arch}: card vs CPU {rel} over "
+                                     f"{TRAIN_CHECK_TOL}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def train_checkpoint(dev) -> dict:
+    """17c: a checkpoint round trip on the card at the chatglm3-6b smoke
+    config: saved at step 2, restored into a new `Trainer`."""
+    import pathlib
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = registry.get_smoke_config(SERVE_ARCH)
+    plan = _train_plan(cfg)
+    with tempfile.TemporaryDirectory() as d:
+        mk = lambda: Trainer(cfg, TrainerConfig(
+            seq_len=TRAIN_SMOKE_SEQ, global_batch=TRAIN_BATCH, steps=2,
+            ckpt_every=2, log_every=1, ckpt_dir=d), plan, device=dev)
+        a = mk()
+        a.init_state()
+        a.run(2)
+        b = mk()
+        step = b.restore_or_init()
+        b.pipeline.load_state_dict(
+            b.ckpt.manifest()["metadata"]["pipeline"])
+        pairs = list(zip(_train_tensors(a.state), _train_tensors(b.state)))
+        unequal = sum(not (x.dtype == y.dtype and y.device == x.device
+                           and torch.equal(x, y)) for x, y in pairs)
+        want, got = next(a.pipeline), next(b.pipeline)
+        same_batch = all(want[k].tobytes() == got[k].tobytes()
+                         for k in want)
+        nbytes = sum(f.stat().st_size
+                     for f in pathlib.Path(d).rglob("*.npz"))
+    out = {"restored_step": step, "tensors": len(pairs),
+           "unequal_tensors": unequal, "next_batch_equal": same_batch,
+           "npz_bytes": nbytes}
+    print(f"  17c: {out}", flush=True)
+    if step != 2 or unequal or not same_batch:
+        raise AssertionError(f"17c: checkpoint round trip failed: {out}")
+    return out
+
+
+def train_launcher() -> dict:
+    """17d: `python -m repro_torch.launch.train` at full width on the
+    card (`device=None`)."""
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    hist = launch_train.main(TRAIN_LAUNCHER_ARGS)
+    secs = time.perf_counter() - t0
+    losses = [r["loss"] for r in hist]
+    if not hist or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"17d: launcher history {hist}")
+    return {"args": TRAIN_LAUNCHER_ARGS, "seconds": secs, "losses": losses}
+
+
+def phase_train(dev) -> dict:
+    """Phase 17: training, counts set to 0 before and read after (the
+    training path runs none of the five kernels: the reference trains
+    with impl="xla", and no kernel has a backward)."""
+    import gc
+
+    secs = {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = {"17a": train_full_width(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["17a"] = time.perf_counter() - t0
+    for name, fn in (("17b", lambda: train_card_vs_cpu(dev)),
+                     ("17c", lambda: train_checkpoint(dev)),
+                     ("17d", train_launcher)):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+    out["launches"] = _check_counts("training", {})
+    out["seconds"] = secs
+    print(f"training: {json.dumps(out)}", flush=True)
+    return out
+
+
 # the keys of a float32 row in the kernels line
 F32_ROW_KEYS = ("shape", "route", "max_abs_err", "ms", "device_ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -4132,6 +4456,10 @@ def main(argv=None) -> int:
     done("11")
     _, launcher_rows = phase_launcher(dev)
     done("10")
+    train = phase_train(dev)
+    done("17")
+    for name, secs in train["seconds"].items():
+        seconds[f"{name} (within 17)"] = secs
     seconds["13b (within 9+12b)"] = serve_run["placement_s"]
     seconds["14b (within 9+12b)"] = serve_run["replication_s"]
     seconds["15b (within 9+12b)"] = serve_run["traced_s"]

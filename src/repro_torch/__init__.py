@@ -14,9 +14,11 @@ scenario subsystem (`workloads`: time-varying traffic and rates on the
 dense simulator, the drift study and the serving engine), replica
 placement, the replication lifecycle, telemetry, the control plane
 (`control`: load generation, admission and autoscaling on the dense
-simulator and the serving engine, and the SLO-control study), and the
-serving engine with its two model kernels; see ROADMAP.md for what is
-still to port.
+simulator and the serving engine, and the SLO-control study), the
+serving engine with its two model kernels, and training (`data`: the
+locality-aware pipeline; `launch.steps`, `optim`, `train`,
+`checkpoint`, `launch.train`); see ROADMAP.md for what is still to
+port.
 
 Entry points take ``device=None``, which means the card (``"cuda"``), and
 raise when none is present; pass ``device="cpu"`` to run the kernels'

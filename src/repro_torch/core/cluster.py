@@ -27,6 +27,13 @@ from repro_torch.core.locality import Topology
 from repro_torch.core.policy import Claim, Decision, Router, register_router
 
 
+def ClusterSpec(num_workers: int, workers_per_pod: int) -> Topology:
+    """Retired host-side fleet spec, kept as a constructor shim: the
+    unified `Topology` replaces it everywhere and validates what
+    ClusterSpec never did (group sizes must tile ``num_workers``)."""
+    return Topology(num_workers, workers_per_pod)
+
+
 def worker_tiers(spec: Topology, locals_: Sequence[int]) -> np.ndarray:
     """(M,) tier index (0 local .. K-1 remote) of each worker for a task
     whose data lives on `locals_` — the host-side `server_tiers`."""

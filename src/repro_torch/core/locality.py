@@ -22,11 +22,15 @@ hot-saturated,
 and the capacity is the unique consistent regime.
 
 The tier seam of the dense path (`server_tiers`, `tier_masks`,
-`pair_tiers`, `pair_rate`, `class_of`) broadcasts over leading batch
-dimensions: the dense simulator carries one row per (load, error, seed)
-cell.  The samplers take their random numbers as arguments from the draw
-seam (`core.rng`): uniforms for Bernoullis (``u < p``) and Gumbels for
-the top-k type draw and the random tie-breaks.
+`pair_tiers`, `pair_rate`, `class_of`, and the legacy `locality_masks`
+and `rate_vector`) broadcasts over leading batch dimensions: the dense
+simulator carries one row per (load, error, seed) cell.  The samplers
+take their random numbers as arguments from the draw seam (`core.rng`):
+uniforms for Bernoullis (``u < p``) and Gumbels for the top-k type draw
+and the random tie-breaks.  So the reference's key-taking samplers
+`sample_task_types` and `sample_arrivals` are left out on purpose: their
+draw-seam forms `sample_task_types_at` and `sample_arrivals_at` replace
+them.
 """
 
 from __future__ import annotations
@@ -138,6 +142,10 @@ class Topology:
         (level 0 = rack)."""
         return _ancestor_table(self.num_servers, self.group_sizes)
 
+    def groups_at(self, level: int) -> Tuple[int, ...]:
+        """Group sizes (in servers) at hierarchy `level` (0 = rack)."""
+        return self.group_sizes[level]
+
     @property
     def num_racks(self) -> int:
         return len(self.group_sizes[0]) if self.depth else 1
@@ -150,13 +158,28 @@ class Topology:
         return np.zeros(self.num_servers, np.int32)
 
     @property
+    def servers_per_rack(self) -> int:
+        """Uniform rack size (raises for heterogeneous racks)."""
+        sizes = set(self.group_sizes[0]) if self.depth \
+            else {self.num_servers}
+        if len(sizes) != 1:
+            raise ValueError(f"racks are heterogeneous: "
+                             f"{self.group_sizes[0]}; use groups_at(0)")
+        return next(iter(sizes))
+
+    @property
     def min_rack_size(self) -> int:
         return min(self.group_sizes[0]) if self.depth else self.num_servers
 
+    # -- legacy host-side aliases (the retired ClusterSpec vocabulary) ------
     @property
     def num_workers(self) -> int:
         """The host-side routers' name for ``num_servers``."""
         return self.num_servers
+
+    @property
+    def pod_of(self) -> np.ndarray:
+        return self.rack_of
 
 
 class Rates:
@@ -199,6 +222,17 @@ class Rates:
     @property
     def gamma(self) -> float:
         return self.values[-1]
+
+    @property
+    def heavy_traffic_optimal(self) -> bool:
+        """Balanced-PANDAS heavy-traffic delay optimality condition (paper
+        §3.2), on the (fastest, second, slowest) tiers."""
+        return self.values[1] ** 2 > self.values[0] * self.values[-1]
+
+    def scaled(self, mult: float) -> "Rates":
+        """Mis-estimated rates: every tier off by the same multiplier
+        (paper §4); clamped into (0, 1] and re-validated."""
+        return Rates(tuple(min(v * mult, 1.0) for v in self.values))
 
     def as_array(self, device=None) -> torch.Tensor:
         """(K,) float32 tensor of the rates (on `device`, CPU by default)."""
@@ -353,6 +387,21 @@ def tier_masks(task_locals: torch.Tensor,
     k = torch.arange(anc.shape[0] + 2, dtype=torch.int32,
                      device=tiers.device)
     return tiers[..., None, :] == k[:, None]
+
+
+def locality_masks(task_locals: torch.Tensor, rack_of: torch.Tensor):
+    """Legacy 3-tier view: (local_mask, rack_mask) over (..., M) servers;
+    rack_mask excludes locals.  Derived from `server_tiers`."""
+    tiers = server_tiers(task_locals, rack_of)
+    return tiers == 0, tiers == 1
+
+
+def rate_vector(task_locals: torch.Tensor, ancestors: torch.Tensor,
+                rates_k) -> torch.Tensor:
+    """(..., M) per-server service rate for each task under a (K,) rate
+    vector."""
+    tiers = server_tiers(task_locals, ancestors)
+    return _tensor(rates_k).to(tiers.device, torch.float32)[tiers.long()]
 
 
 def class_of(task_locals: torch.Tensor, ancestors: torch.Tensor,

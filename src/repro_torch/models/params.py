@@ -12,7 +12,8 @@ of tensors.  Two views:
                        do too;
   * `from_reference` — the JAX package's tree, handed over as numpy
                        arrays, as the port's tree (the tests use it so the
-                       two models compute the same function).
+                       two models compute the same function);
+  * `abstract_params` — shapes and dtypes on the ``meta`` device.
 
 Dense attention and Mamba-2 layers are declared: MoE, cross-attention
 and learned positions wait for their layers (the model-stack slice of
@@ -132,17 +133,25 @@ def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     return defs
 
 
-def _tree_map(fn: Callable, tree):
+def tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict in the reference's leaf order (keys
+    sorted at every level, as `jax.tree.leaves` orders a dict)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
 
 
 def _stack(defs: Dict[str, Any], repeats: int) -> Dict[str, Any]:
     """Add the leading stacked-layer axis."""
-    return _tree_map(lambda d: ParamDef((repeats,) + d.shape, d.init,
-                                        tuple(x + 1 for x in d.fan_in_dims)),
-                     defs)
+    return tree_map(lambda d: ParamDef((repeats,) + d.shape, d.init,
+                                       tuple(x + 1 for x in d.fan_in_dims)),
+                    defs)
 
 
 def stage_defs(cfg: ModelConfig, stage: Stage) -> Dict[str, Any]:
@@ -195,7 +204,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                         dtype=torch.float32)
         return x.mul_(std).to(dt)
 
-    return _tree_map(make, model_defs(cfg))
+    return tree_map(make, model_defs(cfg))
+
+
+def abstract_params(cfg: ModelConfig, dtype=None):
+    """`init_params`'s shapes and dtypes on the ``meta`` device (no
+    memory)."""
+    dt = torch_dtype(dtype or cfg.dtype)
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dt, device="meta"),
+                    model_defs(cfg))
 
 
 def from_reference(tree, device=None):
@@ -211,7 +228,7 @@ def from_reference(tree, device=None):
                 torch.bfloat16)
         return torch.tensor(a, device=dev)  # copies: JAX's are read-only
 
-    return _tree_map(conv, tree)
+    return tree_map(conv, tree)
 
 
 def count_params(tree) -> int:

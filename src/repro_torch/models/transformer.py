@@ -10,9 +10,10 @@ commit), as in the reference; so are the Mamba layers' new ``ssm`` and
 where the reference hands back new arrays.
 
 Entry points:
-  forward(...)      — full-sequence logits (prefill)
+  forward(...)      — full-sequence logits (training / prefill)
   decode_step(...)  — one token against caches
   init_caches(...)  — stacked per-stage cache dicts
+  lm_loss(...)      — next-token cross-entropy (training)
 
 ``impl`` takes the reference's values: ``"xla"`` is the plain PyTorch
 attention (`layers.mha_xla` / `mha_chunked`), ``"pallas"`` the
@@ -23,8 +24,19 @@ SSD scan through `kernels.ops.ssd` for Mamba layers (the CUDA kernel, or
 its plain version `kernels.ref.ssd`); every other value takes the plain
 chunked SSD (`ssm_ops.ssd_chunked`) there.  Decode always takes the plain
 two-piece softmax (`layers.mha_decode`) and the plain one-step SSD
-update, as in the reference.  What waits: `encode`
-and `lm_loss` (training), `remat` and the mesh `ctx`.
+update, as in the reference.
+
+Training differentiates this forward with autograd.  As in the
+reference, it runs ``impl="xla"``: plain attention and the plain chunked
+SSD (none of the hand-written kernels has a backward, nor has any of the
+reference's Pallas kernels).  ``remat=True`` wraps each iteration of the
+stage loop, one stacked block, in `torch.utils.checkpoint.checkpoint`
+(the reference's `jax.checkpoint` around its scan body): one saved input
+a block, the block recomputed in the backward pass.  A layer's
+parameters are views of the stacked tensors (`_unbind`), so their
+gradients flow into the stacked leaves, stacked once a leaf.  What
+waits: `encode` (the encoder-decoder models) and the mesh `ctx`, which
+one card does not need.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -74,23 +87,52 @@ def _index(tree, r: int):
     return tree[r]
 
 
+def _unbind(tree, repeats: int) -> list:
+    """The layers of a stacked tree as a list of trees of views, cut by
+    one `unbind` a leaf: its backward stacks the layers' gradients once,
+    where indexing each layer (`_index`) would make each layer's gradient
+    a zero-filled tensor of the whole stack and add them up (a full-size
+    add a layer)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, repeats) for k, v in tree.items()}
+        return [{k: layers[r] for k, layers in per_key.items()}
+                for r in range(repeats)]
+    return tree.unbind(0)
+
+
+def _block(layer_p, cfg: ModelConfig, stage: Stage, x: torch.Tensor,
+           positions: torch.Tensor, impl: str) -> torch.Tensor:
+    """One stacked block without caches (the unit `remat` recomputes)."""
+    for i, spec in enumerate(stage.block):
+        x, _ = _sublayer(layer_p[f"sub{i}"], cfg, spec, x, positions, None,
+                         impl)
+    return x
+
+
 def _stage_forward(sp: Dict[str, Any], cfg: ModelConfig, stage: Stage,
                    x: torch.Tensor, positions: torch.Tensor,
-                   cache: Optional[Dict[str, Any]], impl: str):
+                   cache: Optional[Dict[str, Any]], impl: str,
+                   remat: bool = False):
     """Run the stacked block `stage.repeats` times; cache leaves carry a
-    leading (repeats,) dim and are committed once after the loop."""
-    new = {f"sub{i}": [] for i in range(len(stage.block))}
-    for r in range(stage.repeats):
-        layer_p = _index(sp, r)
-        layer_cache = None if cache is None else _index(cache, r)
-        for i, spec in enumerate(stage.block):
-            sub_cache = None if layer_cache is None else layer_cache[f"sub{i}"]
-            x, out = _sublayer(layer_p[f"sub{i}"], cfg, spec, x, positions,
-                               sub_cache, impl)
-            if out is not None:
-                new[f"sub{i}"].append(out)
+    leading (repeats,) dim and are committed once after the loop.  With
+    `remat` (and no cache) each block runs under activation
+    checkpointing."""
+    layers = _unbind(sp, stage.repeats)
     if cache is None:
+        for layer_p in layers:
+            if remat:
+                x = checkpoint(_block, layer_p, cfg, stage, x, positions,
+                               impl, use_reentrant=False)
+            else:
+                x = _block(layer_p, cfg, stage, x, positions, impl)
         return x, None
+    new = {f"sub{i}": [] for i in range(len(stage.block))}
+    for r, layer_p in enumerate(layers):
+        layer_cache = _index(cache, r)
+        for i, spec in enumerate(stage.block):
+            x, out = _sublayer(layer_p[f"sub{i}"], cfg, spec, x, positions,
+                               layer_cache[f"sub{i}"], impl)
+            new[f"sub{i}"].append(out)
     return x, _commit_stage_cache(stage, cache, new, positions)
 
 
@@ -133,13 +175,17 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            caches: Optional[Dict[str, Any]] = None, impl: str = "xla"):
+            caches: Optional[Dict[str, Any]] = None, impl: str = "xla",
+            remat: bool = False):
     """Full-sequence forward.  tokens: (B, T) integer.
 
     Returns (logits (B, T, V) float32, new_caches, aux); aux is 0.0 (the
     reference's MoE auxiliary loss, which the ported layers do not have).
     With `caches`, the new K/V and Mamba states are committed into them
-    in place and the same dicts come back.
+    in place and the same dicts come back.  `remat` checkpoints each
+    block (training; ignored with `caches`).  It defaults to False where
+    the reference's defaults to True: the port's serving paths call
+    `forward` without it, and only a differentiated forward can tell.
     """
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
@@ -151,7 +197,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for i, st in enumerate(cfg.stages):
         stage_cache = None if caches is None else caches[f"stage{i}"]
         x, nc = _stage_forward(params["stages"][f"stage{i}"], cfg, st, x,
-                               positions, stage_cache, impl)
+                               positions, stage_cache, impl, remat)
         if nc is not None:
             new_caches[f"stage{i}"] = nc
     return _head(params, cfg, x), (new_caches or None), 0.0
@@ -191,3 +237,25 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 for leaf, a in kv.items()}}
         caches[f"stage{i}"] = sub
     return caches
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            impl: str = "xla", remat: bool = True, aux_weight: float = 0.01):
+    """Next-token cross-entropy.  batch: tokens (B, T), labels (B, T) with
+    -1 for ignored positions.  Returns (total, {"ce", "moe_aux",
+    "ntokens"}) as the reference does; the aux term is 0 (no MoE layer is
+    ported).  The label's logit is a gather where the reference takes a
+    one-hot einsum (a sum with one non-zero term: the same value)."""
+    logits, _, aux = forward(params, cfg, batch["tokens"], impl=impl,
+                             remat=remat)
+    labels = batch["labels"]
+    valid = labels >= 0
+    labels_c = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)                       # (B, T)
+    ll = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    ce = torch.where(valid, logz - ll, 0.0)
+    ntok = torch.clamp(valid.sum(), min=1)
+    loss = ce.sum() / ntok
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    total = loss + aux_weight * aux
+    return total, {"ce": loss, "moe_aux": aux, "ntokens": ntok}

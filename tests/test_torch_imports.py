@@ -44,7 +44,10 @@ def test_port_imports_neither_jax_nor_reference():
                  "replication.simproj", "replication.host", "telemetry",
                  "telemetry.events", "control", "control.plane",
                  "control.controllers", "control.simproj", "control.host",
-                 "launch.elastic"):
+                 "launch.elastic", "data", "data.pipeline", "optim",
+                 "optim.adamw", "train", "train.trainer", "checkpoint",
+                 "checkpoint.checkpointer", "launch.steps", "launch.train",
+                 "configs.runtime", "configs.shapes"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -119,3 +122,17 @@ def test_default_device_is_the_card():
         ServingEngine(mcfg, prm, EngineConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main([])
+    # the training slice: the train step, the trainer, restore, launcher
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import runtime
+    from repro_torch.launch import steps, train as launch_train
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    plan = runtime.plan_for(mcfg, "train_4k", "train")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.build_train_step(mcfg, plan, 8, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(mcfg, TrainerConfig(seq_len=16), plan)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--steps", "1", "--seq-len", "8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Checkpointer(ROOT).restore({})

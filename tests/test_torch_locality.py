@@ -122,3 +122,52 @@ def test_tier_seam_matches_reference(m, groups, rates):
     for i in range(40):
         assert int(lo[i]) == int(rloc.random_argmin(keys[i], score[i]))
         assert int(hi[i]) == int(rloc.random_argmax(keys[i], score[i]))
+
+
+@pytest.mark.parametrize("m,groups,rates", CASES, ids=IDS)
+def test_named_views_match_reference(m, groups, rates):
+    """`Topology.groups_at`/`pod_of`/`servers_per_rack` (its error on
+    heterogeneous racks included), `Rates.heavy_traffic_optimal` and
+    `Rates.scaled` (clamped, re-validated)."""
+    ref, port = rloc.Topology(m, groups), loc.Topology(m, groups)
+    for lvl in range(ref.depth):
+        assert port.groups_at(lvl) == ref.groups_at(lvl)
+    np.testing.assert_array_equal(port.pod_of, ref.pod_of)
+    try:
+        want = ref.servers_per_rack
+    except ValueError as e:
+        with pytest.raises(ValueError, match="heterogeneous"):
+            port.servers_per_rack
+        assert "heterogeneous" in str(e)
+    else:
+        assert port.servers_per_rack == want
+    for vals in (rates, (0.5, 0.3, 0.2), (0.9, 0.5, 0.3, 0.25)):
+        r, p = rloc.Rates(vals), loc.Rates(vals)
+        assert p.heavy_traffic_optimal == r.heavy_traffic_optimal
+        for mult in (0.5, 1.0, 1.3, 3.0):
+            try:
+                want = r.scaled(mult).values
+            except ValueError:
+                with pytest.raises(ValueError):
+                    p.scaled(mult)
+            else:
+                assert p.scaled(mult).values == want
+
+
+@pytest.mark.parametrize("m,groups,rates", CASES, ids=IDS)
+def test_locality_masks_and_rate_vector_match_reference(m, groups, rates):
+    ref = rloc.Topology(m, groups)
+    locs = np.random.default_rng(m).integers(0, m, (16, 3)).astype(np.int32)
+    anc = loc.Topology(m, groups).ancestors
+    rk = loc.Rates(rates).values
+    got_v = loc.rate_vector(torch.tensor(locs), anc, rk)
+    got_l, got_r = loc.locality_masks(torch.tensor(locs),
+                                      torch.tensor(ref.rack_of))
+    assert got_v.dtype == torch.float32
+    for i, row in enumerate(locs):
+        want_v = rloc.rate_vector(row, ref.ancestors,
+                                  rloc.Rates(rates).as_array())
+        np.testing.assert_array_equal(got_v[i].numpy(), np.asarray(want_v))
+        want_l, want_r = rloc.locality_masks(row, ref.rack_of)
+        np.testing.assert_array_equal(got_l[i].numpy(), np.asarray(want_l))
+        np.testing.assert_array_equal(got_r[i].numpy(), np.asarray(want_r))
