@@ -91,7 +91,11 @@ on failure:
    cases, on the attention layer's strided views, each held to 2e-5 and
    timed by events and on the device beside its plain version, SDPA and
    its bound (and, with --prev, the parent's CUDA-core kernel on the
-   same inputs, its error recorded);
+   same inputs, its error recorded); granite-moe-1b's bf16 prefill shape
+   at every bucket (B 1, Hq 16, Hkv 8, D 64) timed as chatglm3-6b's;
+   then each kernel (bf16 and float32 on the tensor cores, float32 on
+   the CUDA cores) at D = 16 through the wrapper's `_launch(code)`:
+   the 8 cases at D = 16 held as above, and B 1, H 4/4, T 128 timed;
 9. the serving slice: chatglm3-6b at full width (28 layers, d_model
    4096, bf16, random weights from a seed) through
    `ServingEngine.run_until_drained` with the `EngineConfig()` defaults
@@ -139,11 +143,15 @@ on failure:
    and nothing else (`torch.profiler`'s record of the host's runtime
    calls: no copy, no set, every recorded device activity that kernel),
    and each is held against its plain version and timed by events and on
-   the device, with the bound (and SDPA for attention);
+   the device, with the bound (and SDPA for attention); then `--arch
+   granite_moe_1b --requests 4` (the reference's serving CLI test) and
+   `--arch mixtral_8x22b --requests 4`: flash_attention = layers x 4,
+   and their float32 D = 16 and D = 8 calls checked and timed the same
+   way;
 12. the scenario slice.  (a, run after 8) the drift study
    (examples/drift_study.py: `drift_study` over the 7 DRIFT_SCENARIOS,
    fixed-prior against blind-EWMA Balanced-PANDAS, Topology(24, 6), load
-   0.75, seeds 0-7, depth cut to horizon 600 / warmup 150 from 8000 /
+   0.75, seeds 0-7, depth cut to horizon 300 / warmup 75 from 8000 /
    2000), counts set to 0 before and read after (no kernel on the dense
    path); its table, each arm's seconds and cell-slots/s, `blind_wins`;
    fatal: a delay not finite, an arm's throughput in any seed under 0.9
@@ -168,7 +176,7 @@ on failure:
    (examples/placement_study.py: `placement_study` over the four
    PLACEMENTS x the three PLACEMENT_POLICIES under static and
    rack_congestion, Topology(24, 6), load 0.7 x the uniform static
-   capacity, seeds 0-7, depth cut to horizon 400 / warmup 100 from
+   capacity, seeds 0-7, depth cut to horizon 300 / warmup 75 from
    8000 / 2000), counts set to 0 before and read after (no kernel on the
    dense path); its table, each placement's fluid capacity (the LP over
    2000 types sampled on the card), each sweep's seconds and
@@ -229,8 +237,8 @@ on failure:
    (examples/tail_latency_study.py: `tail_study` over the TAIL_POLICIES
    Balanced-PANDAS, JSQ-MaxWeight and FIFO at the TAIL_LOADS 0.90/0.95/
    0.99 of the hot-rack capacity, Topology(24, 6), exact estimates,
-   seeds 0-7, `TelemetryConfig()` defaults, depth cut to horizon 1000 /
-   warmup 250 from 12000 / 3000), counts set to 0 before and read after
+   seeds 0-7, `TelemetryConfig()` defaults, depth cut to horizon 500 /
+   warmup 125 from 12000 / 3000), counts set to 0 before and read after
    (no kernel on the dense path); its table and each sweep's seconds
    and cell-slots/s; fatal: the histogram mass plus
    `telemetry_unmatched` unequal to a cell's in-window completions, an
@@ -260,8 +268,8 @@ on failure:
    CONTROL_ARMS none / admission / autoscale / both x Balanced-PANDAS and
    SLO-PANDAS at the CONTROL_LOADS 0.90/0.95/0.99 of the hot-rack
    capacity, Topology(24, 6), exact estimates, seeds 0-7, telemetry on,
-   `slo_target` 40, `admit_frac` 0.93, depth cut to horizon 600 /
-   warmup 150 from 12000 / 3000), counts set to 0 before and read after
+   `slo_target` 40, `admit_frac` 0.93, depth cut to horizon 300 /
+   warmup 75 from 12000 / 3000), counts set to 0 before and read after
    (no kernel on the dense path); its table and each sweep's seconds and
    cell-slots/s; fatal: a delay not finite, offered unequal to admitted
    + shed in a cell of a controlled arm, a shed rate other than NaN for
@@ -307,15 +315,40 @@ on failure:
    grad norm not finite, a first loss off ln(padded vocab) by over 1
    nat, a last loss not below the first, host 0 serving as many reads as
    the mean host or over half its reads without the slowdown.
-   (b) chatglm3-6b's and mamba2-1.3b's smoke configs (float32) take one
-   `build_train_step` step on the card and on the CPU from the same
-   weights and batch, TF32 off: loss and grad norm within 1e-4
-   relative.  (c) chatglm3-6b's smoke config trains 2 steps on the card
+   (b) chatglm3-6b's, mamba2-1.3b's and granite-moe-1b's smoke configs
+   (float32) take one `build_train_step` step on the card and on the CPU
+   from the same weights and batch, TF32 off: loss and grad norm (and
+   the microbatches' mean moe_aux) within 1e-4 relative.
+   (c) chatglm3-6b's smoke config trains 2 steps on the card
    with a checkpoint at step 2; a new `Trainer` restores it: every
    tensor bit for bit, and the restored pipeline's next batch the
    uninterrupted one's.  (d) `launch.train.main(["--arch", "mamba2_13b",
    "--full", "--steps", "2", "--seq-len", "512", "--global-batch",
    "8"])` on the card.
+18. the MoE slice (run after 17).  (a) granite-moe-1b at full width
+   (24 layers, d_model 1024, 32 experts top 8, bf16, random weights from
+   a seed, 2.67 GB) through the engine, defaults and 16 requests as
+   phase 9: fatal unless flash_attention = 24 x prefills and no other
+   kernel, the parameter count is `param_count`'s, every logits tensor
+   finite and every request drained with 17 tokens; one prefill through
+   impl="pallas" against impl="xla" within `MOE_LOGIT_TOL` in bf16 and
+   `SERVE_F32_LOGIT_TOL` for the same weights in float32 (a one key past
+   the edge attention beyond it), the real tokens whose experts differ
+   between the two routes counted layer by layer; prefill ms, decode
+   tokens/s and a profiled decode window.  (b) `moe_mlp` at full width
+   on one layer's seeded weights, float32 with TF32 off, card against
+   CPU at n = 8192 (the capacity branch, some pairs dropped) and 1024:
+   choices and kept mask equal (a near-tie flip counted, at most 1 in
+   1000 tokens), y within 1e-4 of its largest value, aux within 1e-6;
+   the bf16 call twice on the card bit for bit.  (c) granite-moe-1b
+   trained at full width in bf16 through `Trainer` and `DataPipeline`
+   (seq 512, batch 8, `plan_for(cfg, "train_4k", "train")`: 4
+   drop-free microbatches of 1024 tokens, the quickstart's warmup), 4
+   steps: fatal unless the losses are finite and the last below the
+   first, and every microbatch's moe_aux finite and positive; tokens/s,
+   6 x active parameters x tokens over the bf16 peak,
+   `max_memory_allocated`, one microbatch's forward and backward under
+   the profiler.  Counts set to 0 before 18b and 18c and 0 after.
 
 Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1450,8 +1483,10 @@ def phase_dense_loop(dev, slots: int = 32, fleet_cfg=None):
 
 # examples/drift_study.py's study (Topology(24, 6), load 0.75, the seven
 # DRIFT_SCENARIOS), its depth cut from 8000 / 2000 slots (to 600 / 150
-# from 1000 / 250 to make room for phase 16 within the time limit)
-DRIFT_HORIZON, DRIFT_WARMUP = 600, 150
+# from 1000 / 250 to make room for phase 16 within the time limit, then to
+# 300 / 75 for phase 18: at 300 / 75 the gated arms' least throughput
+# stayed 4-8% above the 0.9 lam floor in a CPU run of this phase)
+DRIFT_HORIZON, DRIFT_WARMUP = 300, 75
 DRIFT_SEEDS = tuple(range(8))
 DRIFT_LOAD = 0.75
 DRIFT_GATED = ("static", "stragglers", "rack_congestion")
@@ -1595,8 +1630,11 @@ def phase_drift(dev) -> dict:
 # examples/placement_study.py's study (Topology(24, 6), load 0.7, the four
 # PLACEMENTS x the three PLACEMENT_POLICIES), under the scenarios static
 # and rack_congestion, its depth cut from 8000 / 2000 slots (to 400 / 100
-# from 500 / 125 to hold the phase near 120 s)
-PLACE_HORIZON, PLACE_WARMUP = 400, 100
+# from 500 / 125 to hold the phase near 120 s, then to 300 / 75 for phase
+# 18: at 300 / 75 a CPU run of this phase kept every static throughput
+# 4-6% above the 0.9 lam floor and the rack-aware placements' delays
+# 2.27-2.49 against uniform's 3.20)
+PLACE_HORIZON, PLACE_WARMUP = 300, 75
 PLACE_SEEDS = tuple(range(8))
 PLACE_LOAD = 0.7
 PLACE_SCENARIOS = ("static", "rack_congestion")
@@ -2101,9 +2139,9 @@ def phase_replication_kernels(dev) -> dict:
 # 0.90/0.95/0.99 of the hot-rack capacity, exact estimates, the
 # TAIL_POLICIES, `TelemetryConfig()` defaults), its depth cut from
 # 12000 / 3000 slots (to 1000 / 250 from 2000 / 500 to make room for
-# phase 16 within the time limit); the checks that need no long run at
-# TAIL_CHECK_HORIZON
-TAIL_HORIZON, TAIL_WARMUP = 1000, 250
+# phase 16, then to 500 / 125 for phase 18, within the time limit); the
+# checks that need no long run at TAIL_CHECK_HORIZON
+TAIL_HORIZON, TAIL_WARMUP = 500, 125
 TAIL_CHECK_HORIZON = 100
 TAIL_SEEDS = tuple(range(8))
 TAIL_CLEAN = ("balanced_pandas", "jsq_maxweight")   # gated at 0.90/0.95
@@ -2305,8 +2343,9 @@ def phase_tail(dev) -> dict:
 # CONTROL_ARMS x CONTROL_POLICIES at CONTROL_LOADS, Topology(24, 6), exact
 # estimates, telemetry on), its depth cut from 12000 / 3000 slots (to
 # 600 / 150 after a first whole run took 171 s for phase 16 on a slow
-# host); the checks that need no long run at CTL_CHECK_HORIZON
-CTL_HORIZON, CTL_WARMUP = 600, 150
+# host, then to 300 / 75 for phase 18); the checks that need no long
+# run at CTL_CHECK_HORIZON
+CTL_HORIZON, CTL_WARMUP = 300, 75
 CTL_CHECK_HORIZON = 300
 CTL_SEEDS = tuple(range(8))
 CTL_SLO_TARGET, CTL_ADMIT_FRAC = 40.0, 0.93
@@ -2656,15 +2695,22 @@ def attn_shapes():
     """(name, (B, Hq, Hkv, Tq, Tk, D), reps, plain reps) of the timed
     bf16 causal shapes: chatglm3-6b's prefill at every bucket of
     `EngineConfig()` (the shapes the serving path gives the kernel; the
-    largest is the kernels line's row), then a long prefill."""
+    largest is the kernels line's row), a long prefill, then
+    granite-moe-1b's prefill at every bucket (B 1, Hq 16, Hkv 8, D 64:
+    phase 18a's shapes)."""
     from repro_torch.configs import registry
     from repro_torch.serve.engine import EngineConfig
 
     cfg = registry.get_config(SERVE_ARCH)
+    moe = registry.get_config(MOE_ARCH)
     heads = (1, cfg.num_heads, cfg.num_kv_heads)
+    buckets = EngineConfig().prefill_buckets
     return ([(f"prefill_{t}", heads + (t, t, cfg.head_dim), 50, 20)
-             for t in EngineConfig().prefill_buckets]
-            + [("long", heads + (LONG_T, LONG_T, cfg.head_dim), 3, 1)])
+             for t in buckets]
+            + [("long", heads + (LONG_T, LONG_T, cfg.head_dim), 3, 1)]
+            + [(f"moe_prefill_{t}", (1, moe.num_heads, moe.num_kv_heads, t,
+                                     t, moe.head_dim), 50, 20)
+               for t in buckets])
 
 
 TC_KERNEL = "attention_tc_kernel"   # the bf16 tensor-core kernel's name
@@ -2893,6 +2939,62 @@ def attn_f32_rows(dev, prev_fn=None) -> dict:
     return rows
 
 
+# the 8 cases at head dim 16 (granite-moe-1b's smoke config), on every
+# kernel that takes it: (label, dtype, route code, kernel name fragment)
+D16_CASES = tuple(c[:5] + (16,) + c[6:] for c in ATTN_CASES)
+D16_ROUTES = (("bf16 tensor cores", torch.bfloat16, 1, "attention_tc_kernel"),
+              ("f32 tensor cores", torch.float32, 2, "attention_tf32_kernel"),
+              ("f32 CUDA cores", torch.float32, 0, "attention_f32_kernel"))
+# timed: granite-moe-1b's smoke heads (4 on 4, D 16) at T = 128
+D16_TIMED = (1, 4, 4, 128, 128, 16)
+
+
+def attn_d16_rows(dev) -> dict:
+    """Each kernel at D = 16 through the wrapper's `_launch(code)`:
+    the 8 cases against `ref.mha` (float32 2e-5; bf16 2e-2 and every row
+    within 1%, fatal), then `D16_TIMED` (causal) by events and on the
+    device beside the plain version, one SDPA call and the bound."""
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    rng = np.random.default_rng(16)
+    rows = {}
+    for label, dtype, code, frag in D16_ROUTES:
+        err = worst = 0.0
+        for case in D16_CASES:
+            b, hq, hkv, tq, tk, d, causal, window, cap = case
+            q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                       device=dev).to(dtype)
+                       for s in ((b, hq, tq, d), (b, hkv, tk, d),
+                                 (b, hkv, tk, d)))
+            opts = dict(causal=causal, window=window, softcap=cap,
+                        scale=d ** -0.5)
+            e, r = _attn_check(f"D=16 {label} {case}",
+                               fa._launch(q, k, v, code, **opts),
+                               ref.mha(q, k, v, **opts), dtype)
+            err, worst = max(err, e), max(worst, r)
+        b, hq, hkv, tq, tk, d = D16_TIMED
+        gen = torch.Generator(dev).manual_seed(16)
+        q = torch.randn((b, hq, tq, d), generator=gen, device=dev,
+                        dtype=dtype)
+        k, v = (torch.randn((b, hkv, tk, d), generator=gen, device=dev,
+                            dtype=dtype) for _ in range(2))
+        opts = dict(causal=True, window=0, softcap=0.0, scale=d ** -0.5)
+        fn = lambda: fa._launch(q, k, v, code, **opts)  # noqa
+        e, _ = _attn_check(f"D=16 {label} {D16_TIMED}", fn(),
+                           ref.mha(q, k, v, **opts), dtype)
+        bound = _attn_bound(D16_TIMED, True, 0, dtype)
+        rows[label] = row = dict(
+            cases=len(D16_CASES), max_abs_err=max(err, e),
+            bf16_worst_row=worst if dtype == torch.bfloat16 else None,
+            shape=list(D16_TIMED), ms=_time_ms(fn, KERNEL_REPS),
+            device_ms=_device_ms(fn, frag, KERNEL_REPS),
+            plain_ms=_time_ms(lambda: ref.mha(q, k, v, **opts), PLAIN_REPS),
+            library_ms=_time_ms(_sdpa_fn(q, k, v, d ** -0.5), KERNEL_REPS),
+            bound_ms=bound[0], bound_by=bound[1])
+        print(f"flash_attention D=16 {label}: {json.dumps(row)}", flush=True)
+    return rows
+
+
 def phase_attention(dev, prev_fn=None):
     """flash_attention's build reports (`attn_build_report`,
     `attn_tf32_build_report`) and the TF32 probe, then the kernels
@@ -2900,8 +3002,9 @@ def phase_attention(dev, prev_fn=None):
     bf16), then in bf16 at the slice's prefill shape of every bucket and
     at T = 8192, timed beside the plain version and SDPA, then float32 at
     `attn_f32_shapes` (`attn_f32_rows`, with the parent's kernel beside
-    it given `prev_fn`).  Returns (timed rows, max |error|, the build
-    reports, the float32 rows, the probe's report)."""
+    it given `prev_fn`), then every kernel at D = 16 (`attn_d16_rows`).
+    Returns (timed rows, max |error|, the build reports, the float32
+    rows, the probe's report, the D = 16 rows)."""
     from repro_torch.kernels import flash_attention as fa, ops, ref
 
     build = attn_build_report()
@@ -2949,7 +3052,7 @@ def phase_attention(dev, prev_fn=None):
                    library_ms=_time_ms(lib_fn, reps),
                    bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
                    flops=bound[3], encode_us=fa.tensor_map_encode_us(q, k, v))
-        if name.startswith("prefill_"):  # CUDA events time the host here
+        if "prefill_" in name:  # CUDA events time the host here
             row["device_ms"] = _device_ms(
                 lambda: ops.flash_attention(q, k, v, scale=scale), TC_KERNEL,
                 reps)
@@ -2960,9 +3063,11 @@ def phase_attention(dev, prev_fn=None):
         del q, k, v, lib_fn
         torch.cuda.empty_cache()
     f32_rows = attn_f32_rows(dev, prev_fn)
+    d16_rows = attn_d16_rows(dev)
     return (rows, max([max_err] + [r["max_abs_err"] for r in rows.values()]
-                      + [r["max_abs_err"] for r in f32_rows.values()]),
-            build, f32_rows, probe)
+                      + [r["max_abs_err"] for r in f32_rows.values()]
+                      + [r["max_abs_err"] for r in d16_rows.values()]),
+            build, f32_rows, probe, d16_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -2985,6 +3090,19 @@ MAMBA_ARCH = "mamba2_13b"
 # (PERF.md, PR 14).
 MAMBA_LOGIT_TOL = 0.12
 MAMBA_F32_LOGIT_TOL = 1e-4
+# the MoE slice: granite-moe-1b served and trained at full width (phase
+# 18), mixtral-8x22b at its smoke config through the launcher (phase 10)
+MOE_ARCH, MOE_SMOKE_ARCH = "granite_moe_1b", "mixtral_8x22b"
+# kernel route vs plain route prefill of granite-moe-1b in bf16, as
+# SERVE_LOGIT_TOL for chatglm3-6b.  In float32 the two routes read 1.1e-6
+# of the largest logit (within SERVE_F32_LOGIT_TOL) with no token's
+# expert set flipped in any of the 24 layers; in bf16 they read 0.0225,
+# with 0-25 of 106 tokens a layer routed to another expert set (the two
+# attention routes round differently and a router near-tie follows
+# either way), so a bf16 gap is flips more than kernel error.  The limit
+# is about twice that reading; a kernel that lets each row see one key
+# past the causal edge reads 0.46 (float32; PERF.md §6, the MoE slice).
+MOE_LOGIT_TOL = 0.05
 
 
 def _ssd_inputs(gen, shape, dtype, dev):
@@ -3302,7 +3420,9 @@ def _profile_window(dev, fn, steps: int, cpu: bool = True, top: int = 6,
 SERVE_ROUTES = {
     SERVE_ARCH: ("pallas", "flash_attention", SERVE_LOGIT_TOL,
                  SERVE_F32_LOGIT_TOL),
-    MAMBA_ARCH: ("pallas_ssd", "ssd", MAMBA_LOGIT_TOL, MAMBA_F32_LOGIT_TOL)}
+    MAMBA_ARCH: ("pallas_ssd", "ssd", MAMBA_LOGIT_TOL, MAMBA_F32_LOGIT_TOL),
+    MOE_ARCH: ("pallas", "flash_attention", MOE_LOGIT_TOL,
+               SERVE_F32_LOGIT_TOL)}
 
 
 def _shapes(tree):
@@ -3869,13 +3989,31 @@ def ssd_ab(eng, reqs) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _recorded_routes():
+    """Records every `layers.moe_route` result made inside (one a MoE
+    layer a forward, in layer order)."""
+    from repro_torch.models import layers as L
+
+    seen, real = [], L.moe_route
+
+    def route(*args, **kwargs):
+        seen.append(real(*args, **kwargs))
+        return seen[-1]
+
+    with mock.patch.object(L, "moe_route", route):
+        yield seen
+
+
 def prefill_compare(dev, cfg, params, ecfg, prompt, impl,
                     logit_tol) -> dict:
     """One right-padded prefill of `prompt` through the kernel route
     (`impl`) and the plain route (impl="xla"), each forward free of host
     syncs: the last real row's max |logit difference| and its share of
     the row's max |logit| (`share`), printed; raises when the share is
-    beyond `logit_tol`."""
+    beyond `logit_tol`.  For an MoE model, per layer, the real tokens
+    whose chosen experts differ between the two routes (as sets, and in
+    top-k order)."""
     from repro_torch.models import transformer as T
 
     t = len(prompt)
@@ -3886,20 +4024,22 @@ def prefill_compare(dev, cfg, params, ecfg, prompt, impl,
                    -(np.arange(bucket) - t + 1)).astype(np.int32)[None]
     tok, pos = torch.as_tensor(tok, device=dev), torch.as_tensor(pos,
                                                                  device=dev)
-    last, prefill_ms = {}, {}
+    last, prefill_ms, choices = {}, {}, {}
     for route in (impl, "xla", impl, "xla"):
         caches = T.init_caches(cfg, 1, ecfg.max_len, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")  # no host sync inside
         try:
-            logits, _, _ = T.forward(params, cfg, tok, positions=pos,
-                                     caches=caches, impl=route)
+            with _recorded_routes() as routes:
+                logits, _, _ = T.forward(params, cfg, tok, positions=pos,
+                                         caches=caches, impl=route)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         prefill_ms[route] = (time.perf_counter() - t0) * 1e3  # second run
         last[route] = logits[0, t - 1, :cfg.vocab_size]  # no pad rows
+        choices[route] = [r["top_e"][:t] for r in routes]   # real rows
     diff = float((last[impl] - last["xla"]).abs().max())
     scale = float(last["xla"].abs().max())
     compare = dict(model=cfg.name, dtype=cfg.dtype, prompt_tokens=t,
@@ -3910,6 +4050,15 @@ def prefill_compare(dev, cfg, params, ecfg, prompt, impl,
                    same_argmax=bool(last[impl].argmax()
                                     == last["xla"].argmax()),
                    prefill_ms=prefill_ms)
+    if cfg.moe is not None:   # router choices that differ, layer by layer
+        pairs = list(zip(choices[impl], choices["xla"]))
+        compare["moe_layers"] = len(pairs)
+        compare["moe_set_flips"] = [
+            int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+            for a, b in pairs]
+        compare["moe_order_flips"] = [int((a != b).any(-1).sum())
+                                      for a, b in pairs]
+        compare["moe_choices"] = t * cfg.moe.top_k * len(pairs)
     print(f"prefill kernel route vs plain route: {json.dumps(compare)}",
           flush=True)
     if not compare["share"] <= logit_tol:
@@ -3986,8 +4135,10 @@ def _launcher_row(name, calls, dev_kernel):
     config, float32): 20 calls are 20 kernel launches, no copy or set,
     and every device activity the profiler records is `dev_kernel`
     (fatal), then its error against the plain version, times by events
-    and on the device, the plain version's, the bound and, for attention
-    without window or softcap, one SDPA call."""
+    and on the device, the plain version's, the bound and, for causal
+    attention with Tq = Tk, no softcap and no window that binds (none,
+    or one of at least Tk keys, which keeps every pair), one SDPA
+    call."""
     from repro_torch.kernels import ops, ref
 
     args, kwargs = max(calls, key=lambda c: c[0][0].numel())
@@ -4001,9 +4152,11 @@ def _launcher_row(name, calls, dev_kernel):
         bound = _attn_bound(shape, kwargs.get("causal", True),
                             kwargs.get("window", 0), dtype)
         err = _attn_check(f"launcher {shape}", kernel(), plain(), dtype)[0]
+        window = kwargs.get("window", 0)
         library = (_sdpa_fn(q, k, v, kwargs.get("scale") or
                             q.shape[-1] ** -0.5)
-                   if not kwargs.get("window") and not kwargs.get("softcap")
+                   if (not window or window >= shape[4])
+                   and not kwargs.get("softcap")
                    and kwargs.get("causal", True) and shape[3] == shape[4]
                    else None)
     else:
@@ -4037,13 +4190,18 @@ def _launcher_row(name, calls, dev_kernel):
     return row
 
 
+LAUNCHER_MOE_REQS = 4   # tests/test_launchers.py::test_serve_cli
+
+
 def phase_launcher(dev):
     """`python -m repro_torch.launch.serve` with its defaults (the smoke
-    config on the card, float32), then with `--arch mamba2_13b`, counts
-    set to 0 before and read after each; each kernel's calls are
-    recorded, and at the largest shape the launcher gave it a call is
-    checked to be one launch of the float32 tensor-core kernel and
-    nothing else, then timed (`_launcher_row`)."""
+    config on the card, float32), then with `--arch mamba2_13b`, then
+    `--arch granite_moe_1b --requests 4` (the reference's serving CLI
+    test) and `--arch mixtral_8x22b --requests 4`, counts set to 0
+    before and read after each; each kernel's calls are recorded, and at
+    the largest shape each run gave it a call is checked to be one
+    launch of the float32 tensor-core kernel and nothing else, then
+    timed (`_launcher_row`)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -4073,6 +4231,20 @@ def phase_launcher(dev):
     rows = {"flash_attention": _launcher_row(
                 "flash_attention", seen["flash_attention"], TF32_KERNEL),
             "ssd": _launcher_row("ssd", seen["ssd"], SSD_TF32_KERNEL)}
+    # the MoE smoke configs, float32 at D = 16 (granite-moe-1b) and D = 8
+    # (mixtral-8x22b, window 4096): `_launcher_row` checks that each ran
+    # on the float32 tensor-core kernel alone
+    for arch in (MOE_ARCH, MOE_SMOKE_ARCH):
+        seen["flash_attention"] = []
+        _zero_counts()
+        with recorded("flash_attention"):
+            serve.main(["--arch", arch, "--requests", str(LAUNCHER_MOE_REQS)])
+        smoke = registry.get_smoke_config(arch)
+        got[arch] = _check_counts(
+            f"launcher --arch {arch} --requests {LAUNCHER_MOE_REQS}",
+            {"flash_attention": smoke.num_layers * LAUNCHER_MOE_REQS})
+        rows[f"flash_attention {arch}"] = _launcher_row(
+            "flash_attention", seen["flash_attention"], TF32_KERNEL)
     return got, rows
 
 
@@ -4091,7 +4263,7 @@ TRAIN_SLOW = {0: 0.1}                 # host 0 reads 10x slower
 # the straggler must serve at most this share of the reads host 0 serves
 # in the same pipeline without it (seed 0: 17 of 129 there)
 TRAIN_STRAGGLER_SHARE = 0.5
-TRAIN_CHECK_ARCHS = (SERVE_ARCH, MAMBA_ARCH)
+TRAIN_CHECK_ARCHS = (SERVE_ARCH, MAMBA_ARCH, MOE_ARCH)
 TRAIN_CHECK_TOL = 1e-4                # card vs CPU, float32, TF32 off
 TRAIN_SMOKE_SEQ = 32
 TRAIN_LAUNCHER_ARGS = ["--arch", TRAIN_ARCH, "--full", "--steps", "2",
@@ -4113,6 +4285,23 @@ def _train_tensors(state):
     from repro_torch.models.params import tree_leaves
     return (tree_leaves(state.params) + tree_leaves(state.opt.mu)
             + tree_leaves(state.opt.nu) + [state.opt.count, state.step])
+
+
+@contextlib.contextmanager
+def _recorded_loss_metrics():
+    """Records the metrics of every `transformer.lm_loss` call made
+    inside (one a microbatch; the train step reads only the loss)."""
+    from repro_torch.models import transformer as T
+
+    seen, real = [], T.lm_loss
+
+    def loss(*args, **kwargs):
+        total, met = real(*args, **kwargs)
+        seen.append({k: v.detach() for k, v in met.items()})
+        return total, met
+
+    with mock.patch.object(T, "lm_loss", loss):
+        yield seen
 
 
 def train_full_width(dev) -> dict:
@@ -4246,7 +4435,8 @@ def train_full_width(dev) -> dict:
 
 def train_card_vs_cpu(dev) -> dict:
     """17b: one `build_train_step` step of each smoke config (float32) on
-    the card and on the CPU, from the same weights and batch."""
+    the card and on the CPU, from the same weights and batch (for an MoE
+    config, the microbatches' mean `moe_aux` too)."""
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import DataPipeline, PipelineConfig
     from repro_torch.launch import steps
@@ -4273,11 +4463,15 @@ def train_card_vs_cpu(dev) -> dict:
                     torch.zeros((), dtype=torch.int32, device=where))
                 fn, _, _ = steps.build_train_step(
                     cfg, plan, TRAIN_BATCH, TRAIN_SMOKE_SEQ, device=where)
-                _, met = fn(state, batch)
+                with _recorded_loss_metrics() as mets:
+                    _, met = fn(state, batch)
                 got[str(where)] = {k: float(v) for k, v in met.items()}
+                if cfg.moe is not None:   # the microbatches' mean aux
+                    got[str(where)]["moe_aux"] = float(np.mean(
+                        [float(m["moe_aux"]) for m in mets]))
             want, card = got["cpu"], got[str(dev)]
             rel = {k: abs(card[k] - want[k]) / abs(want[k])
-                   for k in ("loss", "grad_norm")}
+                   for k in ("loss", "grad_norm", "moe_aux") if k in want}
             out[arch] = {"cpu": want, "card": card, "rel": rel}
             print(f"  17b {arch}: card {card}, cpu {want}, rel {rel}",
                   flush=True)
@@ -4369,6 +4563,237 @@ def phase_train(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the MoE slice (granite-moe-1b served and trained at full width)
+# ---------------------------------------------------------------------------
+
+MOE_CHECK_TOKENS = (8192, 1024)   # 18b: the capacity branch, drop-free
+# 18b's tokens share one direction at this weight beside their own normal
+# draws (hidden states do), which skews the experts' loads: at n = 8192
+# 6.6% of the pairs overflow the capacity of 3072 and are dropped, where
+# the draws alone leave every expert under 2,150 and drop none
+MOE_CHECK_SHIFT = 0.5
+MOE_CHECK_Y_TOL = 1e-4            # of the largest |y|, float32, TF32 off
+MOE_CHECK_AUX_TOL = 1e-6
+MOE_TRAIN_STEPS = 4
+
+
+def _moe_layer_params(cfg, seed: int) -> dict:
+    """One MoE layer's weights at `cfg`'s width, drawn on the CPU from a
+    seed by `params.init_params`' rule (normal over sqrt(fan-in)),
+    float32."""
+    from repro_torch.models import params as P
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, d in sorted(P.layer_defs(cfg, cfg.stages[0].block[0])
+                          ["moe"].items()):
+        fan_in = int(np.prod([d.shape[i] for i in d.fan_in_dims]))
+        out[name] = torch.randn(d.shape, generator=gen) / math.sqrt(fan_in)
+    return out
+
+
+def moe_layer_card_vs_cpu(dev) -> dict:
+    """18b: `moe_mlp` at granite-moe-1b's full width on one layer's seeded
+    weights, float32 (TF32 off), on the card and on the CPU: at n = 8192
+    tokens (the capacity branch, cap 3072; `MOE_CHECK_SHIFT` makes some
+    experts overflow it) and n = 1024 (drop-free), the
+    top-k choices and the kept mask equal on both devices (a token whose
+    choices differ, a float32 near-tie, is counted, at most one in 1000
+    tokens, and left out of the output comparison with the tokens whose
+    kept mask it moved), y within `MOE_CHECK_Y_TOL` of its largest value,
+    the aux within `MOE_CHECK_AUX_TOL`; then the same capacity call
+    twice on the card in bf16, bit for bit (the combine has no atomic
+    add), and its time."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(registry.get_config(MOE_ARCH), dtype="float32")
+    p = _moe_layer_params(cfg, 18)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        shift = MOE_CHECK_SHIFT * torch.randn(
+            (cfg.d_model,), generator=torch.Generator().manual_seed(1))
+        for n in MOE_CHECK_TOKENS:
+            x = torch.randn((1, n, cfg.d_model),
+                            generator=torch.Generator().manual_seed(n)) + shift
+            got = {}
+            for where in ("cpu", dev):
+                pw = {k: v.to(where) for k, v in p.items()}
+                with _recorded_routes() as routes:
+                    y, aux = L.moe_mlp(pw, cfg, x.to(where))
+                got[str(where)] = (y.cpu(), float(aux), routes[0])
+            (yc, ac, rc), (yd, ad, rd) = got["cpu"], got[str(dev)]
+            same_e = (rc["top_e"] == rd["top_e"].cpu()).all(-1)
+            keep_c = rc["keep"].reshape(n, -1)
+            keep_d = rd["keep"].cpu().reshape(n, -1)
+            same = same_e & (keep_c == keep_d).all(-1)
+            scale = float(yc.abs().max())
+            err = float((yc[0][same] - yd[0][same]).abs().max())
+            row = dict(tokens=n, cap=rc["cap"], capacity_branch=rc["cap"] < n,
+                       dropped_pair_share=float(1 - keep_c.float().mean()),
+                       choice_flip_tokens=int((~same_e).sum()),
+                       keep_mismatch_tokens=int((same_e & ~same).sum()),
+                       max_abs_err=err, max_abs_y=scale,
+                       aux_cpu=ac, aux_card=ad, aux_err=abs(ac - ad))
+            out[f"n={n}"] = row
+            print(f"  18b moe_mlp card vs CPU: {json.dumps(row)}", flush=True)
+            # a flip moves the ranks of the pairs after it, so the kept
+            # mask may then differ on tokens whose choices do not
+            if ((row["keep_mismatch_tokens"] and not row[
+                    "choice_flip_tokens"])
+                    or (row["capacity_branch"]
+                        and not row["dropped_pair_share"] > 0)
+                    or not err <= MOE_CHECK_Y_TOL
+                    * scale or not row["aux_err"] <= MOE_CHECK_AUX_TOL
+                    or row["choice_flip_tokens"] > n // 1000):
+                raise AssertionError(f"18b: moe_mlp card vs CPU at n={n}: "
+                                     f"{row}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    pb = {k: v.to(dev, torch.bfloat16) for k, v in p.items()}
+    x = (torch.randn((1, MOE_CHECK_TOKENS[0], cfg.d_model),
+                     generator=torch.Generator().manual_seed(0))
+         + shift).to(dev, torch.bfloat16)
+    fn = lambda: L.moe_mlp(pb, cfg16, x)[0]  # noqa: E731
+    y1, y2 = fn(), fn()
+    out["bf16_bitwise"] = bool(torch.equal(y1, y2))
+    out["bf16_ms"] = _time_ms(fn, 10)
+    print(f"  18b bf16 moe_mlp at n={MOE_CHECK_TOKENS[0]}: twice bit for "
+          f"bit {out['bf16_bitwise']}, {out['bf16_ms']:.3f} ms a call",
+          flush=True)
+    if not out["bf16_bitwise"]:
+        raise AssertionError("18b: two bf16 moe_mlp calls on the card "
+                             "differ")
+    return out
+
+
+def moe_train_full_width(dev) -> dict:
+    """18c: granite-moe-1b at full width in bf16 through `Trainer` and
+    `DataPipeline` (vocab 49155, seq 512, global batch 8, token skew
+    1.2), `plan_for(cfg, "train_4k", "train")` (4 microbatches of 1024
+    tokens: the drop-free branch) with the quickstart's 5-step warmup,
+    `MOE_TRAIN_STEPS` steps, each microbatch's `moe_aux` recorded; then
+    one microbatch's forward and backward under the profiler.  Fatal: a
+    loss not finite, the last loss not below the first, an aux not
+    finite and positive."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import config as mconfig
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import count_params, tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = registry.get_config(MOE_ARCH)
+    pipe = DataPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, token_skew=1.2))
+    plan = _train_plan(cfg)
+    n_mb = steps.num_microbatches(plan, TRAIN_BATCH)
+    tr = Trainer(cfg, TrainerConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    steps=MOE_TRAIN_STEPS, log_every=1),
+                 plan, pipeline=pipe, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr.init_state()
+    n = count_params(tr.state.params)
+    active = mconfig.active_param_count(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s, auxes = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _recorded_loss_metrics() as mets:
+            tr.run(1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        auxes.append([float(m["moe_aux"]) for m in mets])
+        rec = tr.history[-1]
+        print(f"  18c step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
+              f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e} moe_aux "
+              f"{auxes[-1]} {step_s[-1] * 1e3:.1f} ms, "
+              f"{tokens / step_s[-1]:.0f} tokens/s", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(step_s[1:])
+    med_s = steady[len(steady) // 2]
+    flops = 6 * active * tokens
+    last = next(DataPipeline(pipe.cfg))
+    leaves = [p.requires_grad_(True) for p in tree_leaves(tr.state.params)]
+    mb = {k: steps.microbatch(torch.as_tensor(last[k], device=dev), n_mb, 0)
+          for k in ("tokens", "labels")}
+    fwd_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        T.lm_loss(tr.state.params, cfg, mb, remat=plan.remat)[0], leaves)
+    prof = _profile_window(dev, fwd_bwd, 1, cpu=False, top=12, chars=160)
+    losses = [r["loss"] for r in tr.history]
+    out = {
+        "arch": cfg.name, "params": n, "active_params": active,
+        "dtype": cfg.dtype, "steps": MOE_TRAIN_STEPS, "seq_len": TRAIN_SEQ,
+        "global_batch": TRAIN_BATCH, "microbatches": plan.microbatches,
+        "remat": plan.remat, "losses": losses,
+        "grad_norms": [r["grad_norm"] for r in tr.history],
+        "moe_aux": auxes, "step_ms": [x * 1e3 for x in step_s],
+        "median_step_ms": med_s * 1e3, "tokens_per_s": tokens / med_s,
+        # 6 x active parameters x tokens: the drop-free branch's E / k
+        # padded rows are not counted
+        "active_flops_per_step": flops,
+        "bf16_peak_share": flops / med_s / BF16_OPS_PER_S,
+        "max_memory_allocated_bytes": peak, "reckoned_state_bytes": 16 * n,
+        "microbatch_fwd_bwd_profile": prof}
+    print(f"  18c: {n} params ({active} active), median step "
+          f"{med_s * 1e3:.1f} ms, {tokens / med_s:.0f} tokens/s, "
+          f"6 x active x tokens {flops:.3e} a step "
+          f"({out['bf16_peak_share']:.4f} of the bf16 dense peak; the "
+          f"drop-free padding not counted), max_memory_allocated "
+          f"{peak / 1e9:.2f} GB beside the reckoned state "
+          f"{16 * n / 1e9:.2f} GB, one microbatch's forward and backward "
+          f"{prof['window_ms_per_step']:.1f} ms profiled, "
+          f"{prof['device_launches_per_step']:.0f} launches", flush=True)
+    flat = [a for step in auxes for a in step]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"18c: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"18c: last loss {losses[-1]} not below the "
+                             f"first {losses[0]}")
+    if len(flat) != MOE_TRAIN_STEPS * n_mb or not all(
+            math.isfinite(a) and a > 0 for a in flat):
+        raise AssertionError(f"18c: moe_aux not finite and positive in "
+                             f"every microbatch: {auxes}")
+    return out
+
+
+def phase_moe(dev) -> dict:
+    """Phase 18: granite-moe-1b served at full width through the engine
+    (18a, `phase_serving`), `moe_mlp` card against CPU (18b) and trained
+    at full width (18c)."""
+    import gc
+
+    secs = {}
+    t0 = time.perf_counter()
+    launches, run, compare, decode = phase_serving(dev, MOE_ARCH)
+    out = {"18a": dict(launches=launches, run=run, compare=compare,
+                       decode=decode)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["18a"] = time.perf_counter() - t0
+    for name, fn in (("18b", moe_layer_card_vs_cpu),
+                     ("18c", moe_train_full_width)):
+        t0 = time.perf_counter()
+        _zero_counts()
+        out[name] = fn(dev)
+        out[f"{name} launches"] = _check_counts(f"phase {name}", {})
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+    out["seconds"] = secs
+    print(f"phase 18 seconds: {json.dumps(secs)}", flush=True)
+    return out
+
+
 # the keys of a float32 row in the kernels line
 F32_ROW_KEYS = ("shape", "route", "max_abs_err", "ms", "device_ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -4442,8 +4867,8 @@ def main(argv=None) -> int:
     done("13c")
     repl_kernels = phase_replication_kernels(dev)
     done("14c")
-    attn_rows, attn_err, attn_build, attn_f32, probe = phase_attention(
-        dev, prev and prev["flash_attention"])
+    attn_rows, attn_err, attn_build, attn_f32, probe, attn_d16 = \
+        phase_attention(dev, prev and prev["flash_attention"])
     done("3b")
     serve_launches, serve_run, _, _ = phase_serving(dev)
     torch.cuda.empty_cache()
@@ -4458,8 +4883,11 @@ def main(argv=None) -> int:
     done("10")
     train = phase_train(dev)
     done("17")
-    for name, secs in train["seconds"].items():
-        seconds[f"{name} (within 17)"] = secs
+    moe = phase_moe(dev)
+    done("18")
+    for name, secs in list(train["seconds"].items()) + list(
+            moe["seconds"].items()):
+        seconds[f"{name} (within {name[:2]})"] = secs
     seconds["13b (within 9+12b)"] = serve_run["placement_s"]
     seconds["14b (within 9+12b)"] = serve_run["replication_s"]
     seconds["15b (within 9+12b)"] = serve_run["traced_s"]
@@ -4548,6 +4976,14 @@ def main(argv=None) -> int:
                 for n, r in attn_f32.items()},
         "tf32_probe": probe,
         "launcher": launcher_rows["flash_attention"],
+        "launcher_moe": {arch: launcher_rows[f"flash_attention {arch}"]
+                         for arch in (MOE_ARCH, MOE_SMOKE_ARCH)},
+        "moe_launches": moe["18a"]["launches"]["flash_attention"],
+        "moe_prefill": {n: {k: r[k] for k in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+            for n, r in attn_rows.items() if n.startswith("moe_prefill_")},
+        "d16": attn_d16,
         "hgmma": {n: r["hgmma"] for n, r in attn_build.items()}})
     main_ssd = ssd_rows[max((k for k in ssd_rows if k != "long"),
                             key=lambda k: ssd_rows[k]["shape"][1])]

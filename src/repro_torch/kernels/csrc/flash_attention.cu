@@ -17,9 +17,13 @@
 // Three kernels, chosen by `flash_attention_launch`'s route (the rule
 // lives in flash_attention.py's `route`): bf16 on the tensor cores
 // (`attention_tc_kernel`), float32 as split TF32 on the tensor cores at
-// D 8, 32, 64, 128 (`attention_tf32_kernel`), float32 at D = 256 on the
-// CUDA cores (`attention_f32_kernel`), where the split Q tile alone would
-// fill the shared memory.  Nothing falls back: a launch that fails
+// D 8, 16, 32, 64, 128 (`attention_tf32_kernel`), float32 at D = 256 on
+// the CUDA cores (`attention_f32_kernel`), where the split Q tile alone
+// would fill the shared memory.  Every kernel is instantiated at D 8, 16,
+// 32, 64, 128 and 256 (`FA_DISPATCH`; the split-TF32 one but at 256): the
+// route code of the C entry point picks one, so the CUDA-core kernel is
+// reachable at every head dim, and is checked there on the card.  Nothing
+// falls back: a launch that fails
 // returns its error.  One TF32 product keeps about 11 significant bits,
 // too few for float32's 2e-5 limit; a split one (hi hi + hi lo + lo hi,
 // split_tf32.cuh) keeps about 21, which meets it.
@@ -44,6 +48,13 @@
 // 3-d, (D, T, B*H), so rows past T come in as zeros and never from the
 // next head; a row is D / 64 boxes of 64 columns (128 bytes, 128-byte
 // swizzle), and D < 64 is padded with zero columns to 64 by the box.
+// What that padding costs at D = 16 (granite-moe-1b's smoke config; 8
+// alike): Q K^T is one k16 step, K = 16 exactly, but P V runs N = 64, of
+// which 48 columns are zeros (4x the product's work, 8x at D = 8), and
+// each tile takes 128-byte rows where 32 bytes are data.  An N = 16 P V
+// needs V MN-major in a 32-byte swizzle (a 128-byte one spans 64
+// columns), so other tensor maps and descriptors; no served model has
+// D = 16 at full width, so the padded form stays.
 // A consumer's step t issues S(t) = Q K(t)^T (`wgmma` m64n{BK}k16, Q and
 // K from shared memory, both K-major) and O += P(t-1) V(t-1) back to
 // back, then runs the softmax of S(t) while the second product is in
@@ -107,7 +118,9 @@
 // bytes, 128 KB at D = 128.  So BK = 32 keys, one K slot and two V^T
 // slots at D = 128 (Q 128 KB, K 32 KB, V^T 64 KB: 224 KB of the 227 KB a
 // block can have), BK = 64 and two slots of each below (D = 64: 192 KB,
-// D = 32: 96 KB, D = 8: 72 KB, rows padded to one 128-byte line), and
+// D = 32: 96 KB, D = 16: 80 KB, D = 8: 72 KB; below D = 32 a row takes
+// one 128-byte line, of which Q K^T's D / 8 k8 steps read D x 4 bytes, and
+// P V's N is D exactly: m64n16k8 at D = 16, no padded product), and
 // D = 256 (256 KB of split Q) stays on the CUDA cores.  V has the second
 // slot because a step waits for V(t-1), written only once P(t-2) V(t-2)
 // has retired; K(t + 1) is written while step t's softmax runs.  The
@@ -1460,6 +1473,7 @@ tf32_probe_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #define FA_DISPATCH(FN, ...)                     \
   switch (d) {                                   \
     case 8: return FN<8>(__VA_ARGS__);           \
+    case 16: return FN<16>(__VA_ARGS__);         \
     case 32: return FN<32>(__VA_ARGS__);         \
     case 64: return FN<64>(__VA_ARGS__);         \
     case 128: return FN<128>(__VA_ARGS__);       \
@@ -1471,7 +1485,9 @@ tf32_probe_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // Plain C interface for ctypes.  route: 0 float32 on the CUDA cores, 1
 // bfloat16 on the tensor cores (contiguous q, k, v, o; `strides` is not
-// read), 2 float32 as split TF32 on the tensor cores (D 8, 32, 64, 128).
+// read), 2 float32 as split TF32 on the tensor cores (D 8, 16, 32, 64,
+// 128).  Each route takes D 8, 16, 32, 64, 128 and 256 but route 2 at
+// D = 256.
 // `strides`: 12 element strides, (batch, head, time) of q, k, v and o in
 // turn; D is contiguous.  Returns the cudaError_t of the launch (0 on
 // success).

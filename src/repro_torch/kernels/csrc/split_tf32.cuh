@@ -184,6 +184,7 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
   "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
       "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 #define TF_R4 "{%0, %1, %2, %3}"
+#define TF_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define TF_R16                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
   "%15}"
@@ -224,7 +225,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 8 || N == 32 || N == 64 || N == 128,
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128,
                 "N of a register A product");
   if constexpr (N == 8) {
     asm volatile(
@@ -232,6 +233,13 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
         "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 " TF_R4
         ", {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " TF_R8
+        ", {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : TF_A8(0)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   } else if constexpr (N == 32) {
     asm volatile(
@@ -283,6 +291,7 @@ __device__ __forceinline__ void mma3_rs(float (&d)[N / 2],
 
 #undef TF_A8
 #undef TF_R4
+#undef TF_R8
 #undef TF_R16
 #undef TF_R32
 #undef TF_R64

@@ -8,7 +8,7 @@ Tk - Tq; float32 accumulators, output in q's dtype.  Three kernels,
 picked by `route` from the dtype and the head dim:
 
 * bf16 on the tensor cores (`wgmma`, K/V through a TMA ring);
-* float32 as split TF32 on the tensor cores (D 8, 32, 64, 128): each
+* float32 as split TF32 on the tensor cores (D 8, 16, 32, 64, 128): each
   float32 operand enters `wgmma` as TF32 hi + lo and each product as
   three (hi hi + hi lo + lo hi, about 21 bits against one TF32
   product's 11), with float32 sums; a producer warpgroup copies the
@@ -36,8 +36,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import LAUNCHES
 
-HEAD_DIMS = (8, 32, 64, 128, 256)   # template instantiations in the .cu
-TF32_HEAD_DIMS = (8, 32, 64, 128)   # float32 head dims on the tensor cores
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # template instantiations in the .cu
+TF32_HEAD_DIMS = (8, 16, 32, 64, 128)   # float32 head dims on the tensor cores
 # route codes of flash_attention_launch
 F32_CUDA_CORES, BF16_TENSOR_CORES, F32_TENSOR_CORES = 0, 1, 2
 
@@ -58,10 +58,11 @@ def _kernel():
 
 def route(dtype: torch.dtype, d: int) -> int:
     """The kernel a call takes: bf16 the tensor-core kernel; float32 the
-    split-TF32 tensor-core kernel at D 8, 32, 64 and 128 (every head dim
-    of the port's dense configs but gemma's 256), the CUDA-core kernel at
-    D = 256, whose split Q tile (128 rows x 256 x 2 x 4 bytes) would fill
-    a block's shared memory.  The dtype and the shape decide, never an
+    split-TF32 tensor-core kernel at D 8, 16, 32, 64 and 128 (every head
+    dim of the port's configs but gemma's 256: granite-moe-1b's smoke
+    config has 16, mixtral-8x22b's 8), the CUDA-core kernel at D = 256,
+    whose split Q tile (128 rows x 256 x 2 x 4 bytes) would fill a
+    block's shared memory.  The dtype and the shape decide, never an
     error."""
     if dtype == torch.bfloat16:
         return BF16_TENSOR_CORES
@@ -133,12 +134,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, hq, tq, tk) < 1:
         raise ValueError(f"flash_attention_cuda: empty input {tuple(q.shape)}"
                          f", {tuple(k.shape)}")
-    kernel = route(q.dtype, d)
-    bf16 = kernel == BF16_TENSOR_CORES
+    return _launch(q, k, v, route(q.dtype, d), causal=causal, window=window,
+                   softcap=softcap, scale=scale)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, code: int,
+            *, causal: bool, window: int, softcap: float,
+            scale: float) -> torch.Tensor:
+    """Launch the kernel of route code `code` on checked shapes: the
+    wrapper's, or, for holding every instantiation against the plain
+    version, another kernel than `route` names (the CUDA-core kernel
+    below D = 256).  q, k and v must be bf16 for code 1, float32 else;
+    the C side refuses a head dim its kernel lacks."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    bf16 = code == BF16_TENSOR_CORES
+    dtype = torch.bfloat16 if bf16 else torch.float32
     dev = q.device
     for name, x, shape in (("q", q, (b, hq, tq, d)), ("k", k, (b, hkv, tk, d)),
                            ("v", v, (b, hkv, tk, d))):
-        _build.check_arg("flash_attention_cuda", name, x, q.dtype, shape,
+        _build.check_arg("flash_attention_cuda", name, x, dtype, shape,
                          dev, strided=not bf16)
         if bf16 and x.data_ptr() % 16:
             raise ValueError(f"flash_attention_cuda: {name} must be 16-byte "
@@ -152,7 +167,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 strides, b, hq, hkv, tq, tk, d, kernel, float(scale),
+                 strides, b, hq, hkv, tq, tk, d, code, float(scale),
                  int(bool(causal)), int(window), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "

@@ -255,3 +255,17 @@ def param_count(cfg: ModelConfig) -> int:
     for st in cfg.stages + cfg.enc_stages:
         total += st.repeats * sum(layer_params(sl) for sl in st.block)
     return total
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top_k of num_experts)."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    full = param_count(cfg)
+    d, ff = cfg.d_model, cfg.d_ff
+    per_expert = 3 * d * ff if cfg.act in ("swiglu", "geglu") else 2 * d * ff
+    n_moe_layers = sum(st.repeats * sum(1 for sl in st.block if sl.moe)
+                       for st in cfg.stages + cfg.enc_stages)
+    inactive = (n_moe_layers * (cfg.moe.num_experts - cfg.moe.top_k)
+                * per_expert)
+    return full - inactive

@@ -8,14 +8,18 @@ values (q and k upcast before the product, as the reference's
 ``preferred_element_type=float32``); probabilities are rounded to the
 value dtype before the second product, as there.
 
-What waits (the model-stack slice of the port): `moe_mlp`, `cross_attention`,
-`encode_cross_kv`, and the mesh `ctx` (sharding constraints, GQA-expanded
-caches, aligned in-place cache writes) — one card needs no mesh.
+`moe_mlp` is the reference's top-k routed MoE with one dispatch group
+(one card: the reference's single-device ``dp_size`` 1).  What waits
+(the model-stack slice of the port): `cross_attention`, `encode_cross_kv`,
+and the mesh `ctx` (sharding constraints, GQA-expanded caches, aligned
+in-place cache writes, the MoE's per-shard groups and all-to-alls) — one
+card needs no mesh.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -329,3 +333,111 @@ def mlp(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(x @ p["w_up"].to(x.dtype), approximate="tanh")
     return h @ p["w_down"].to(x.dtype)
+
+
+# -------------------------------------------------------------------- MoE --
+
+def moe_mlp(p: Dict[str, Any], cfg: ModelConfig,
+            x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed MoE with capacity-based dispatch (Switch semantics):
+    the reference's `moe_mlp` with one group.  Returns (y in x's dtype,
+    the float32 load-balancing aux loss).
+
+    * Router logits in float32 from the stored values, their softmax
+      `probs`; the top k by a stable descending sort, so that equal
+      logits go lowest expert first as ``jax.lax.top_k`` puts them
+      (`torch.topk` orders ties arbitrarily, and the order decides each
+      pair's rank, so what capacity drops, and which weight goes with
+      which expert); the k kept logits renormalised by a softmax.
+    * aux = E * sum_e(mean(probs)_e * f_e), f_e the share of the n k
+      (token, choice) pairs that chose e, summed as the reference does,
+      1 / (n k) a pair (every addend is equal, so any order of the adds
+      gives the same sum).
+    * Capacity: every pair is kept for n <= ``no_drop_threshold`` (cap =
+      n), else cap = min(max(8, ceil(capacity_factor n k / E)), n).  The
+      pairs in token-major order, choices in top-k order; a pair's rank
+      is the count of earlier pairs with the same expert, and it is kept
+      if rank < cap, in slot e cap + rank.
+    * Dispatch: (E, cap, d) rows gathered from x (an empty slot reads a
+      zero row); the expert products in x's dtype; each pair's weight in
+      x's dtype times its expert's output row, as the reference's
+      ``wtab``.
+    * Combine without atomics: each token sums its kept pairs' rows in
+      ascending slot order in x's dtype, the order of the reference's
+      sequential scatter-add, starting from zero; a dropped pair adds
+      nothing.  `index_add_` on the card would add a token's k rows in
+      an order that changes from run to run.  The slot tables are built
+      with no repeated index (a dropped pair writes to a spare entry of
+      its own), so no write races another.
+
+    Kept on purpose, as in the reference: the drop-free branch lays out
+    E x n rows, E / k times what the tokens need (4x for granite-moe-1b),
+    and computes all of them; a grouped product over the kept rows only
+    is later speed work.  Differentiable by autograd: to x, the router
+    (through the kept weights and `probs`) and the expert weights.
+    """
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    b, t, d = x.shape
+    n = b * t
+    dev = x.device
+    xf = x.reshape(n, d)
+    r = moe_route(xf.float() @ p["router"].float(), cfg.moe)
+    cap, slot, keep = r["cap"], r["slot"], r["keep"]
+
+    # slot -> token: the kept slots are distinct; a dropped pair writes to
+    # a spare entry of its own past e cap, so no index repeats
+    pairs = torch.arange(n * k, device=dev)
+    spare = torch.where(keep, slot, e * cap + pairs)
+    table = torch.full((e * cap + n * k,), n, dtype=torch.long,
+                       device=dev).scatter(0, spare, pairs // k)[:e * cap]
+    x_pad = torch.cat([xf, xf.new_zeros((1, d))])
+    xe = x_pad[table].reshape(e, cap, d)
+
+    if cfg.act in ("swiglu", "geglu"):
+        h = _act(cfg, torch.bmm(xe, p["w_gate"].to(x.dtype)))
+        h = h * torch.bmm(xe, p["w_up"].to(x.dtype))
+    else:
+        h = F.gelu(torch.bmm(xe, p["w_up"].to(x.dtype)), approximate="tanh")
+    ye = torch.bmm(h, p["w_down"].to(x.dtype)).reshape(e * cap, d)
+    ye_pad = torch.cat([ye, ye.new_zeros((1, d))])              # trash row
+
+    # each token's k pairs in ascending slot order (dropped ones last)
+    slots, order = torch.sort(slot.reshape(n, k), dim=1)
+    w = r["top_w"].to(x.dtype).gather(1, order)
+    rows = ye_pad[slots] * w[..., None]                         # (n, k, d)
+    y = rows[:, 0]
+    for j in range(1, k):
+        y = y + rows[:, j]
+    return y.reshape(b, t, d), r["aux"]
+
+
+def moe_route(logits: torch.Tensor, mcfg) -> Dict[str, Any]:
+    """`moe_mlp`'s routing of n tokens from their float32 router logits
+    (n, E): ``top_e`` (n, k) the chosen experts in top-k order, ``top_w``
+    their renormalised float32 weights, ``aux`` the load-balancing loss,
+    ``cap`` the capacity, and per (token, choice) pair, token-major,
+    ``keep`` and ``slot`` (e cap + rank, or E cap if dropped)."""
+    n, e = logits.shape
+    k = mcfg.top_k
+    dev = logits.device
+    probs = torch.softmax(logits, dim=-1)
+    ranked = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top_e = ranked.indices[:, :k]
+    top_w = torch.softmax(ranked.values[:, :k], dim=-1)
+
+    flat_e = top_e.reshape(n * k)
+    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, flat_e, torch.full((n * k,), 1.0 / (n * k), dtype=torch.float32,
+                              device=dev))
+    aux = e * torch.sum(probs.mean(0) * ce)
+
+    if n <= mcfg.no_drop_threshold:
+        cap = n     # exact (drop-free) routing for decode and small batches
+    else:
+        cap = min(max(8, int(math.ceil(mcfg.capacity_factor * n * k / e))),
+                  n)
+    onehot = (flat_e[:, None] == torch.arange(e, device=dev)).long()
+    rank = (onehot.cumsum(0) - onehot).gather(1, flat_e[:, None])[:, 0]
+    keep = rank < cap
+    return dict(top_e=top_e, top_w=top_w, aux=aux, cap=cap, keep=keep,
+                slot=torch.where(keep, flat_e * cap + rank, e * cap))

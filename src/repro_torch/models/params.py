@@ -15,9 +15,9 @@ of tensors.  Two views:
                        two models compute the same function);
   * `abstract_params` — shapes and dtypes on the ``meta`` device.
 
-Dense attention and Mamba-2 layers are declared: MoE, cross-attention
-and learned positions wait for their layers (the model-stack slice of
-the port).
+Dense attention, Mamba-2 and MoE layers are declared: cross-attention,
+encoders, learned positions and modality frontends wait for their layers
+(the model-stack slice of the port).
 """
 
 from __future__ import annotations
@@ -80,6 +80,18 @@ def _mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     }
 
 
+def _moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """The router (d, E) and the stacked experts (E, d, ff) / (E, ff, d),
+    each expert's fan-in its own d or ff (dim 1)."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    defs = {"router": ParamDef((d, e))}
+    if cfg.act in ("swiglu", "geglu"):
+        defs["w_gate"] = ParamDef((e, d, ff), fan_in_dims=(1,))
+    defs["w_up"] = ParamDef((e, d, ff), fan_in_dims=(1,))
+    defs["w_down"] = ParamDef((e, ff, d), fan_in_dims=(1,))
+    return defs
+
+
 def _mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     ssm = cfg.ssm
     d = cfg.d_model
@@ -100,15 +112,15 @@ def _mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer of `cfg` is one the port has: dense
-    self-attention or Mamba-2, dense MLP, no encoder, no learned
-    positions."""
+    """Raise unless every layer of `cfg` is one the port has:
+    self-attention or Mamba-2, a dense or MoE MLP, no encoder, no learned
+    positions, no frontend."""
     for st in cfg.stages:
         for sl in st.block:
-            if sl.kind not in ("attn", "mamba") or sl.moe or sl.cross:
+            if sl.kind not in ("attn", "mamba") or sl.cross:
                 raise NotImplementedError(
-                    f"{cfg.name}: layer {sl} needs MoE or cross-attention, "
-                    f"not ported yet (the model-stack slice of the port)")
+                    f"{cfg.name}: layer {sl} needs cross-attention, not "
+                    f"ported yet (the model-stack slice of the port)")
     if cfg.enc_stages or cfg.learned_pos or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoders, learned positions and modality "
@@ -123,9 +135,10 @@ def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
         defs["mamba"] = _mamba_defs(cfg)
     else:
         defs["attn"] = _attn_defs(cfg)
-    if cfg.d_ff > 0:  # mamba2-style layers have no MLP block
+    if spec.moe or cfg.d_ff > 0:  # mamba2-style layers have no MLP block
         defs.update(_norm_defs(cfg, "ln2"))
-        defs["mlp"] = _mlp_defs(cfg)
+        defs["moe" if spec.moe else "mlp"] = (_moe_defs(cfg) if spec.moe
+                                              else _mlp_defs(cfg))
         if cfg.post_norm:
             defs.update(_norm_defs(cfg, "post2"))
     if cfg.post_norm:

@@ -56,9 +56,10 @@ from repro_torch.models.params import check_supported
 def _sublayer(lp: Dict[str, Any], cfg: ModelConfig, spec: LayerSpec,
               x: torch.Tensor, positions: torch.Tensor,
               cache: Optional[Dict[str, Any]], impl: str):
-    """One residual block: (attention | mamba) + MLP.  Returns (x, new):
-    the new K/V of an attention layer or the new states of a Mamba
-    layer, None without a cache."""
+    """One residual block: (attention | mamba) + (MLP | MoE).  Returns
+    (x, new, aux): the new K/V of an attention layer or the new states of
+    a Mamba layer (None without a cache), and the MoE's float32 aux loss
+    (None without an MoE)."""
     h = L.norm(lp, cfg, x, "ln1")
     if spec.kind == "attn":
         h, new = L.attention(lp, cfg, spec, h, positions,
@@ -71,13 +72,23 @@ def _sublayer(lp: Dict[str, Any], cfg: ModelConfig, spec: LayerSpec,
     if cfg.post_norm:
         h = L.norm(lp, cfg, h, "post1")
     x = x + h
-    if cfg.d_ff > 0:
+    aux = None
+    if spec.moe or cfg.d_ff > 0:  # mamba2-style layers have no MLP block
         h = L.norm(lp, cfg, x, "ln2")
-        h = L.mlp(lp["mlp"], cfg, h)
+        if spec.moe:
+            h, aux = L.moe_mlp(lp["moe"], cfg, h)
+        else:
+            h = L.mlp(lp["mlp"], cfg, h)
         if cfg.post_norm:
             h = L.norm(lp, cfg, h, "post2")
         x = x + h
-    return x, new
+    return x, new, aux
+
+
+def _add_aux(total: torch.Tensor, aux: Optional[torch.Tensor]):
+    """The reference's float32 ``aux + a`` (nothing to add for a layer
+    without an MoE)."""
+    return total if aux is None else total + aux
 
 
 def _index(tree, r: int):
@@ -101,12 +112,14 @@ def _unbind(tree, repeats: int) -> list:
 
 
 def _block(layer_p, cfg: ModelConfig, stage: Stage, x: torch.Tensor,
-           positions: torch.Tensor, impl: str) -> torch.Tensor:
-    """One stacked block without caches (the unit `remat` recomputes)."""
+           positions: torch.Tensor, impl: str, aux: torch.Tensor):
+    """One stacked block without caches (the unit `remat` recomputes):
+    (x, aux plus its sub-layers' aux, in block order)."""
     for i, spec in enumerate(stage.block):
-        x, _ = _sublayer(layer_p[f"sub{i}"], cfg, spec, x, positions, None,
-                         impl)
-    return x
+        x, _, a = _sublayer(layer_p[f"sub{i}"], cfg, spec, x, positions,
+                            None, impl)
+        aux = _add_aux(aux, a)
+    return x, aux
 
 
 def _stage_forward(sp: Dict[str, Any], cfg: ModelConfig, stage: Stage,
@@ -116,24 +129,29 @@ def _stage_forward(sp: Dict[str, Any], cfg: ModelConfig, stage: Stage,
     """Run the stacked block `stage.repeats` times; cache leaves carry a
     leading (repeats,) dim and are committed once after the loop.  With
     `remat` (and no cache) each block runs under activation
-    checkpointing."""
+    checkpointing.  Returns (x, new caches, the stage's float32 aux:
+    its MoE layers' in order from 0, as the reference's scan carries
+    it)."""
     layers = _unbind(sp, stage.repeats)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is None:
         for layer_p in layers:
             if remat:
-                x = checkpoint(_block, layer_p, cfg, stage, x, positions,
-                               impl, use_reentrant=False)
+                x, aux = checkpoint(_block, layer_p, cfg, stage, x,
+                                    positions, impl, aux,
+                                    use_reentrant=False)
             else:
-                x = _block(layer_p, cfg, stage, x, positions, impl)
-        return x, None
+                x, aux = _block(layer_p, cfg, stage, x, positions, impl, aux)
+        return x, None, aux
     new = {f"sub{i}": [] for i in range(len(stage.block))}
     for r, layer_p in enumerate(layers):
         layer_cache = _index(cache, r)
         for i, spec in enumerate(stage.block):
-            x, out = _sublayer(layer_p[f"sub{i}"], cfg, spec, x, positions,
-                               layer_cache[f"sub{i}"], impl)
+            x, out, a = _sublayer(layer_p[f"sub{i}"], cfg, spec, x,
+                                  positions, layer_cache[f"sub{i}"], impl)
             new[f"sub{i}"].append(out)
-    return x, _commit_stage_cache(stage, cache, new, positions)
+            aux = _add_aux(aux, a)
+    return x, _commit_stage_cache(stage, cache, new, positions), aux
 
 
 def _commit_stage_cache(stage: Stage, cache, new, positions):
@@ -179,10 +197,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             remat: bool = False):
     """Full-sequence forward.  tokens: (B, T) integer.
 
-    Returns (logits (B, T, V) float32, new_caches, aux); aux is 0.0 (the
-    reference's MoE auxiliary loss, which the ported layers do not have).
-    With `caches`, the new K/V and Mamba states are committed into them
-    in place and the same dicts come back.  `remat` checkpoints each
+    Returns (logits (B, T, V) float32, new_caches, aux); aux is the
+    float32 sum over stages of the MoE layers' load-balancing losses (0
+    without an MoE layer), as the reference's.  With `caches`, the new
+    K/V and Mamba states are committed into them in place and the same
+    dicts come back.  `remat` checkpoints each
     block (training; ignored with `caches`).  It defaults to False where
     the reference's defaults to True: the port's serving paths call
     `forward` without it, and only a differentiated forward can tell.
@@ -193,21 +212,24 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device)[None].expand(b, t)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Dict[str, Any] = {}
     for i, st in enumerate(cfg.stages):
         stage_cache = None if caches is None else caches[f"stage{i}"]
-        x, nc = _stage_forward(params["stages"][f"stage{i}"], cfg, st, x,
-                               positions, stage_cache, impl, remat)
+        x, nc, a = _stage_forward(params["stages"][f"stage{i}"], cfg, st, x,
+                                  positions, stage_cache, impl, remat)
+        aux = aux + a
         if nc is not None:
             new_caches[f"stage{i}"] = nc
-    return _head(params, cfg, x), (new_caches or None), 0.0
+    return _head(params, cfg, x), (new_caches or None), aux
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 lengths: torch.Tensor,
                 caches: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: tokens (B, 1), lengths (B,) current cache lengths.
-    Returns (logits (B, 1, V), new_caches)."""
+    Returns (logits (B, 1, V), new_caches); the MoE aux is dropped, as in
+    the reference."""
     positions = lengths[:, None].to(torch.int32)
     logits, new_caches, _ = forward(params, cfg, tokens, positions=positions,
                                     caches=caches, impl="xla")
@@ -243,9 +265,10 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any], *,
             impl: str = "xla", remat: bool = True, aux_weight: float = 0.01):
     """Next-token cross-entropy.  batch: tokens (B, T), labels (B, T) with
     -1 for ignored positions.  Returns (total, {"ce", "moe_aux",
-    "ntokens"}) as the reference does; the aux term is 0 (no MoE layer is
-    ported).  The label's logit is a gather where the reference takes a
-    one-hot einsum (a sum with one non-zero term: the same value)."""
+    "ntokens"}) as the reference does: total = ce + aux_weight x the
+    model's MoE aux (0 without an MoE layer).  The label's logit is a
+    gather where the reference takes a one-hot einsum (a sum with one
+    non-zero term: the same value)."""
     logits, _, aux = forward(params, cfg, batch["tokens"], impl=impl,
                              remat=remat)
     labels = batch["labels"]
@@ -256,6 +279,5 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     ce = torch.where(valid, logz - ll, 0.0)
     ntok = torch.clamp(valid.sum(), min=1)
     loss = ce.sum() / ntok
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
     total = loss + aux_weight * aux
     return total, {"ce": loss, "moe_aux": aux, "ntokens": ntok}

@@ -50,9 +50,14 @@ CASES = [
     (1, 2, 2, 96, 96, 32, False, 0, 0.0),      # non-causal (encoder)
     (1, 2, 1, 256, 256, 128, True, 64, 30.0),  # window + softcap + GQA
 ]
-# head dim 8 (the tiny model configs) and 256 (gemma at full width)
+# head dim 8 (the tiny model configs, mixtral-8x22b's smoke config), 256
+# (gemma at full width) and 16 (granite-moe-1b's smoke config: 4 heads on
+# 4 KV heads)
 EXTRA = [(1, 4, 2, 40, 40, 8, True, 0, 0.0),
-         (1, 2, 1, 48, 48, 256, True, 16, 30.0)]
+         (1, 2, 1, 48, 48, 256, True, 16, 30.0),
+         (1, 4, 4, 64, 64, 16, True, 0, 0.0)]
+# the 8 cases at head dim 16, on every kernel that takes it
+D16_CASES = [c[:5] + (16,) + c[6:] for c in CASES]
 
 
 def _inputs(case, seed):
@@ -196,7 +201,7 @@ def test_cuda_wrapper_raises_on_cpu_tensors_and_bad_head_dims():
     opts = dict(causal=True, window=0, softcap=0.0, scale=0.125)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention_cuda(q, k, v, **opts)
-    for d in (16, 96, 512):
+    for d in (24, 96, 512):
         bad = [torch.zeros(x.shape[:3] + (d,)) for x in (q, k, v)]
         with pytest.raises(ValueError, match="head dim"):
             fa.flash_attention_cuda(*bad, **opts)
@@ -253,6 +258,20 @@ def test_route_sends_float32_by_head_dim():
             assert fa.route(torch.float32, d) == want, (arch, d)
     with pytest.raises(TypeError, match="dtype"):
         fa.route(torch.float16, 64)
+
+
+def test_route_takes_head_dim_16():
+    """D = 16 (granite-moe-1b's smoke config) is an instantiation of every
+    kernel: bf16 on the tensor cores, float32 as split TF32, and the
+    smoke configs of both MoE archs take the tensor-core route in
+    float32."""
+    assert 16 in fa.HEAD_DIMS and 16 in fa.TF32_HEAD_DIMS
+    assert fa.route(torch.bfloat16, 16) == fa.BF16_TENSOR_CORES
+    assert fa.route(torch.float32, 16) == fa.F32_TENSOR_CORES
+    from repro_torch.configs import registry
+    for arch, d in (("granite_moe_1b", 16), ("mixtral_8x22b", 8)):
+        assert registry.get_smoke_config(arch).head_dim == d
+        assert fa.route(torch.float32, d) == fa.F32_TENSOR_CORES
 
 
 def test_float32_views_reach_the_kernel_uncopied():
@@ -363,3 +382,31 @@ def test_cuda_float32_kernel_on_strided_views(shape):
     assert ops.LAUNCHES["flash_attention"] == before + 1
     assert out.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(out, ref.mha(q, k, v), atol=2e-5, rtol=2e-5)
+
+
+# head dim 16 on each kernel: bf16 on the tensor cores (2e-2 and every
+# row within 1% of its largest value, as chip_smoke.py holds bf16), float32
+# as split TF32 and on the CUDA cores (2e-5); one launch a call
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D16_CASES)
+@pytest.mark.parametrize("kernel", ["bf16", "f32_tensor_cores",
+                                    "f32_cuda_cores"])
+def test_cuda_kernels_at_head_dim_16(case, kernel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    dtype, code, tol = {
+        "bf16": (torch.bfloat16, fa.BF16_TENSOR_CORES, 2e-2),
+        "f32_tensor_cores": (torch.float32, fa.F32_TENSOR_CORES, 2e-5),
+        "f32_cuda_cores": (torch.float32, fa.F32_CUDA_CORES, 2e-5)}[kernel]
+    q, k, v = (torch.tensor(x, device="cuda").to(dtype)
+               for x in _inputs(case, 16))
+    opts = dict(_opts(case), scale=0.25)
+    before = ops.LAUNCHES["flash_attention"]
+    out = fa._launch(q, k, v, code, **opts).float()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    plain = ref.mha(q, k, v, **opts).float()
+    torch.testing.assert_close(out, plain, atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        row_rel = ((out - plain).abs().amax(-1)
+                   / plain.abs().amax(-1).clamp_min(1e-30))
+        assert float(row_rel.max()) <= 1e-2

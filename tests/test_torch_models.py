@@ -64,10 +64,14 @@ def test_forward_matches_reference(arch, impl):
     rcfg, cfg = _cfgs(arch)
     rprm, prm = _params(rcfg)
     tok = _tokens(cfg, 2, 12)
-    want, _, _ = RT.forward(rprm, rcfg, jnp.asarray(tok), impl=impl,
-                            remat=False)
+    want, _, want_aux = RT.forward(rprm, rcfg, jnp.asarray(tok), impl=impl,
+                                   remat=False)
     got, caches, aux = T.forward(prm, cfg, torch.tensor(tok), impl=impl)
-    assert caches is None and aux == 0.0
+    # the MoE aux (0 without an MoE layer) within 1e-6 relative: float32
+    # router products summed in another order
+    assert caches is None and aux.dtype == torch.float32
+    assert abs(float(aux) - float(want_aux)) <= 1e-6 * max(
+        1.0, abs(float(want_aux)))
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
