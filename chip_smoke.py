@@ -306,7 +306,7 @@ on failure:
    seq_len 512, global_batch 8, token_skew 1.2, chunks of 256 tokens))`
    with host 0 reading 10x slower, under `plan_for(cfg, "train_4k",
    "train")` (4 microbatches, float32 accumulation and moments, remat)
-   with the quickstart's 5-step warmup, 8 steps, then one microbatch's
+   with the quickstart's 5-step warmup, 4 steps, then one microbatch's
    forward and backward under `torch.profiler`: each step's loss, grad
    norm, ms and tokens/s, the model FLOPs a step (6 N D) and their share
    of the bf16 dense peak, `max_memory_allocated` beside the reckoned 16
@@ -349,6 +349,46 @@ on failure:
    6 x active parameters x tokens over the bf16 peak,
    `max_memory_allocated`, one microbatch's forward and backward under
    the profiler.  Counts set to 0 before 18b and 18c and 0 after.
+19. the rest of the model stack (run after 18).  (a) whisper-medium at
+   full width (24 + 24 layers, d_model 1024, LayerNorm, GELU, learned
+   positions, bf16, random weights from a seed, 1.69 GB; the parameter
+   count `param_count`'s plus `_uncounted`): `encode` of B 4 x 1500
+   stub frames timed, then `launch.steps.build_prefill_step` on a
+   64-token prompt (the encoder, then the decoder through
+   impl="pallas", cross K/V written into the cache) and
+   `build_serve_step` for 16 decode steps against the self and cross
+   caches, counts set to 0 before each and read after: fatal unless
+   flash_attention = 24 a prefill and no other kernel, none in decode,
+   every logits tensor finite; decode tokens/s, launches and busy share
+   of a profiled window, the cross cache's bytes; one prefill through
+   impl="pallas" against impl="xla" within `SERVE_LOGIT_TOL` (bf16) and
+   `SERVE_F32_LOGIT_TOL` for the same weights in float32, each forward
+   free of host syncs; in float32, 4 decode steps of the serve step
+   against the full forward at their positions within 5e-3
+   (tests/test_models_decode.py).  (b) internvl2-2b at full width (24
+   layers, d_model 2048, GQA 16/8, D 128, 3.78 GB bf16) the same, its
+   prefill of B 4 x (256 frontend rows + 64 tokens), 24 launches a
+   prefill at D 128.  (c) both trained at full width in bf16 through
+   `build_train_step` (`plan_for(cfg, "train_4k", "train")`, the
+   quickstart's warmup), 3 steps of batch 8: whisper 448 decoder tokens
+   with (8, 1500, 1024) frames, internvl2 256 frontend rows and 256
+   text tokens; fatal unless the losses are finite and the last below
+   the first; tokens/s, `max_memory_allocated` beside 16 bytes a
+   parameter, model FLOPs (whisper 6 x (encoder parameters x frames +
+   decoder parameters x tokens)) over the bf16 peak.  (d)
+   jamba-1.5-large at its smoke config (one block: Mamba-2 at 0-3 and
+   5-7, attention at 4, MoE at the odd positions; 44.1B parameters a
+   full-width block, over one card), float32 with TF32 off, card
+   against CPU: the forward under impl="xla", "pallas" and
+   "pallas_ssd" (flash_attention 1 and ssd 0, ssd 7 and flash_attention
+   0, none, counted on the card), logits within 1e-4 of their largest
+   magnitude, the aux within 1e-6, router set flips counted; the
+   prefill step then 4 serve steps; one train step of the jamba plan (8
+   microbatches, bf16 gradient sum and moments) within 1e-4 relative;
+   then the engine (`EngineConfig()`) drains 4 requests through the SSD
+   route, ssd = 7 x prefills and no flash_attention, and the launcher
+   serves whisper-medium's and internvl2-2b's smoke configs (4 requests
+   each, flash_attention = decoder layers x 4).  Counts set to 0 after.
 
 Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2697,7 +2737,9 @@ def attn_shapes():
     `EngineConfig()` (the shapes the serving path gives the kernel; the
     largest is the kernels line's row), a long prefill, then
     granite-moe-1b's prefill at every bucket (B 1, Hq 16, Hkv 8, D 64:
-    phase 18a's shapes)."""
+    phase 18a's shapes), then the prefill steps of phase 19a (whisper-
+    medium: B 4, 16/16, T 64, D 64) and 19b (internvl2-2b: B 4, 16/8,
+    T 256 + 64, D 128)."""
     from repro_torch.configs import registry
     from repro_torch.serve.engine import EngineConfig
 
@@ -2710,7 +2752,14 @@ def attn_shapes():
             + [("long", heads + (LONG_T, LONG_T, cfg.head_dim), 3, 1)]
             + [(f"moe_prefill_{t}", (1, moe.num_heads, moe.num_kv_heads, t,
                                      t, moe.head_dim), 50, 20)
-               for t in buckets])
+               for t in buckets]
+            + [(f"stack_prefill_{a}", (STACK_BATCH, c.num_heads,
+                                       c.num_kv_heads,
+                                       c.num_frontend_tokens + STACK_PROMPT,
+                                       c.num_frontend_tokens + STACK_PROMPT,
+                                       c.head_dim), 50, 5)
+               for a, c in ((ENCDEC_ARCH, registry.get_config(ENCDEC_ARCH)),
+                            (VLM_ARCH, registry.get_config(VLM_ARCH)))])
 
 
 TC_KERNEL = "attention_tc_kernel"   # the bf16 tensor-core kernel's name
@@ -2861,11 +2910,13 @@ def attn_f32_shapes():
     """(name, (B, Hq, Hkv, Tq, Tk, D), causal, window, softcap, reps,
     plain reps) of the timed float32 shapes: the launcher's (the smoke
     config's heads at T = 16), chatglm3-6b's full-width prefill at the
-    largest bucket, the same at T = 8192, then the test cases."""
+    largest bucket, the same at T = 8192, jamba-1.5-large's smoke
+    forward of phase 19d (B 2, 1/1, T 32, D 8), then the test cases."""
     from repro_torch.configs import registry
     from repro_torch.serve.engine import EngineConfig
 
     smoke = registry.get_smoke_config(SERVE_ARCH)
+    hyb = registry.get_smoke_config(HYBRID_ARCH)
     cfg = registry.get_config(SERVE_ARCH)
     heads = (1, cfg.num_heads, cfg.num_kv_heads)
     t = max(EngineConfig().prefill_buckets)
@@ -2874,7 +2925,9 @@ def attn_f32_shapes():
              (f"prefill_{t}", heads + (t, t, cfg.head_dim), True, 0, 0.0,
               50, 5),
              ("long", heads + (LONG_T, LONG_T, cfg.head_dim), True, 0, 0.0,
-              3, 1)]
+              3, 1),
+             ("hybrid", (HYBRID_B, hyb.num_heads, hyb.num_kv_heads, HYBRID_T,
+                         HYBRID_T, hyb.head_dim), True, 0, 0.0, 50, 5)]
             + [(f"case{i}", c[:6], *c[6:], 10, 2)
                for i, c in enumerate(ATTN_CASES)])
 
@@ -3210,7 +3263,8 @@ def ssd_f32_shapes():
     """(name, (B, T, H, P, N), reps, plain reps) of the timed float32
     shapes: the launcher's (the smoke config's heads at T = 16),
     mamba2-1.3b's full-width prefill at the largest bucket, the same at
-    T = 8192, then the test cases."""
+    T = 8192, jamba-1.5-large's smoke forward of phase 19d (B 2, T 32,
+    H 32, P 8, N 8), then the test cases."""
     from repro_torch.configs import registry
     from repro_torch.serve.engine import EngineConfig
 
@@ -3223,7 +3277,9 @@ def ssd_f32_shapes():
     return ([("launcher", (1, 16) + heads(registry.get_smoke_config(
                 MAMBA_ARCH)), 50, 3),
              (f"prefill_{t}", (1, t) + full, 50, 3),
-             ("long", (1, LONG_T) + full, 5, 1)]
+             ("long", (1, LONG_T) + full, 5, 1),
+             ("hybrid", (HYBRID_B, HYBRID_T) + heads(
+                 registry.get_smoke_config(HYBRID_ARCH)), 50, 3)]
             + [(f"case{i}", c, 10, 2) for i, c in enumerate(SSD_CASES)])
 
 
@@ -3433,15 +3489,33 @@ def _shapes(tree):
 
 def _uncounted(cfg) -> int:
     """Parameters of the model's tree that the reference's analytic
-    `param_count` leaves out: each Mamba layer's conv bias and the
-    embedding's vocab-padding rows (0 for chatglm3-6b)."""
-    ssm = cfg.ssm
-    conv_b = sum(st.repeats * (ssm.d_inner(cfg.d_model)
-                               + 2 * ssm.n_groups * ssm.d_state)
+    `param_count` leaves out: each Mamba layer's conv bias, the
+    embedding's vocab-padding rows (0 for chatglm3-6b), with a LayerNorm
+    the final and cross-attention norms' biases, and an encoder's final
+    norm and position table (whisper-medium: 1,774,592)."""
+    d = cfg.d_model
+    conv_b = sum(st.repeats * (cfg.ssm.d_inner(d)
+                               + 2 * cfg.ssm.n_groups * cfg.ssm.d_state)
                  for st in cfg.stages for sl in st.block
                  if sl.kind == "mamba")
-    pad = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
-    return conv_b + pad * (1 if cfg.tie_embeddings else 2)
+    pad = (cfg.padded_vocab - cfg.vocab_size) * d
+    n = conv_b + pad * (1 if cfg.tie_embeddings else 2)
+    if cfg.norm == "layernorm":
+        n += d + d * sum(st.repeats for st in cfg.stages
+                         for sl in st.block if sl.cross)
+    if cfg.enc_stages:
+        n += d * (2 if cfg.norm == "layernorm" else 1)
+        if cfg.learned_pos:
+            n += max(cfg.num_audio_frames, 1) * d
+    return n
+
+
+def _kernel_layers(cfg, kernel: str) -> int:
+    """Launches of `kernel` a decoder prefill makes: one a causal
+    attention layer (flash_attention) or one a Mamba layer (ssd)."""
+    return sum(st.repeats for st in cfg.stages for sl in st.block
+               if (sl.kind == "mamba") == (kernel == "ssd")
+               and (kernel == "ssd" or sl.causal))
 
 
 def phase_serving(dev, arch=SERVE_ARCH):
@@ -3526,7 +3600,7 @@ def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None,
     submitted at once (`run_until_drained`), request i at engine step
     ``submit_at[i]``, or by ``drive(eng)``, which submits and steps and
     returns the requests it made.  Launch counts are set to 0 before and
-    must equal layers x prefills of the arch's kernel after; every
+    must equal the kernel's layers x prefills after (`_kernel_layers`); every
     logits tensor is checked finite on the card (no host read); every
     request the control plane did not shed (``finish_time == -1.0``)
     must be prefilled once and drain with SERVE_NEW + 1 tokens."""
@@ -3565,7 +3639,8 @@ def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None,
         wall = time.perf_counter() - t0
     finally:
         T.forward = forward
-    launches = _check_counts(path, {kernel: cfg.num_layers * prefills})
+    launches = _check_counts(path, {kernel: _kernel_layers(cfg, kernel)
+                                    * prefills})
     kept = [r for r in out if r.finish_time != -1.0]
     if prefills != len(kept):
         raise AssertionError(f"{prefills} prefills for {len(kept)} "
@@ -4254,14 +4329,18 @@ def phase_launcher(dev):
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = MAMBA_ARCH
-TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 8, 512, 8
-# chunks of 256 tokens: 8 steps of 8 x 513 tokens make 129 chunk reads
+# 4 steps (8 until phase 19 came; cut for time, every gate kept: the
+# losses of the 8-step runs read 11.18, 9.85, 13.20, 10.39 over the first
+# four, and the pipeline's reads below hold at 4 steps)
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 4, 512, 8
+# chunks of 256 tokens: 4 steps of 8 x 513 tokens make 65 chunk reads
 # (at the default 65 536 they would make one, and the straggler check
 # would say nothing)
 TRAIN_TOKENS_PER_CHUNK = 256
 TRAIN_SLOW = {0: 0.1}                 # host 0 reads 10x slower
 # the straggler must serve at most this share of the reads host 0 serves
-# in the same pipeline without it (seed 0: 17 of 129 there)
+# in the same pipeline without it (seed 0, 4 steps: 1 of 65 with the
+# straggler, 9 of 65 without)
 TRAIN_STRAGGLER_SHARE = 0.5
 TRAIN_CHECK_ARCHS = (SERVE_ARCH, MAMBA_ARCH, MOE_ARCH)
 TRAIN_CHECK_TOL = 1e-4                # card vs CPU, float32, TF32 off
@@ -4306,7 +4385,7 @@ def _recorded_loss_metrics():
 
 def train_full_width(dev) -> dict:
     """17a: mamba2-1.3b at full width in bf16 through `Trainer`, fed by
-    the locality-aware pipeline with a 10x straggler, 8 steps; then one
+    the locality-aware pipeline with a 10x straggler, 4 steps; then one
     microbatch's forward and backward under the profiler, and the same
     pipeline without the straggler for the same batches (the control of
     the straggler check)."""
@@ -4794,6 +4873,560 @@ def phase_moe(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the rest of the model stack (whisper-medium, internvl2-2b,
+# jamba-1.5-large)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH, VLM_ARCH, HYBRID_ARCH = ("whisper_medium", "internvl2_2b",
+                                      "jamba15_large")
+STACK_BATCH, STACK_PROMPT, STACK_DECODE = 4, 64, 16
+# a decoded step against the full forward at its position, float32:
+# tests/test_models_decode.py's tolerance (atol = rtol)
+STACK_DECODE_TOL = 5e-3
+STACK_DECODE_CHECK = 4     # float32 decode steps held against the forward
+STACK_WINDOW = 4           # decode steps profiled (device activities only)
+STACK_TRAIN_STEPS, STACK_TRAIN_BATCH = 3, 8
+# whisper's real decoder context; internvl2's stream of 256 frontend rows
+# and 256 text tokens
+STACK_TRAIN_SEQ = {ENCDEC_ARCH: 448, VLM_ARCH: 512}
+# 19d: jamba's smoke config, card against CPU (float32, TF32 off): the
+# logits within this share of their largest magnitude (18b's limit on
+# moe_mlp's y), the aux within MOE_CHECK_AUX_TOL, a train step's loss,
+# grad norm and aux within TRAIN_CHECK_TOL (17b's)
+HYBRID_LOGIT_TOL = 1e-4
+HYBRID_B, HYBRID_T = 2, 32
+HYBRID_REQUESTS = 4
+# the launcher (`python -m repro_torch.launch.serve`) on the two new
+# attention archs' smoke configs: flash_attention = decoder layers x 4
+STACK_LAUNCHER_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
+SERVE_ROUTES[HYBRID_ARCH] = ("pallas_ssd", "ssd", None, None)
+
+
+def _modality(cfg, b: int, dev, dtype, seed: int) -> dict:
+    """A model's stub inputs beside its tokens, drawn on the card from a
+    seed: ``frames`` (b, num_audio_frames, d) or ``frontend`` (b,
+    num_frontend_tokens, d), standard normal, in `dtype`."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn((b, cfg.num_audio_frames, cfg.d_model),
+                                    generator=gen, device=dev).to(dtype)
+    if cfg.frontend == "vision":
+        out["frontend"] = torch.randn(
+            (b, cfg.num_frontend_tokens, cfg.d_model), generator=gen,
+            device=dev).to(dtype)
+    return out
+
+
+def _stack_batch(cfg, dev, dtype, b: int, t: int, seed: int) -> dict:
+    x = _modality(cfg, b, dev, dtype, seed)
+    x["tokens"] = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, t)).astype(np.int32), device=dev)
+    return x
+
+
+def _stack_forward(params, cfg, batch, impl, caches=None):
+    """The prefill step's computation on `batch`: `encode` of its frames,
+    then `forward` with its frontend (no autograd)."""
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        enc = (T.encode(params, cfg, batch["frames"], impl=impl)
+               if cfg.is_encdec else None)
+        return T.forward(params, cfg, batch["tokens"],
+                         frontend=batch.get("frontend"), enc_out=enc,
+                         caches=caches, impl=impl)[0]
+
+
+def stack_prefill_compare(dev, cfg, params, batch, logit_tol) -> dict:
+    """`prefill_compare` for the prefill step's inputs: the batch's last
+    row through impl="pallas" and impl="xla" (twice each, alternating;
+    each forward, the encoder included, free of host syncs): the max
+    |logit difference| over the rows, its share of their max |logit|;
+    raises beyond `logit_tol`."""
+    from repro_torch.models import transformer as T
+
+    last, ms = {}, {}
+    for route in ("pallas", "xla", "pallas", "xla"):
+        caches = T.init_caches(cfg, batch["tokens"].shape[0],
+                               batch["tokens"].shape[1]
+                               + cfg.num_frontend_tokens, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits = _stack_forward(params, cfg, batch, route, caches)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms[route] = (time.perf_counter() - t0) * 1e3
+        last[route] = logits[:, -1, :cfg.vocab_size]
+    diff = float((last["pallas"] - last["xla"]).abs().max())
+    scale = float(last["xla"].abs().max())
+    out = dict(model=cfg.name, dtype=cfg.dtype,
+               shape=list(batch["tokens"].shape), max_abs_diff=diff,
+               max_abs_logit=scale, share=diff / scale,
+               tolerance=logit_tol * scale,
+               same_argmax=bool((last["pallas"].argmax(-1)
+                                 == last["xla"].argmax(-1)).all()),
+               prefill_ms=ms)
+    print(f"  prefill kernel route vs plain route: {json.dumps(out)}",
+          flush=True)
+    if not out["share"] <= logit_tol:
+        raise AssertionError(f"kernel and plain prefill logits of "
+                             f"{cfg.name} ({cfg.dtype}) differ by {diff}, "
+                             f"beyond {logit_tol} x {scale}")
+    return out
+
+
+def stack_decode_check(dev, cfg, params) -> dict:
+    """Float32 (TF32 off): `build_prefill_step` on the first
+    STACK_PROMPT tokens (frontend rows and frames with them), then
+    `STACK_DECODE_CHECK` `build_serve_step` steps fed the next tokens;
+    each step's logits against the full forward's at its position, within
+    STACK_DECODE_TOL (atol = rtol)."""
+    from repro_torch.configs import runtime
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    nf = cfg.num_frontend_tokens
+    b, t, k = 2, STACK_PROMPT, STACK_DECODE_CHECK
+    full_batch = _stack_batch(cfg, dev, torch.float32, b, t + k, seed=19)
+    batch = dict(full_batch, tokens=full_batch["tokens"][:, :t])
+    plan = dataclasses.replace(runtime.plan_for(cfg, "prefill_32k",
+                                                "prefill"),
+                               max_len=nf + t + k)
+    pre, _ = steps.build_prefill_step(cfg, plan, b, nf + t, device=dev)
+    serve, _ = steps.build_serve_step(cfg, plan, b, nf + t + k, device=dev)
+    caches = T.init_caches(cfg, b, nf + t + k, device=dev)
+    full = _stack_forward(params, cfg, full_batch, "xla")
+    _, caches = pre(params, caches, batch)
+    errs = []
+    for i in range(k):
+        step = {"tokens": full_batch["tokens"][:, t + i:t + i + 1],
+                "lengths": torch.full((b,), nf + t + i, dtype=torch.int32,
+                                      device=dev)}
+        _, lg, caches = serve(params, caches, step)
+        want = full[:, nf + t + i]
+        torch.testing.assert_close(lg, want, atol=STACK_DECODE_TOL,
+                                   rtol=STACK_DECODE_TOL)
+        errs.append(float((lg - want).abs().max()))
+    out = dict(steps=k, max_abs_err=max(errs),
+               max_abs_logit=float(full[..., :cfg.vocab_size].abs().max()),
+               tolerance=STACK_DECODE_TOL)
+    print(f"  decode vs full forward (float32): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def stack_serving(dev, arch) -> dict:
+    """19a (whisper-medium) / 19b (internvl2-2b) at full width, bf16,
+    seeded weights on the card: `build_prefill_step` on B 4 x
+    STACK_PROMPT tokens (whisper: its 1500 stub frames encoded first;
+    internvl2: 256 frontend rows before the text), then
+    `build_serve_step` for STACK_DECODE steps against the self (and
+    cross) caches, counts set to 0 before each and read after
+    (flash_attention = the decoder's causal layers a prefill, nothing
+    else; a decode step none); then the prefill route compare in bf16
+    and, for the same weights in float32, the compare and the decode
+    check (`stack_decode_check`)."""
+    from repro_torch.configs import registry, runtime
+    from repro_torch.launch import steps
+    from repro_torch.models import config as mconfig
+    from repro_torch.models import params as P, transformer as T
+
+    cfg = registry.get_config(arch)
+    nf = cfg.num_frontend_tokens
+    b, t, k = STACK_BATCH, STACK_PROMPT, STACK_DECODE
+    secs, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs[name], mark[0] = now - mark[0], now
+
+    params = P.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    lap("init")
+    n_params = P.count_params(params)
+    want = mconfig.param_count(cfg) + _uncounted(cfg)
+    if n_params != want or _shapes(params) != _shapes(P.model_defs(cfg)):
+        raise AssertionError(f"{n_params} parameters, want {want} in the "
+                             f"shapes of `params.model_defs`")
+    weight_gb = n_params * 2 / 1e9
+    max_len = nf + t + k + STACK_WINDOW   # and the profiled decode window
+    plan = dataclasses.replace(runtime.plan_for(cfg, "prefill_32k",
+                                                "prefill"), max_len=max_len)
+    pre, (_, acaches, abatch) = steps.build_prefill_step(
+        cfg, plan, b, nf + t, device=dev)
+    serve, _ = steps.build_serve_step(cfg, plan, b, max_len, device=dev)
+    batch = _stack_batch(cfg, dev, torch.bfloat16, b, t, seed=0)
+    if {n: tuple(v.shape) for n, v in batch.items()} != {
+            n: tuple(v.shape) for n, v in abatch.items()}:
+        raise AssertionError(f"batch {batch} is not the step's {abatch}")
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    encode_ms = None
+    if cfg.is_encdec:
+        with torch.no_grad():
+            T.encode(params, cfg, batch["frames"])      # warm up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = T.encode(params, cfg, batch["frames"])
+            torch.cuda.synchronize()
+            encode_ms = (time.perf_counter() - t0) * 1e3
+        finite.logical_and_(torch.isfinite(enc).all())
+        del enc
+    caches = T.init_caches(cfg, b, max_len, device=dev,
+                           enc_len=cfg.num_audio_frames)
+    if _shapes(caches) != _shapes(acaches):
+        raise AssertionError("caches are not the step's abstract caches")
+    cross_bytes = sum(x.numel() * x.element_size()
+                      for st in caches.values() for e in st.values()
+                      if "cross" in e for x in e["cross"].values())
+    pre(params, T.init_caches(cfg, b, max_len, device=dev), batch)  # warm
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = pre(params, caches, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = _check_counts(
+        f"{arch} prefill", {"flash_attention": _kernel_layers(
+            cfg, "flash_attention")})
+    finite.logical_and_(torch.isfinite(logits).all())
+    nxt = logits.argmax(-1).to(torch.int32)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(k):
+        step = {"tokens": nxt[:, None], "lengths": torch.full(
+            (b,), nf + t + i, dtype=torch.int32, device=dev)}
+        nxt, lg, caches = serve(params, caches, step)
+        finite.logical_and_(torch.isfinite(lg).all())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = _check_counts(f"{arch} decode", {})
+    lengths = torch.full((b,), nf + t + k, dtype=torch.int32, device=dev)
+
+    def one_step():
+        nonlocal caches, lengths
+        _, _, caches = serve(params, caches, {"tokens": nxt[:, None],
+                                               "lengths": lengths})
+        lengths = lengths + 1
+
+    lap("prefill_decode")
+    window = _profile_window(dev, one_step, STACK_WINDOW, cpu=False)
+    lap("window")
+    if not bool(finite):
+        raise AssertionError(f"non-finite logits in the {arch} run")
+    out = dict(arch=cfg.name, params=n_params, weight_gb=weight_gb,
+               batch=b, prompt_tokens=t, frontend_rows=nf,
+               frames=cfg.num_audio_frames if cfg.is_encdec else 0,
+               encode_ms=encode_ms, prefill_step_ms=prefill_ms,
+               decode_steps=k, decode_ms_per_step=decode_s / k * 1e3,
+               decode_tokens_per_s=b * k / decode_s,
+               prefill_launches=prefill_launches,
+               decode_launches=decode_launches,
+               cross_cache_bytes=cross_bytes, decode_window=window)
+    print(f"  {arch}: {json.dumps(out)}", flush=True)
+    out["compare"] = stack_prefill_compare(
+        dev, cfg, params, _stack_batch(cfg, dev, torch.bfloat16, 1, t,
+                                       seed=1), SERVE_LOGIT_TOL)
+    lap("compare")
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = P.init_params(cfg32, torch.Generator(dev).manual_seed(0),
+                        device=dev)
+    out["compare_f32"] = stack_prefill_compare(
+        dev, cfg32, p32, _stack_batch(cfg32, dev, torch.float32, 1, t,
+                                      seed=1), SERVE_F32_LOGIT_TOL)
+    out["decode_check_f32"] = stack_decode_check(dev, cfg32, p32)
+    del p32
+    torch.cuda.empty_cache()
+    lap("float32")
+    out["seconds"] = secs
+    print(f"  {arch} seconds: {json.dumps(secs)}", flush=True)
+    return out
+
+
+def stack_train(dev, arch) -> dict:
+    """19c: whisper-medium / internvl2-2b trained at full width in bf16
+    through `build_train_step` under `plan_for(cfg, "train_4k",
+    "train")` as it stands (its 100-step warmup: with the quickstart's
+    5-step one and a new batch a step, whisper's loss went from 11.10 to
+    9.31, then to 11.92 at the third step, lr 1.8e-4),
+    STACK_TRAIN_STEPS steps on one batch of 8 (so that the losses differ
+    by what the steps learned, not by the spread of batches): tokens and
+    labels from `DataPipeline` (token skew 1.2; whisper 448 decoder
+    tokens, internvl2 256 text tokens), frames (8, 1500, 1024) or
+    frontend rows (8, 256, 2048) drawn on the card from a seed.  Fatal:
+    a loss not finite, the last not below the first.  Model FLOPs a step:
+    whisper 6 x (encoder parameters x frames + decoder parameters x
+    decoder tokens), the encoder's the encoder stages' and its final
+    norm's, the decoder's the rest but the two position tables (lookups;
+    the cross K/V projections, which run over the frames, counted with
+    the decoder); internvl2 6 x parameters x stream rows (frontend rows
+    included)."""
+    from repro_torch.configs import registry, runtime
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import params as P
+    from repro_torch.optim import adamw
+
+    cfg = registry.get_config(arch)
+    seq = STACK_TRAIN_SEQ[arch]
+    n_text = seq - cfg.num_frontend_tokens
+    b = STACK_TRAIN_BATCH
+    plan = runtime.plan_for(cfg, "train_4k", "train")
+    pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=n_text, global_batch=b,
+                                       token_skew=1.2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = P.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    n = P.count_params(params)
+    state = steps.TrainState(params, adamw.init(plan.opt, params),
+                             torch.zeros((), dtype=torch.int32, device=dev))
+    fn, _, abatch = steps.build_train_step(cfg, plan, b, seq, device=dev)
+    if cfg.is_encdec:
+        enc_n = P.count_params(params["enc_stages"]) + sum(
+            params[k].numel() for k in params if k.startswith("enc_final"))
+        pos_n = params["pos_embed"].numel() + params["enc_pos_embed"].numel()
+        flops = 6 * (enc_n * b * cfg.num_audio_frames
+                     + (n - enc_n - pos_n) * b * n_text)
+    else:
+        flops = 6 * n * b * seq
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in next(pipe).items()}
+    batch.update(_modality(cfg, b, dev, torch.bfloat16, seed=100))
+    if {k: tuple(v.shape) for k, v in batch.items()} != {
+            k: tuple(v.shape) for k, v in abatch.items()}:
+        raise AssertionError(f"batch shapes are not the step's {abatch}")
+    losses, norms, step_s = [], [], []
+    for i in range(STACK_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        print(f"  19c {arch} step {i + 1}: loss {losses[-1]:.4f} grad_norm "
+              f"{norms[-1]:.4f} lr {float(met['lr']):.3e} "
+              f"{step_s[-1] * 1e3:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    med_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = b * n_text
+    out = dict(arch=cfg.name, params=n, steps=STACK_TRAIN_STEPS,
+               global_batch=b, text_tokens=n_text, stream_rows=seq,
+               frames=cfg.num_audio_frames if cfg.is_encdec else 0,
+               microbatches=steps.num_microbatches(plan, b),
+               losses=losses, grad_norms=norms,
+               step_ms=[x * 1e3 for x in step_s], median_step_ms=med_s * 1e3,
+               tokens_per_s=tokens / med_s,
+               model_flops_per_step=flops,
+               bf16_peak_share=flops / med_s / BF16_OPS_PER_S,
+               max_memory_allocated_bytes=peak,
+               reckoned_state_bytes=16 * n)
+    print(f"  19c {arch}: {json.dumps(out)}", flush=True)
+    del state, params
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"19c {arch}: a loss or grad norm is not "
+                             f"finite: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"19c {arch}: last loss {losses[-1]} not "
+                             f"below the first {losses[0]}")
+    return out
+
+
+def hybrid_card_vs_cpu(dev) -> dict:
+    """19d: jamba-1.5-large at its smoke config (one block: Mamba-2 at
+    0-3 and 5-7, attention at 4, MoE at the odd positions), float32 with
+    TF32 off, the same seeded weights on the card and on the CPU: the
+    forward of B 2 x T 32 under impl="xla", "pallas" and "pallas_ssd"
+    (on the card flash_attention 1 and ssd 0, ssd 7 and flash_attention
+    0, none, counted), its logits within HYBRID_LOGIT_TOL of their
+    largest magnitude and the aux within MOE_CHECK_AUX_TOL, the router's
+    choices compared layer by layer (a token whose expert set differs, a
+    float32 near-tie, is counted); `build_prefill_step` then 4
+    `build_serve_step` steps, each step's logits the same way; one
+    `build_train_step` step of the jamba plan (8 microbatches, bf16
+    gradient sum and moments), its loss, grad norm and the microbatches'
+    mean aux within TRAIN_CHECK_TOL relative."""
+    from repro_torch.configs import registry, runtime
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import params as P, transformer as T
+    from repro_torch.optim import adamw
+
+    cfg = registry.get_smoke_config(HYBRID_ARCH)
+    prm = P.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b, t = HYBRID_B, HYBRID_T
+    tok = torch.as_tensor(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (b, t + 4)).astype(np.int32))
+    want_calls = {"xla": {}, "pallas": {"flash_attention": 1},
+                  "pallas_ssd": {"ssd": 7}}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"forward": {}}
+    try:
+        got = {}
+        for where in ("cpu", dev):
+            p = P.tree_map(lambda x: x.to(where, copy=True), prm)
+            x = tok.to(where)
+            res = {}
+            for impl in ("xla", "pallas", "pallas_ssd"):
+                _zero_counts()
+                with _recorded_routes() as routes, torch.no_grad():
+                    lg, _, aux = T.forward(p, cfg, x[:, :t], impl=impl)
+                calls = (_check_counts(f"19d forward {impl}",
+                                       want_calls[impl])
+                         if where != "cpu" else None)
+                res[impl] = (lg.cpu(), float(aux),
+                             [r["top_e"].cpu() for r in routes], calls)
+            # prefill then decode through the steps
+            plan = dataclasses.replace(
+                runtime.plan_for(cfg, "prefill_32k", "prefill"),
+                max_len=t + 4)
+            pre, _ = steps.build_prefill_step(cfg, plan, b, t, device=where)
+            serve, _ = steps.build_serve_step(cfg, plan, b, t + 4,
+                                              device=where)
+            caches = T.init_caches(cfg, b, t + 4, device=where)
+            last, caches = pre(p, caches, {"tokens": x[:, :t]})
+            dec = [last.cpu()]
+            for i in range(4):
+                _, lg, caches = serve(p, caches, {
+                    "tokens": x[:, t + i:t + i + 1],
+                    "lengths": torch.full((b,), t + i, dtype=torch.int32,
+                                          device=where)})
+                dec.append(lg.cpu())
+            res["decode"] = dec
+            got[str(where)] = res
+        cpu, card = got["cpu"], got[str(dev)]
+        for impl in ("xla", "pallas", "pallas_ssd"):
+            (lc, ac, rc, _), (ld, ad, rd, calls) = cpu[impl], card[impl]
+            scale = float(lc.abs().max())
+            flips = [int((a.sort(-1).values != c.sort(-1).values).any(-1)
+                         .sum()) for a, c in zip(rc, rd)]
+            row = dict(max_abs_err=float((lc - ld).abs().max()),
+                       max_abs_logit=scale, aux_cpu=ac, aux_card=ad,
+                       aux_err=abs(ac - ad), moe_set_flips=flips,
+                       launches=calls)
+            out["forward"][impl] = row
+            print(f"  19d forward {impl} card vs CPU: {json.dumps(row)}",
+                  flush=True)
+            if not (row["max_abs_err"] <= HYBRID_LOGIT_TOL * scale
+                    and row["aux_err"] <= MOE_CHECK_AUX_TOL):
+                raise AssertionError(f"19d: forward {impl} card vs CPU: "
+                                     f"{row}")
+        errs = [float((a - c).abs().max()) for a, c in
+                zip(cpu["decode"], card["decode"])]
+        scale = max(float(a.abs().max()) for a in cpu["decode"])
+        out["prefill_decode"] = dict(steps=4, max_abs_err=max(errs),
+                                     max_abs_logit=scale)
+        print(f"  19d prefill + decode card vs CPU: "
+              f"{json.dumps(out['prefill_decode'])}", flush=True)
+        if not max(errs) <= HYBRID_LOGIT_TOL * scale:
+            raise AssertionError(f"19d: prefill + decode card vs CPU: "
+                                 f"{out['prefill_decode']}")
+        # one train step of the jamba plan
+        plan = _train_plan(cfg)
+        batch = {k: torch.as_tensor(v) for k, v in next(DataPipeline(
+            PipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SMOKE_SEQ,
+                           global_batch=TRAIN_BATCH, token_skew=1.2))).items()}
+        mets = {}
+        for where in ("cpu", dev):
+            p = P.tree_map(lambda x: x.to(where, copy=True), prm)
+            state = steps.TrainState(p, adamw.init(plan.opt, p),
+                                     torch.zeros((), dtype=torch.int32,
+                                                 device=where))
+            fn, _, _ = steps.build_train_step(cfg, plan, TRAIN_BATCH,
+                                              TRAIN_SMOKE_SEQ, device=where)
+            with _recorded_loss_metrics() as seen:
+                _, met = fn(state, batch)
+            mets[str(where)] = {k: float(v) for k, v in met.items()}
+            mets[str(where)]["moe_aux"] = float(np.mean(
+                [float(m["moe_aux"]) for m in seen]))
+        want, card_m = mets["cpu"], mets[str(dev)]
+        rel = {k: abs(card_m[k] - want[k]) / abs(want[k])
+               for k in ("loss", "grad_norm", "moe_aux")}
+        out["train_step"] = {"cpu": want, "card": card_m, "rel": rel,
+                             "microbatches": plan.microbatches,
+                             "accum_dtype": plan.accum_dtype}
+        print(f"  19d train step card vs CPU: "
+              f"{json.dumps(out['train_step'])}", flush=True)
+        if max(rel.values()) > TRAIN_CHECK_TOL:
+            raise AssertionError(f"19d: train step card vs CPU {rel} over "
+                                 f"{TRAIN_CHECK_TOL}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def hybrid_engine(dev) -> dict:
+    """19d, on: jamba's smoke config through the engine on the card
+    (`EngineConfig()` defaults), the first HYBRID_REQUESTS of the serving
+    phases' requests, counts set to 0 before and read after: ssd = its 7
+    Mamba layers x prefills and flash_attention 0 (the engine prefills a
+    Mamba model through the SSD kernel, attention on the plain path);
+    then the launcher on whisper-medium's and internvl2-2b's smoke
+    configs (4 requests each; flash_attention = decoder layers x 4)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import params as P
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    cfg = registry.get_smoke_config(HYBRID_ARCH)
+    params = P.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    eng = ServingEngine(cfg, params, EngineConfig(), device=dev)
+    reqs = serve_requests(cfg)[:HYBRID_REQUESTS]
+    out = {"engine": drained_run(dev, HYBRID_ARCH, cfg, eng, reqs,
+                                 f"{HYBRID_ARCH} smoke serving")}
+    print(f"  19d engine: {json.dumps(out['engine'])}", flush=True)
+    for arch in STACK_LAUNCHER_ARCHS:
+        scfg = registry.get_smoke_config(arch)
+        _zero_counts()
+        t0 = time.perf_counter()
+        launch_serve.main(["--arch", arch, "--requests", "4"])
+        torch.cuda.synchronize()
+        out[f"launcher {arch}"] = dict(
+            seconds=time.perf_counter() - t0,
+            launches=_check_counts(f"launcher {arch}", {
+                "flash_attention": _kernel_layers(scfg, "flash_attention")
+                * 4}))
+    return out
+
+
+def phase_stack(dev) -> dict:
+    """Phase 19: whisper-medium (19a) and internvl2-2b (19b) served
+    through the prefill and serve steps at full width, both trained at
+    full width (19c), jamba-1.5-large's smoke config card against CPU
+    and through the engine (19d)."""
+    import gc
+
+    secs, out = {}, {}
+    for name, fn in (("19a", lambda: stack_serving(dev, ENCDEC_ARCH)),
+                     ("19b", lambda: stack_serving(dev, VLM_ARCH)),
+                     ("19c", lambda: {a: stack_train(dev, a)
+                                      for a in STACK_TRAIN_SEQ}),
+                     ("19d", lambda: dict(hybrid_card_vs_cpu(dev),
+                                          **hybrid_engine(dev)))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+    _zero_counts()
+    out["seconds"] = secs
+    print(f"phase 19 seconds: {json.dumps(secs)}", flush=True)
+    return out
+
+
 # the keys of a float32 row in the kernels line
 F32_ROW_KEYS = ("shape", "route", "max_abs_err", "ms", "device_ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -4885,8 +5518,11 @@ def main(argv=None) -> int:
     done("17")
     moe = phase_moe(dev)
     done("18")
-    for name, secs in list(train["seconds"].items()) + list(
-            moe["seconds"].items()):
+    stack = phase_stack(dev)
+    done("19")
+    for name, secs in (list(train["seconds"].items())
+                       + list(moe["seconds"].items())
+                       + list(stack["seconds"].items())):
         seconds[f"{name} (within {name[:2]})"] = secs
     seconds["13b (within 9+12b)"] = serve_run["placement_s"]
     seconds["14b (within 9+12b)"] = serve_run["replication_s"]
@@ -4979,6 +5615,15 @@ def main(argv=None) -> int:
         "launcher_moe": {arch: launcher_rows[f"flash_attention {arch}"]
                          for arch in (MOE_ARCH, MOE_SMOKE_ARCH)},
         "moe_launches": moe["18a"]["launches"]["flash_attention"],
+        "stack_prefill_launches": {
+            stack[n]["arch"]: stack[n]["prefill_launches"]["flash_attention"]
+            for n in ("19a", "19b")},
+        "stack_prefill": {n: {k: r[k] for k in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+            for n, r in attn_rows.items() if n.startswith("stack_")},
+        "hybrid_launches": stack["19d"]["forward"]["pallas"]["launches"][
+            "flash_attention"],
         "moe_prefill": {n: {k: r[k] for k in (
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")}
@@ -5009,6 +5654,10 @@ def main(argv=None) -> int:
                     + ("recurrent_ms", "recurrent_device_ms")}
                 for n, r in ssd_f32.items()},
         "launcher": launcher_rows["ssd"],
+        "hybrid_launches": {
+            "forward": stack["19d"]["forward"]["pallas_ssd"]["launches"][
+                "ssd"],
+            "engine": stack["19d"]["engine"]["launches"]["ssd"]},
         "ptxas": {n: {k: r.get(k) for k in ("registers", "spill_stores",
                                             "hgmma")}
                   for n, r in ssd_build.items()}})

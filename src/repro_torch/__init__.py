@@ -14,9 +14,11 @@ scenario subsystem (`workloads`: time-varying traffic and rates on the
 dense simulator, the drift study and the serving engine), replica
 placement, the replication lifecycle, telemetry, the control plane
 (`control`: load generation, admission and autoscaling on the dense
-simulator and the serving engine, and the SLO-control study), the
-serving engine with its two model kernels, and training (`data`: the
-locality-aware pipeline; `launch.steps`, `optim`, `train`,
+simulator and the serving engine, and the SLO-control study), the model
+stack for all ten architecture ids (dense, MoE, Mamba-2, the hybrid,
+the encoder-decoder and the vision model) served by the engine with its
+two model kernels and by the prefill and serve steps, and training
+(`data`: the locality-aware pipeline; `launch.steps`, `optim`, `train`,
 `checkpoint`, `launch.train`); see ROADMAP.md for what is still to
 port.
 

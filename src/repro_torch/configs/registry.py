@@ -2,13 +2,11 @@
 exact public configs, selectable via ``--arch <id>``.
 
 Each ported ``<id>.py`` module defines ``CONFIG`` (exact) and
-``smoke_config()`` (a reduced same-family config for CPU tests).  The
-port serves the dense attention-only architectures, the Mamba-2 one and
-the two MoE ones (granite-moe-1b, mixtral-8x22b); the other ids of the
-reference raise `NotImplementedError` until their layers are ported
-(whisper-medium's encoder-decoder, internvl2-2b's vision frontend,
-jamba-1.5-large's hybrid Mamba/attention stack: the model-stack slice of
-the port).
+``smoke_config()`` (a reduced same-family config for CPU tests).  All
+ten ids of the reference resolve: the dense attention-only
+architectures, the Mamba-2 one, the two MoE ones (granite-moe-1b,
+mixtral-8x22b), whisper-medium's encoder-decoder, internvl2-2b's vision
+frontend and jamba-1.5-large's hybrid Mamba/attention stack.
 """
 
 from __future__ import annotations
@@ -32,18 +30,8 @@ ARCH_IDS = (
     "mamba2_13b",
 )
 
-# The ids whose layers the port has: dense attention, Mamba-2 only, or
-# attention with MoE MLPs.
-PORTED_IDS = ("chatglm3_6b", "gemma3_1b", "codeqwen15_7b", "gemma2_2b",
-              "mixtral_8x22b", "granite_moe_1b", "mamba2_13b")
-
-# What each id that still raises lacks.
-MISSING = {
-    "internvl2_2b": "the vision frontend",
-    "jamba15_large": "the hybrid Mamba-2/attention stack",
-    "whisper_medium": "the encoder-decoder (cross-attention, encoder, "
-                      "learned positions)",
-}
+# The ids the port has: all of them.
+PORTED_IDS = ARCH_IDS
 
 # Canonical external names <-> module ids.
 ALIASES = {
@@ -69,18 +57,11 @@ def get_smoke_config(arch: str) -> ModelConfig:
 
 
 def all_configs() -> Dict[str, ModelConfig]:
-    """The exact configs of the ported ids only (`PORTED_IDS`), where the
-    reference's returns all of `ARCH_IDS`: the others raise."""
-    return {a: get_config(a) for a in PORTED_IDS}
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 def _module(arch: str):
     arch = ALIASES.get(arch, arch)
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED_IDS:
-        raise NotImplementedError(
-            f"arch {arch!r} needs {MISSING[arch]}, which the port does not "
-            f"have yet (the model-stack slice of the port); ported: "
-            f"{PORTED_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")

@@ -13,8 +13,9 @@ carries a `ShardingPolicy` (FSDP over the data axes, KV-cache sequence
 sharding for long_500k), ``pin_gathers`` (FSDP gathers kept inside the
 layer scan) and the mesh's data axes: none of them has a meaning on one
 card (ROADMAP Queue 1 item 12), so the port's `RuntimePlan` leaves them
-out.  It leaves out ``max_len`` too, which only the reference's prefill
-and serve steps read (not ported yet).
+out.  ``max_len`` (the decode cache length, read by `build_prefill_step`)
+stays 0 here, as in the reference: a prefill then sizes its caches by
+its own sequence length.
 """
 
 from __future__ import annotations

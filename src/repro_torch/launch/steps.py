@@ -1,13 +1,16 @@
-"""Train step of the port (counterpart of `repro.launch.steps`): the
-runtime plan and `build_train_step`.
+"""Step builders of the port (counterpart of `repro.launch.steps`): the
+runtime plan, `build_train_step`, `build_prefill_step` and
+`build_serve_step`.
 
 The reference's `build_train_step` closes over (cfg, mesh, policy) and
 jits a step over sharded state; the port's closes over (cfg, plan,
 device) and runs eagerly on one card:
 
-  - the global batch is split into ``n_mb`` microbatches as the
-    reference's ``to_microbatches`` splits it, ``reshape(mb, n_mb, ...)``
-    then ``swapaxes(0, 1)``: microbatch j holds rows j, j + n_mb, ...;
+  - the global batch — every key of it: ``tokens``, ``labels`` and an
+    encoder-decoder's ``frames`` or a vision model's ``frontend`` — is
+    split into ``n_mb`` microbatches as the reference's
+    ``to_microbatches`` splits it, ``reshape(mb, n_mb, ...)`` then
+    ``swapaxes(0, 1)``: microbatch j holds rows j, j + n_mb, ...;
   - each microbatch's gradients come from `torch.autograd.grad` of
     `transformer.lm_loss` (``impl="xla"``, the plan's ``remat``) and are
     added, cast to ``accum_dtype``, into one buffer a parameter (float32
@@ -18,8 +21,16 @@ device) and runs eagerly on one card:
     the state's tensors (the reference donates its state to the jitted
     step: neither keeps two copies), and the buffers are freed.
 
-`build_prefill_step` and `build_serve_step` are not ported (ROADMAP
-Queue 1 item 11.6): the serving engine has its own steps.
+`build_prefill_step` and `build_serve_step` are the reference's
+batched prefill (the encoder first, then `forward` with ``frontend``,
+``enc_out`` and caches) and one decode step (`decode_step`, then the
+argmax).  On one card the reference's mesh, shardings, donation and
+``aligned_decode`` (a mesh-sharded in-place cache write) have no
+meaning: the port's steps run eagerly and write the caches in place.
+The prefill goes through the model's kernel route, as the serving
+engine's does: ``impl="pallas_ssd"`` (the SSD kernel) when the model has
+a Mamba layer, ``impl="pallas"`` (flash attention) otherwise, where the
+reference's prefill step takes its plain route.
 """
 
 from __future__ import annotations
@@ -46,14 +57,13 @@ class TrainState(NamedTuple):
 class RuntimePlan:
     """Per-(arch, shape) runtime knobs — see configs/runtime.py.  The
     reference's ``policy`` (sharding) and ``pin_gathers`` have no meaning
-    on one card and are left out, and so is ``max_len`` (the decode cache
-    length): only `build_prefill_step` and `build_serve_step` read it,
-    and the port does not have them yet."""
+    on one card and are left out."""
 
     microbatches: int = 1
     accum_dtype: str = "float32"
     opt: adamw.AdamWConfig = adamw.AdamWConfig()
     remat: bool = True
+    max_len: int = 0  # decode cache length (shape.seq_len)
 
 
 def num_microbatches(plan: RuntimePlan, global_batch: int) -> int:
@@ -86,8 +96,10 @@ def build_train_step(cfg: ModelConfig, plan: RuntimePlan, global_batch: int,
     """Returns (step_fn, abstract_state, abstract_batch).
 
     step_fn(state, batch) -> (state, metrics): `batch` holds ``tokens``
-    and ``labels`` (global_batch, seq_len) integer arrays or tensors
-    (moved to the device); `state` is updated in place and returned with
+    and ``labels`` (global_batch, seq_len) integer arrays or tensors, and
+    ``frames`` or ``frontend`` where the model reads them (every key is
+    moved to the device and microbatched); `state` is updated in place
+    and returned with
     its step count advanced; metrics are the reference's ``loss``,
     ``grad_norm`` and ``lr``, float32 tensors on the device (no host
     read).  `device` None means the card.
@@ -108,8 +120,7 @@ def build_train_step(cfg: ModelConfig, plan: RuntimePlan, global_batch: int,
         leaves = params_lib.tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        batch = {k: torch.as_tensor(batch[k], device=dev)
-                 for k in ("tokens", "labels")}
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if n_mb == 1:
             loss, _ = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, leaves)
@@ -137,6 +148,81 @@ def build_train_step(cfg: ModelConfig, plan: RuntimePlan, global_batch: int,
         return TrainState(params, new_opt, state.step + 1), metrics
 
     return train_step, abstract_state(cfg, plan), abstract_batch
+
+
+def build_prefill_step(cfg: ModelConfig, plan: RuntimePlan, batch: int,
+                       seq_len: int, device=None):
+    """Returns (prefill_fn, (abstract_params, abstract_caches,
+    abstract_batch)).
+
+    prefill_fn(params, caches, batch) -> (logits of the last row (B, V)
+    float32, caches): `batch` holds ``tokens`` (B, T) and ``frames`` or
+    ``frontend`` where the model reads them (moved to the device); the
+    encoder runs first, then `forward` at positions ``arange`` over the
+    whole stream (frontend rows included), through the kernel route.
+    The caches (`init_caches` of ``plan.max_len`` or `seq_len` slots
+    and, for an encoder-decoder, ``num_audio_frames`` cross rows) are
+    written in place and returned.  Nothing is recorded for autograd.
+    `device` None means the card.
+    """
+    from repro_torch.configs.shapes import RunShape, input_specs
+
+    dev = resolve_device(device)
+    max_len = plan.max_len or seq_len
+    impl = T.prefill_impl(cfg)
+    acaches = T.abstract_caches(cfg, batch, max_len,
+                                enc_len=cfg.num_audio_frames)
+    abstract_batch = input_specs(
+        cfg, RunShape("prefill", "prefill", seq_len, batch))
+
+    @torch.no_grad()
+    def prefill(params, caches, batch_in):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch_in.items()}
+        enc_out = None
+        if cfg.is_encdec:
+            enc_out = T.encode(params, cfg, b["frames"], impl=impl)
+        logits, caches, _ = T.forward(
+            params, cfg, b["tokens"], frontend=b.get("frontend"),
+            enc_out=enc_out, caches=caches, impl=impl)
+        return logits[:, -1], caches
+
+    return prefill, (params_lib.abstract_params(cfg), acaches,
+                     abstract_batch)
+
+
+def build_serve_step(cfg: ModelConfig, plan: RuntimePlan, batch: int,
+                     max_len: int, device=None):
+    """Returns (serve_fn, (abstract_params, abstract_caches,
+    abstract_batch)).
+
+    serve_fn(params, caches, batch) -> (next_token (B,) int32, logits
+    (B, V) float32, caches): one `decode_step` of ``tokens`` (B, 1) at
+    ``lengths`` (B,), then the argmax; the caches are written in place.
+    A model with learned positions refuses a `max_len` past its table
+    (``learned_pos`` rows), where the reference would clamp the position.
+    `device` None means the card.
+    """
+    from repro_torch.configs.shapes import RunShape, input_specs
+
+    if cfg.learned_pos and max_len > cfg.learned_pos:
+        raise ValueError(f"{cfg.name}: a cache of {max_len} positions "
+                         f"passes the learned-position table of "
+                         f"{cfg.learned_pos} rows")
+    dev = resolve_device(device)
+    acaches = T.abstract_caches(cfg, batch, max_len,
+                                enc_len=cfg.num_audio_frames)
+    abstract_batch = input_specs(
+        cfg, RunShape("decode", "decode", max_len, batch))
+
+    @torch.no_grad()
+    def serve(params, caches, batch_in):
+        logits, caches = T.decode_step(
+            params, cfg, torch.as_tensor(batch_in["tokens"], device=dev),
+            torch.as_tensor(batch_in["lengths"], device=dev), caches)
+        next_tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        return next_tok, logits[:, 0], caches
+
+    return serve, (params_lib.abstract_params(cfg), acaches, abstract_batch)
 
 
 def _unflatten(tree, leaves):

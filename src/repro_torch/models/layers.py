@@ -9,11 +9,12 @@ values (q and k upcast before the product, as the reference's
 value dtype before the second product, as there.
 
 `moe_mlp` is the reference's top-k routed MoE with one dispatch group
-(one card: the reference's single-device ``dp_size`` 1).  What waits
-(the model-stack slice of the port): `cross_attention`, `encode_cross_kv`,
-and the mesh `ctx` (sharding constraints, GQA-expanded caches, aligned
-in-place cache writes, the MoE's per-shard groups and all-to-alls) — one
-card needs no mesh.
+(one card: the reference's single-device ``dp_size`` 1).
+`cross_attention` and `encode_cross_kv` are the decoder's attention over
+the encoder's output (whisper-medium), plain attention as in the
+reference.  Left out: the mesh `ctx` (sharding constraints,
+GQA-expanded caches, aligned in-place cache writes, the MoE's per-shard
+groups and all-to-alls) — one card needs no mesh.
 """
 
 from __future__ import annotations
@@ -316,6 +317,39 @@ def attention(p: Dict[str, Any], cfg: ModelConfig, spec: LayerSpec,
 
     out = out.transpose(1, 2).reshape(b, t, cfg.q_dim)
     return out @ ap["wo"].to(x.dtype), kv_out
+
+
+def cross_attention(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (B, Hkv, S,
+    D): plain `mha_xla` with every position 0, not causal, no window or
+    softcap, at scale ``head_dim ** -0.5`` whatever ``cfg.attn_scale``
+    says, as in the reference."""
+    b, t, _ = x.shape
+    ap = p["attn"]
+    q = (x @ ap["xq"].to(x.dtype)).reshape(
+        b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+    k, v = enc_kv
+    qpos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((b, k.shape[2]), dtype=torch.int32, device=x.device)
+    out = mha_xla(q, k, v, qpos, kpos, causal=False, window=0, softcap=0.0,
+                  scale=cfg.head_dim ** -0.5)
+    out = out.transpose(1, 2).reshape(b, t, cfg.q_dim)
+    return out @ ap["xo"].to(x.dtype)
+
+
+def encode_cross_kv(p: Dict[str, Any], cfg: ModelConfig,
+                    enc_out: torch.Tensor) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """The cross-attention K/V of the encoder's output (B, S, d):
+    (B, Hkv, S, D) each."""
+    b, s, _ = enc_out.shape
+    ap = p["attn"]
+    k = (enc_out @ ap["xk"].to(enc_out.dtype)).reshape(
+        b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = (enc_out @ ap["xv"].to(enc_out.dtype)).reshape(
+        b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    return k, v
 
 
 # -------------------------------------------------------------------- MLP --

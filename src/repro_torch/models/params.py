@@ -15,9 +15,10 @@ of tensors.  Two views:
                        two models compute the same function);
   * `abstract_params` — shapes and dtypes on the ``meta`` device.
 
-Dense attention, Mamba-2 and MoE layers are declared: cross-attention,
-encoders, learned positions and modality frontends wait for their layers
-(the model-stack slice of the port).
+Every layer of the reference is declared: dense and cross-attention,
+Mamba-2, dense and MoE MLPs, the encoder stack (``enc_stages``,
+``enc_final``) and learned positions (``pos_embed``, ``enc_pos_embed``).
+A modality frontend has no parameters: its embeddings arrive as inputs.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def _norm_defs(cfg: ModelConfig, name: str) -> Dict[str, ParamDef]:
     return d
 
 
-def _attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def _attn_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, ParamDef]:
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     defs: Dict[str, ParamDef] = {
         "wq": ParamDef((d, qd)),
@@ -63,6 +64,13 @@ def _attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     if cfg.qk_norm:
         defs["q_norm"] = ParamDef((cfg.head_dim,), "ones")
         defs["k_norm"] = ParamDef((cfg.head_dim,), "ones")
+    if spec.cross:
+        defs.update({
+            "xq": ParamDef((d, qd)),
+            "xk": ParamDef((d, kvd)),
+            "xv": ParamDef((d, kvd)),
+            "xo": ParamDef((qd, d)),
+        })
     return defs
 
 
@@ -112,20 +120,15 @@ def _mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer of `cfg` is one the port has:
-    self-attention or Mamba-2, a dense or MoE MLP, no encoder, no learned
-    positions, no frontend."""
-    for st in cfg.stages:
+    """Raise unless every layer of `cfg` (decoder and encoder) is of a
+    kind the port has: attention (self, with cross-attention if asked)
+    or Mamba-2."""
+    for st in cfg.stages + cfg.enc_stages:
         for sl in st.block:
-            if sl.kind not in ("attn", "mamba") or sl.cross:
+            if sl.kind not in ("attn", "mamba"):
                 raise NotImplementedError(
-                    f"{cfg.name}: layer {sl} needs cross-attention, not "
-                    f"ported yet (the model-stack slice of the port)")
-    if cfg.enc_stages or cfg.learned_pos or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoders, learned positions and modality "
-            f"frontends are not ported yet (the model-stack slice of the "
-            f"port)")
+                    f"{cfg.name}: layer kind {sl.kind!r} of {sl} is not "
+                    f"one the port has (attn, mamba)")
 
 
 def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
@@ -134,7 +137,9 @@ def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     if spec.kind == "mamba":
         defs["mamba"] = _mamba_defs(cfg)
     else:
-        defs["attn"] = _attn_defs(cfg)
+        defs["attn"] = _attn_defs(cfg, spec)
+        if spec.cross:
+            defs.update(_norm_defs(cfg, "ln_cross"))
     if spec.moe or cfg.d_ff > 0:  # mamba2-style layers have no MLP block
         defs.update(_norm_defs(cfg, "ln2"))
         defs["moe" if spec.moe else "mlp"] = (_moe_defs(cfg) if spec.moe
@@ -180,8 +185,17 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
                    for i, st in enumerate(cfg.stages)},
     }
     defs.update(_norm_defs(cfg, "final"))
+    if cfg.enc_stages:
+        defs["enc_stages"] = {f"stage{i}": stage_defs(cfg, st)
+                              for i, st in enumerate(cfg.enc_stages)}
+        defs.update(_norm_defs(cfg, "enc_final"))
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+    if cfg.learned_pos:
+        defs["pos_embed"] = ParamDef((cfg.learned_pos, cfg.d_model), "embed")
+        if cfg.enc_stages:
+            defs["enc_pos_embed"] = ParamDef(
+                (max(cfg.num_audio_frames, 1), cfg.d_model), "embed")
     return defs
 
 

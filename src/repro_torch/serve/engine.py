@@ -20,7 +20,12 @@ prompts) through the model's hand-written kernel — flash attention
 plain version on the CPU — and batched decode steps over slotted KV and
 SSM caches with per-slot lengths.  Any router registered in
 `core/policy.py` is selectable by name (`EngineConfig.scheduler`).  All
-replicas share one parameter tree.
+replicas share one parameter tree.  Every architecture id is served: a
+hybrid (jamba) prefills through the SSD scan, its attention layer on
+the plain path; like the reference's engine, this one passes no frames
+and no frontend, so an encoder-decoder (whisper-medium) attends over the
+all-zero cross cache of `init_caches` and a vision model over its text
+alone.
 
 Scenarios (`EngineConfig.scenario`, `repro_torch.workloads`): the engine
 plays the scenario back on its step clock (`HostPlayback`, one cycle every
@@ -170,11 +175,7 @@ class Replica:
         self.device = device
         b = ecfg.slots_per_replica
         self.caches = T.init_caches(cfg, b, ecfg.max_len, device=device)
-        # the prefill's kernel route: the SSD scan if the model has Mamba
-        # layers, else flash attention
-        self.prefill_impl = ("pallas_ssd" if any(
-            sl.kind == "mamba" for st in cfg.stages for sl in st.block)
-            else "pallas")
+        self.prefill_impl = T.prefill_impl(cfg)
         self.lengths = np.zeros(b, np.int64)
         self.slot_req: List[Optional[Request]] = [None] * b
 

@@ -1,8 +1,9 @@
 """Shared by the port's tests: the replays of the reference's draws (fleet
 and dense paths), a hook that reads per-slot values out of the
 reference's compiled scan, a fixture that keeps torch to one intra-op
-thread, and the TF32 rounding of the float32 tensor-core kernels'
-models."""
+thread, the TF32 rounding of the float32 tensor-core kernels' models,
+and the stub modality inputs of a model (`modality_inputs`) with the
+parameters its analytic count leaves out (`uncounted_params`)."""
 
 import functools
 
@@ -262,3 +263,42 @@ def tf32_round(x):
     form each hi and lo (csrc/split_tf32.cuh)."""
     i = x.contiguous().view(torch.int32)
     return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def modality_inputs(cfg, b: int, seed: int = 0) -> dict:
+    """The stub inputs a model reads beside its tokens, float32 numpy from
+    a seed, shaped as tests/test_models_smoke.py shapes them: ``frames``
+    (b, num_audio_frames, d_model) for an encoder-decoder, ``frontend``
+    (b, num_frontend_tokens, d_model) for a vision model ({} otherwise)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.frontend == "vision":
+        out["frontend"] = rng.normal(
+            size=(b, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(
+            size=(b, cfg.num_audio_frames, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def uncounted_params(cfg) -> int:
+    """Parameters of a model's tree that the reference's analytic
+    `param_count` leaves out: each Mamba layer's conv bias, the
+    embedding's vocab-padding rows, and with a LayerNorm the final and
+    cross-attention norms' biases; an encoder's final norm and its
+    position table."""
+    d = cfg.d_model
+    conv_b = sum(st.repeats * (cfg.ssm.d_inner(d)
+                               + 2 * cfg.ssm.n_groups * cfg.ssm.d_state)
+                 for st in cfg.stages for sl in st.block
+                 if sl.kind == "mamba")
+    pad = (cfg.padded_vocab - cfg.vocab_size) * d
+    n = conv_b + pad * (1 if cfg.tie_embeddings else 2)
+    if cfg.norm == "layernorm":
+        n += d + d * sum(st.repeats for st in cfg.stages
+                         for sl in st.block if sl.cross)
+    if cfg.enc_stages:
+        n += d * (2 if cfg.norm == "layernorm" else 1)
+        if cfg.learned_pos:
+            n += max(cfg.num_audio_frames, 1) * d
+    return n

@@ -47,7 +47,9 @@ def test_port_imports_neither_jax_nor_reference():
                  "launch.elastic", "data", "data.pipeline", "optim",
                  "optim.adamw", "train", "train.trainer", "checkpoint",
                  "checkpoint.checkpointer", "launch.steps", "launch.train",
-                 "configs.runtime", "configs.shapes"):
+                 "configs.runtime", "configs.shapes",
+                 "configs.whisper_medium", "configs.internvl2_2b",
+                 "configs.jamba15_large"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -130,6 +132,10 @@ def test_default_device_is_the_card():
     plan = runtime.plan_for(mcfg, "train_4k", "train")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         steps.build_train_step(mcfg, plan, 8, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.build_prefill_step(mcfg, plan, 2, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.build_serve_step(mcfg, plan, 2, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(mcfg, TrainerConfig(seq_len=16), plan)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -7,7 +7,9 @@ so both compute the same function.  Forward logits are held to 1e-4
 measured gap is under 1e-5 on logits of order 1-4); prefill + decode
 against the full forward keeps the reference's own tolerances
 (tests/test_models_decode.py: 2e-3 prefill, 5e-3 decode, 1e-4 for the
-ring-buffer cases).
+ring-buffer cases).  Every architecture id runs here: whisper-medium
+with its encoder's output (``enc_out``) and internvl2-2b with its
+frontend rows, both from `_torch_port.modality_inputs`.
 """
 
 import jax
@@ -22,6 +24,7 @@ from repro.models import transformer as RT
 from repro_torch.configs import registry
 from repro_torch.models import config, layers as L, params as P
 from repro_torch.models import transformer as T
+from _torch_port import modality_inputs, uncounted_params
 from _torch_port import single_torch_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(1)
@@ -58,15 +61,32 @@ def _tokens(cfg, b, t, seed=0):
         0, cfg.vocab_size, (b, t)).astype(np.int32)
 
 
+def _extras(rcfg, rprm, cfg, prm, b, seed=0):
+    """The modality inputs of both models' `forward` as keyword
+    arguments: ``frontend`` as given, ``enc_out`` from each package's own
+    `encode` of the same frames."""
+    x = modality_inputs(cfg, b, seed)
+    want, got = {}, {}
+    if "frontend" in x:
+        want["frontend"] = jnp.asarray(x["frontend"])
+        got["frontend"] = torch.tensor(x["frontend"])
+    if "frames" in x:
+        want["enc_out"] = RT.encode(rprm, rcfg, jnp.asarray(x["frames"]))
+        got["enc_out"] = T.encode(prm, cfg, torch.tensor(x["frames"]))
+    return want, got
+
+
 @pytest.mark.parametrize("arch", ARCHS + ("tiny_gqa",))
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_forward_matches_reference(arch, impl):
     rcfg, cfg = _cfgs(arch)
     rprm, prm = _params(rcfg)
     tok = _tokens(cfg, 2, 12)
+    rx, x = _extras(rcfg, rprm, cfg, prm, 2)
     want, _, want_aux = RT.forward(rprm, rcfg, jnp.asarray(tok), impl=impl,
-                                   remat=False)
-    got, caches, aux = T.forward(prm, cfg, torch.tensor(tok), impl=impl)
+                                   remat=False, **rx)
+    got, caches, aux = T.forward(prm, cfg, torch.tensor(tok), impl=impl,
+                                 **x)
     # the MoE aux (0 without an MoE layer) within 1e-6 relative: float32
     # router products summed in another order
     assert caches is None and aux.dtype == torch.float32
@@ -85,15 +105,20 @@ def test_prefill_decode_matches_full(arch):
     rprm, prm = _params(rcfg)
     b, t0, tpre = 2, 12, 8
     tok = _tokens(cfg, b, t0, seed=1)
-    full, _, _ = T.forward(prm, cfg, torch.tensor(tok))
+    # the reference's test: an encoder-decoder's enc_out, no frontend
+    rx, x = _extras(rcfg, rprm, cfg, prm, b)
+    rx.pop("frontend", None)
+    x.pop("frontend", None)
+    full, _, _ = T.forward(prm, cfg, torch.tensor(tok), **x)
     caches = T.init_caches(cfg, b, max_len=32, device="cpu")
     rcaches = RT.init_caches(rcfg, b, max_len=32)
     pos = np.broadcast_to(np.arange(tpre, dtype=np.int32), (b, tpre))
     pre, caches, _ = T.forward(prm, cfg, torch.tensor(tok[:, :tpre]),
-                               positions=torch.tensor(pos), caches=caches)
+                               positions=torch.tensor(pos), caches=caches,
+                               **x)
     _, rcaches, _ = RT.forward(rprm, rcfg, jnp.asarray(tok[:, :tpre]),
                                positions=jnp.asarray(pos), caches=rcaches,
-                               remat=False)
+                               remat=False, **rx)
     np.testing.assert_allclose(pre.numpy(), full[:, :tpre].numpy(),
                                atol=2e-3, rtol=2e-3)
     rstep = jax.jit(lambda t, n, c: RT.decode_step(rprm, rcfg, t, n, c))
@@ -190,7 +215,8 @@ def test_right_padded_prefill_kernel_route_equals_plain(arch):
     kernel's index mask; impl="pallas_ssd" for Mamba layers: the SSD
     kernel's plain version) equal those of impl="xla" (the position
     mask; the chunked SSD), and so does the decode after each, though
-    the pad rows differ."""
+    the pad rows differ.  As in the engine, no frames or frontend: an
+    encoder-decoder attends over the all-zero cross cache."""
     _, cfg = _cfgs(arch)
     _, prm = _params(_cfgs(arch)[0])
     t, bucket = 10, 16
@@ -218,18 +244,6 @@ def test_right_padded_prefill_kernel_route_equals_plain(arch):
                                    rtol=1e-4)
 
 
-def _uncounted(cfg):
-    """Parameters of the reference's tree that its analytic `param_count`
-    leaves out: each Mamba layer's conv bias and the embedding's
-    vocab-padding rows (0 for the attention archs)."""
-    conv_b = sum(st.repeats * (cfg.ssm.d_inner(cfg.d_model)
-                               + 2 * cfg.ssm.n_groups * cfg.ssm.d_state)
-                 for st in cfg.stages for sl in st.block
-                 if sl.kind == "mamba")
-    pad = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
-    return conv_b + pad * (1 if cfg.tie_embeddings else 2)
-
-
 def test_params_mirror_reference_layout():
     for arch in ARCHS:
         rcfg, cfg = _cfgs(arch)
@@ -241,7 +255,7 @@ def test_params_mirror_reference_layout():
                            prm)
         assert got == ref_tree, arch
         assert P.count_params(prm) == config.param_count(cfg) \
-            + _uncounted(cfg), arch
+            + uncounted_params(cfg), arch
     # the full-width configs: the same analytic counts (chatglm3-6b 6.24 B)
     for arch in ARCHS:
         assert config.param_count(registry.get_config(arch)) == \
@@ -268,13 +282,22 @@ def test_init_params_rules_and_seed():
 
 
 def test_unported_archs_raise_naming_the_roadmap():
-    for arch in registry.ARCH_IDS:
-        if arch in registry.PORTED_IDS:
-            registry.get_config(arch)
-            continue
-        for get in (registry.get_config, registry.get_smoke_config):
-            with pytest.raises(NotImplementedError, match="model-stack slice"):
-                get(arch)
+    """No id is left unported: every id and alias resolves, exact and
+    smoke, to the reference's config field for field (the name kept from
+    when three ids raised); `all_configs` has all ten; an unknown id
+    raises `KeyError`."""
+    assert registry.PORTED_IDS == registry.ARCH_IDS == rregistry.ARCH_IDS
+    assert registry.ALIASES == rregistry.ALIASES
+    for arch in registry.ARCH_IDS + tuple(registry.ALIASES):
+        for get in ("get_config", "get_smoke_config"):
+            got = getattr(registry, get)(arch)
+            want = getattr(rregistry, get)(arch)
+            assert repr(got) == repr(want), (arch, get)
+            P.check_supported(got)
+    assert list(registry.all_configs()) == list(rregistry.all_configs())
+    assert len(registry.all_configs()) == 10
     assert registry.get_config("chatglm3-6b").name == "chatglm3-6b"
     with pytest.raises(KeyError):
         registry.get_config("gpt2")
+    with pytest.raises(KeyError):
+        registry.get_smoke_config("gpt2")

@@ -5,13 +5,16 @@ by `params.from_reference`:
   * `transformer.lm_loss` and its gradients against
     ``jax.value_and_grad`` of the reference's ``lm_loss(..., remat=True)``
     (jitted) for chatglm3-6b, gemma2-2b (softcap, sliding window),
-    gemma3-1b, codeqwen1.5-7b and mamba2-1.3b, with some labels -1: the
+    gemma3-1b, codeqwen1.5-7b, mamba2-1.3b, whisper-medium (its frames
+    encoded first) and internvl2-2b (its frontend rows dropped from the
+    loss), with some labels -1: the
     loss within 1e-5 relative, every gradient within 1e-4 of its largest
     magnitude (measured: under 6e-6), and the port's remat on and off
     equal bit for bit;
   * `launch.steps.build_train_step` against the reference's on a 1x1 test
     mesh, global batch 8 under ``plan_for(..., "train")`` (4
-    microbatches), 3 steps from the reference's initial `TrainState`:
+    microbatches of every batch key, frames and frontend included), 3
+    steps from the reference's initial `TrainState`:
     each step's loss and grad norm within 1e-5 relative, the parameters
     after 3 steps within 1e-5 relative in at least 99.9% of elements
     and none farther than 2 x the sum of the steps' learning rates (the
@@ -37,20 +40,24 @@ from repro_torch.configs import registry, runtime, shapes
 from repro_torch.launch import steps as S
 from repro_torch.models import params as P, transformer as T
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_port import modality_inputs
 from _torch_port import single_torch_thread  # noqa: F401
 
 LOSS_ARCHS = ("chatglm3_6b", "gemma2_2b", "gemma3_1b", "codeqwen15_7b",
-              "mamba2_13b")
-STEP_ARCHS = ("chatglm3_6b", "mamba2_13b")
+              "mamba2_13b", "whisper_medium", "internvl2_2b")
+STEP_ARCHS = ("chatglm3_6b", "mamba2_13b", "whisper_medium", "internvl2_2b")
 
 
 def _batch(cfg, b, t, seed, ignore=True):
+    """tokens and labels (b, t), some labels -1, and the model's frames or
+    frontend rows (`modality_inputs`) beside them."""
     rng = np.random.default_rng(seed)
     tok = rng.integers(0, cfg.vocab_size, (b, t + 1)).astype(np.int32)
     out = {"tokens": tok[:, :-1], "labels": tok[:, 1:].copy()}
     if ignore:
         out["labels"][0, :3] = -1
         out["labels"][-1, -2:] = -1
+    out.update(modality_inputs(cfg, b, seed))
     return out
 
 
