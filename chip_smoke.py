@@ -389,6 +389,27 @@ on failure:
    route, ssd = 7 x prefills and no flash_attention, and the launcher
    serves whisper-medium's and internvl2-2b's smoke configs (4 requests
    each, flash_attention = decoder layers x 4).  Counts set to 0 after.
+20. the dry run against the card (run after 19).  (a)
+   `launch.dryrun.run_shape` counts gemma3-1b's and mamba2-1.3b's
+   decode_32k serve steps on ``meta`` (B 128, caches of 32,768) under
+   `utils.hlo.OpCounter` and reckons their memory and roofline for the
+   H100; its rows are printed.  (b) both cells run for real: random bf16
+   parameters from a seed, zero caches, ``lengths`` 32,767 (every row
+   reads its whole cache), DRY_WARMUP + DRY_STEPS steps each under its
+   own counter, the last DRY_STEPS timed by CUDA events; fatal: a step's
+   flops, bytes or launches (total and by op) off the meta count,
+   `max_memory_allocated` (its peak reset before the parameters are
+   allocated) off the dry run's `peak_bytes_per_device` by more than
+   DRY_MEM_TOL (5%), the roofline's `ideal_s` over 1.05 x the median
+   step (a share of the bound over 105% is a wrong count); the median
+   step, the bound, the shares, and for gemma3-1b one step's kernels by
+   `torch.profiler` beside the counter's launches.  (c) prefill steps of
+   both at B 4 x T 1024 through the kernel route, counted on ``meta``
+   (the kernel wrappers' meta branch reports the kernel's cost) and on
+   the card, counts set to 0 before: flops, bytes and launches equal,
+   the kernel's counted launches equal to the `LAUNCHES` delta,
+   flash_attention 26 a gemma3-1b prefill and ssd 48 a mamba2-1.3b one.
+   Counts set to 0 after.
 
 Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -410,14 +431,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12     # H100 SXM bf16 dense, tensor cores
-TF32_OPS_PER_S = 494.7e12   # H100 SXM TF32 dense, tensor cores
-# float32-exact work on the tensor cores: three TF32 products a product
-# (split TF32, csrc/split_tf32.cuh), about 165 TFLOP/s, 2.5x the CUDA
-# cores' 67: the least time the card needs for a float32 product
-F32_SPLIT_OPS_PER_S = TF32_OPS_PER_S / 3
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+# the H100's rates and the two model kernels' bounds (the roofline's)
+from repro_torch.utils.roofline import (  # noqa: E402
+    BF16_OPS_PER_S, F32_OPS_PER_S, HBM_BYTES_PER_S, attention_cost,
+    ssd_cost)
+
 M_FLEET, B_FLEET = 10008, 5474
 M_BENCH, B_BENCH = 65536, 8192      # benchmarks/bench_kernels.py, full width
 M_QUICK, B_QUICK = 1024, 128        # examples/quickstart.py, layer 2
@@ -2631,29 +2651,6 @@ SERVE_LOGIT_TOL = 0.035
 SERVE_F32_LOGIT_TOL = 2e-5
 
 
-def _attn_bound(shape, causal, window, dtype):
-    """(bound_ms, bound_by, bytes, flops) of attention on these inputs:
-    q, k, v read once and o written once over the HBM rate, against
-    4 D flops for every kept (query, key) pair of every (batch, head)
-    over the dtype's peak rate on the tensor cores: bf16's, and for
-    float32 the split-TF32 rate (`F32_SPLIT_OPS_PER_S`, three TF32
-    products a float32 product), above the CUDA cores' 67 TFLOP/s, so
-    that no float32 kernel on the tensor cores can read over 100% of
-    it."""
-    b, hq, hkv, tq, tk, d = shape
-    qpos = np.arange(tq) + (tk - tq)
-    hi = np.minimum(tk, qpos + 1) if causal else np.full(tq, tk)
-    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(tq)
-    pairs = int(np.maximum(hi - lo, 0).sum())
-    flops = 4 * d * pairs * b * hq
-    esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = esize * (2 * b * hq * tq * d + 2 * b * hkv * tk * d)
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_SPLIT_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
-
-
 def _attn_check(name, out, plain, dtype, kernel="flash_attention",
                 tols=ATTN_TOL):
     """(max |kernel - plain|, the worst row's share of its max |plain|);
@@ -2958,7 +2955,7 @@ def attn_f32_rows(dev, prev_fn=None) -> dict:
         plain = ref.mha(q, k, v, **opts)
         err, _ = _attn_check(f"float32 {name}", fn(), plain, torch.float32)
         tc = fa.route(torch.float32, d) == fa.F32_TENSOR_CORES
-        bound = _attn_bound(shape, causal, window, torch.float32)
+        bound = attention_cost(shape, causal, window, torch.float32)
         sdpa = causal and not window and not cap and tq == tk
         row = dict(shape=list(shape), dtype="f32",
                    route="tensor cores" if tc else "CUDA cores",
@@ -3035,7 +3032,7 @@ def attn_d16_rows(dev) -> dict:
         fn = lambda: fa._launch(q, k, v, code, **opts)  # noqa
         e, _ = _attn_check(f"D=16 {label} {D16_TIMED}", fn(),
                            ref.mha(q, k, v, **opts), dtype)
-        bound = _attn_bound(D16_TIMED, True, 0, dtype)
+        bound = attention_cost(D16_TIMED, True, 0, dtype)
         rows[label] = row = dict(
             cases=len(D16_CASES), max_abs_err=max(err, e),
             bf16_worst_row=worst if dtype == torch.bfloat16 else None,
@@ -3094,7 +3091,7 @@ def phase_attention(dev, prev_fn=None):
                                                          scale=scale),
                                ref.mha(q, k, v, scale=scale), torch.bfloat16)
         lib_fn = _sdpa_fn(q, k, v, scale)
-        bound = _attn_bound(shape, True, 0, torch.bfloat16)
+        bound = attention_cost(shape, True, 0, torch.bfloat16)
         row = dict(shape=list(shape), dtype="bf16", max_abs_err=err,
                    row_rel_err=rel,
                    ms=_time_ms(lambda: ops.flash_attention(q, k, v,
@@ -3131,7 +3128,6 @@ def phase_attention(dev, prev_fn=None):
 SSD_CASES = ((1, 128, 2, 32, 16), (2, 200, 3, 16, 32), (1, 64, 1, 8, 8),
              (1, 512, 4, 64, 64))
 SSD_TOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
-SSD_CHUNK = 128   # the reference's chunk length at full width
 MAMBA_ARCH = "mamba2_13b"
 # kernel route vs plain route prefill of mamba2-1.3b, as SERVE_LOGIT_TOL
 # for chatglm3-6b.  In bf16 (the served model) sound runs read 0.050-
@@ -3167,29 +3163,6 @@ def _ssd_inputs(gen, shape, dtype, dev):
     b, c = ((torch.randn((bsz, t, n), generator=gen, device=dev) * 0.3)
             .to(dtype) for _ in range(2))
     return x, a, b, c
-
-
-def _ssd_bound(shape, dtype):
-    """(bound_ms, bound_by, bytes, flops) of the SSD scan on these
-    inputs: x, a, b, c and h0 read once, y and hT written once, over the
-    HBM rate; against the least work, the chunked (SSD) form with chunks
-    of L = min(128, T): per (batch, chunk) C B^T, 2 L^2 N flops shared by
-    the heads; per (batch, chunk, head) scores X (2 L^2 P), C state^T
-    (2 L P N) and the state update X^T (w B) (2 L P N); elementwise decay
-    work not counted; over the dtype's peak rate on the tensor cores
-    (bf16's; float32's split-TF32 rate, `F32_SPLIT_OPS_PER_S`)."""
-    bsz, t, h, p, n = shape
-    esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (esize * (2 * bsz * t * h * p + 2 * bsz * t * n)
-              + 4 * bsz * t * h + 2 * 4 * bsz * h * p * n)
-    lt = min(SSD_CHUNK, t)
-    chunks = -(-t // lt)
-    flops = bsz * chunks * (2 * lt * lt * n
-                            + h * (2 * lt * lt * p + 4 * lt * p * n))
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_SPLIT_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
 def _ssd_check(name, got, want, dtype):
@@ -3308,7 +3281,7 @@ def ssd_f32_rows(dev, prev_fn=None) -> dict:
         plain = ref.ssd(x, a, b, c, init_state=h0)
         err, _ = _ssd_check(f"float32 {name}", fn(), plain, torch.float32)
         tc = ssd_scan.route(torch.float32, p, n) == ssd_scan.TENSOR_CORES_F32
-        bound = _ssd_bound(shape, torch.float32)
+        bound = ssd_cost(shape, torch.float32)
         row = dict(shape=list(shape), dtype="f32",
                    route="tensor cores" if tc else "recurrent",
                    max_abs_err=err, ms=_time_ms(fn, reps),
@@ -3414,7 +3387,7 @@ def phase_ssd(dev, prev_fn=None):
             rec_err, _ = _ssd_check(name + " recurrent", fn(),
                                     ref.ssd(x, a, b, c, init_state=h0),
                                     torch.bfloat16)
-        bound = _ssd_bound(shape, torch.bfloat16)
+        bound = ssd_cost(shape, torch.bfloat16)
         row = dict(shape=list(shape), dtype="bf16", max_abs_err=err,
                    row_rel_err=rel, ms=_time_ms(fn, reps),
                    device_ms=_device_ms(fn, SSD_TC_KERNEL, reps),
@@ -4224,7 +4197,7 @@ def _launcher_row(name, calls, dev_kernel):
         plain = lambda: ref.mha(*args, **kwargs)  # noqa: E731
         shape = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
                  q.shape[3])
-        bound = _attn_bound(shape, kwargs.get("causal", True),
+        bound = attention_cost(shape, kwargs.get("causal", True),
                             kwargs.get("window", 0), dtype)
         err = _attn_check(f"launcher {shape}", kernel(), plain(), dtype)[0]
         window = kwargs.get("window", 0)
@@ -4240,7 +4213,7 @@ def _launcher_row(name, calls, dev_kernel):
         kernel = lambda: ops.ssd(x, a, b, c, init_state=init)  # noqa: E731
         plain = lambda: ref.ssd(x, a, b, c, init)  # noqa: E731
         shape = tuple(x.shape) + (b.shape[-1],)
-        bound = _ssd_bound(shape, dtype)
+        bound = ssd_cost(shape, dtype)
         err = _ssd_check(f"launcher {shape}", kernel(), plain(), dtype)[0]
         library = None
     calls_profiled = 20
@@ -5427,6 +5400,217 @@ def phase_stack(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dry run against the card (phase 20)
+# ---------------------------------------------------------------------------
+
+# the two decode cells of the dry-run table that fit one 80 GB card
+DRY_ARCHS = ("gemma3_1b", "mamba2_13b")
+DRY_DECODE = "decode_32k"
+DRY_WARMUP, DRY_STEPS = 2, 5
+# |max_memory_allocated - the dry run's peak| over the dry run's peak.
+# The dry run counts every storage the step's ops allocate; the caching
+# allocator adds its rounding (512-byte blocks, a remainder under 1 MB
+# left unsplit) and cuBLAS's workspace, and the ops' own scratch, which
+# no op-level count sees: tens of MB against the reckoned 41.7 and 55.3
+# GB peaks.  A step that kept one more copy of a global layer's float32
+# K (reckoned 17.2 GB for gemma3_1b) would read 31% off.
+DRY_MEM_TOL = 0.05
+DRY_IDEAL_SLACK = 1.05   # ideal_s over the median step: over it, a bad count
+# 20c: prefills through the kernel route, B 4 x T 1024, and the kernel
+# each makes once a layer
+DRY_PREFILL = (4, 1024)
+DRY_PREFILL_KERNELS = {"gemma3_1b": ("flash_attention", 26),
+                       "mamba2_13b": ("ssd", 48)}
+
+
+def _same_count(what: str, card, meta) -> None:
+    """The card's op count must equal the meta count: flops, bytes and
+    launches, total and by op."""
+    got = (card.flops, card.bytes, card.launches)
+    want = (meta["flops"], meta["bytes"], meta["launches"])
+    if got != want or card.by_op != meta["by_op"]:
+        diff = {k: (card.by_op.get(k), meta["by_op"].get(k))
+                for k in set(card.by_op) | set(meta["by_op"])
+                if card.by_op.get(k) != meta["by_op"].get(k)}
+        raise AssertionError(f"20 {what}: the card counts (flops, bytes, "
+                             f"launches) {got}, meta {want}; by op "
+                             f"(card, meta): {diff}")
+
+
+def _event_ms(fn) -> float:
+    """ms of one call by CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def dry_decode_card(dev, arch, dry: dict) -> dict:
+    """20b: one decode cell of the dry run for real: random bf16
+    parameters from a seed, zero caches, ``lengths`` 32767 (every row
+    reads its whole cache), DRY_WARMUP + DRY_STEPS serve steps, each
+    under its own `OpCounter`, the last DRY_STEPS timed by CUDA events.
+    Fatal: a step's flops, bytes or launches off the meta count,
+    `max_memory_allocated` (its peak reset before the parameters are
+    allocated) off the dry run's peak by more than DRY_MEM_TOL, the
+    roofline's ideal time over DRY_IDEAL_SLACK x the median step."""
+    from repro_torch.configs import registry, runtime
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import params as P, transformer as T
+    from repro_torch.utils import hlo
+
+    cfg = registry.get_config(arch)
+    shape = SHAPES[DRY_DECODE]
+    b, t = shape.global_batch, shape.seq_len
+    plan = runtime.plan_for(cfg, shape.name, shape.kind)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = P.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    caches = T.init_caches(cfg, b, t, device=dev,
+                           enc_len=cfg.num_audio_frames)
+    gen = torch.Generator(dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, 1),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "lengths": torch.full((b,), t - 1, dtype=torch.int32,
+                                   device=dev)}
+    fn, _ = steps.build_serve_step(cfg, plan, b, t, device=dev)
+    step_ms, finite = [], True
+    for i in range(DRY_WARMUP + DRY_STEPS):
+        with hlo.OpCounter() as counter:
+            holder = {}
+            ms = _event_ms(lambda: holder.update(
+                out=fn(params, caches, batch)))
+        _same_count(f"{arch} decode step {i}", counter.report(), dry["ops"])
+        finite = finite and bool(torch.isfinite(holder["out"][1]).all())
+        del holder
+        if i >= DRY_WARMUP:
+            step_ms.append(ms)
+    peak = torch.cuda.max_memory_allocated() - base
+    want = dry["memory"]["peak_bytes_per_device"]
+    window = _profile_window(
+        dev, lambda: fn(params, caches, batch), 1, cpu=False) \
+        if arch == DRY_ARCHS[0] else None
+    del params, caches
+    torch.cuda.empty_cache()
+    med = sorted(step_ms)[len(step_ms) // 2]
+    roof = dry["roofline"]
+    out = dict(arch=cfg.name, shape=DRY_DECODE, batch=b, cache_len=t,
+               step_ms=step_ms, median_step_ms=med,
+               ideal_ms=roof["ideal_s"] * 1e3,
+               bound_ms=roof["bound_s"] * 1e3, dominant=roof["dominant"],
+               ideal_share=roof["ideal_s"] * 1e3 / med,
+               bound_share=roof["bound_s"] * 1e3 / med,
+               max_memory_allocated_bytes=peak, dry_peak_bytes=want,
+               memory_off=abs(peak - want) / want,
+               analyzer_launches=dry["ops"]["launches"],
+               profiler=window)
+    print(f"  20b {arch}: {json.dumps(out)}", flush=True)
+    if not finite:
+        raise AssertionError(f"20b {arch}: logits not finite")
+    if out["memory_off"] > DRY_MEM_TOL:
+        raise AssertionError(f"20b {arch}: max_memory_allocated {peak} "
+                             f"off the dry run's peak {want} by "
+                             f"{out['memory_off']:.4f} > {DRY_MEM_TOL}")
+    if roof["ideal_s"] * 1e3 > DRY_IDEAL_SLACK * med:
+        raise AssertionError(f"20b {arch}: ideal {roof['ideal_s'] * 1e3} ms "
+                             f"over {DRY_IDEAL_SLACK} x the median step "
+                             f"{med} ms: a wrong count")
+    return out
+
+
+def dry_prefill_card(dev, arch) -> dict:
+    """20c: a prefill step of B x T = DRY_PREFILL through the kernel
+    route, counted on ``meta`` (the kernel wrapper's meta branch) and run
+    on the card under an `OpCounter`: flops, bytes and launches equal,
+    total and by op, and the kernel's launches equal to the `LAUNCHES`
+    delta and to DRY_PREFILL_KERNELS (one a layer)."""
+    from repro_torch.configs import registry, runtime
+    from repro_torch.configs.shapes import RunShape
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import params as P, transformer as T
+    from repro_torch.utils import hlo
+
+    cfg = registry.get_config(arch)
+    b, t = DRY_PREFILL
+    shape = RunShape(f"prefill_{b}x{t}", "prefill", t, b)
+    dry = dryrun.run_shape(cfg, shape)
+    plan = runtime.plan_for(cfg, "prefill_32k", "prefill")
+    params = P.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    caches = T.init_caches(cfg, b, t, device=dev,
+                           enc_len=cfg.num_audio_frames)
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), device=dev,
+                           generator=torch.Generator(dev).manual_seed(2),
+                           dtype=torch.int32)
+    fn, _ = steps.build_prefill_step(cfg, plan, b, t, device=dev)
+    kernel, per_prefill = DRY_PREFILL_KERNELS[arch]
+    _zero_counts()
+    with hlo.OpCounter() as counter:
+        logits, _ = fn(params, caches, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = _check_counts(f"20c {arch} prefill", {kernel: per_prefill})
+    rep = counter.report()
+    finite = bool(torch.isfinite(logits).all())
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    _same_count(f"{arch} prefill", rep, dry["ops"])
+    meta_k = dry["ops"]["by_op"].get(kernel, {}).get("launches")
+    out = dict(arch=cfg.name, batch=b, seq_len=t, kernel=kernel,
+               launches=launches[kernel], counted_launches=meta_k,
+               flops=rep.flops, bytes=rep.bytes, ops=rep.launches,
+               kernel_flops=rep.by_op[kernel]["flops"],
+               kernel_bytes=rep.by_op[kernel]["bytes"])
+    print(f"  20c {arch}: {json.dumps(out)}", flush=True)
+    if meta_k != launches[kernel]:
+        raise AssertionError(f"20c {arch}: meta counts {meta_k} {kernel} "
+                             f"launches, the card made {launches[kernel]}")
+    if not finite:
+        raise AssertionError(f"20c {arch}: prefill logits not finite")
+    return out
+
+
+def phase_dryrun(dev) -> dict:
+    """Phase 20: the dry run (`launch.dryrun`) against the card: 20a the
+    two decode cells on ``meta``, 20b each run for real, 20c prefills
+    through the kernel route counted on ``meta`` and on the card."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+
+    secs, out = {}, {"20a": {}, "20b": {}, "20c": {}}
+    t0 = time.perf_counter()
+    for arch in DRY_ARCHS:
+        r = dryrun.run_shape(registry.get_config(arch), SHAPES[DRY_DECODE])
+        out["20a"][arch] = {"arch": arch, "shape": DRY_DECODE,
+                            "mesh": dryrun.MESH, **r}
+        print("  20a " + dryrun.fmt_row(out["20a"][arch]), flush=True)
+    secs["20a"] = time.perf_counter() - t0
+    for name, fn in (("20b", lambda a: dry_decode_card(dev, a,
+                                                       out["20a"][a])),
+                     ("20c", lambda a: dry_prefill_card(dev, a))):
+        t0 = time.perf_counter()
+        for arch in DRY_ARCHS:
+            out[name][arch] = fn(arch)
+            gc.collect()
+        secs[name] = time.perf_counter() - t0
+    _zero_counts()
+    for row in out["20a"].values():
+        row["ops"].pop("by_op")
+    out["seconds"] = secs
+    print(f"phase 20 seconds: {json.dumps(secs)}", flush=True)
+    return out
+
+
 # the keys of a float32 row in the kernels line
 F32_ROW_KEYS = ("shape", "route", "max_abs_err", "ms", "device_ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -5520,9 +5704,12 @@ def main(argv=None) -> int:
     done("18")
     stack = phase_stack(dev)
     done("19")
+    dry = phase_dryrun(dev)
+    done("20")
     for name, secs in (list(train["seconds"].items())
                        + list(moe["seconds"].items())
-                       + list(stack["seconds"].items())):
+                       + list(stack["seconds"].items())
+                       + list(dry["seconds"].items())):
         seconds[f"{name} (within {name[:2]})"] = secs
     seconds["13b (within 9+12b)"] = serve_run["placement_s"]
     seconds["14b (within 9+12b)"] = serve_run["replication_s"]
@@ -5629,6 +5816,7 @@ def main(argv=None) -> int:
             "library_ms", "bound_ms", "bound_by")}
             for n, r in attn_rows.items() if n.startswith("moe_prefill_")},
         "d16": attn_d16,
+        "dry_run_prefill": dry["20c"]["gemma3_1b"],
         "hgmma": {n: r["hgmma"] for n, r in attn_build.items()}})
     main_ssd = ssd_rows[max((k for k in ssd_rows if k != "long"),
                             key=lambda k: ssd_rows[k]["shape"][1])]
@@ -5658,6 +5846,7 @@ def main(argv=None) -> int:
             "forward": stack["19d"]["forward"]["pallas_ssd"]["launches"][
                 "ssd"],
             "engine": stack["19d"]["engine"]["launches"]["ssd"]},
+        "dry_run_prefill": dry["20c"]["mamba2_13b"],
         "ptxas": {n: {k: r.get(k) for k in ("registers", "spill_stores",
                                             "hgmma")}
                   for n, r in ssd_build.items()}})

@@ -43,6 +43,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+LOCAL, RACK_LOCAL, REMOTE = 1, 2, 3  # K=3 service classes; 0 == idle / none
 NUM_REPLICAS = 3  # Hadoop default: each chunk lives on 3 servers
 
 # One hierarchy level: a uniform group size (int, in servers) or explicit

@@ -13,4 +13,12 @@
 
 Public API lives in ops.py (CPU -> plain version, CUDA -> kernel); plain
 versions in ref.py; the nvcc build and the launch counts in _build.py.
+Three of the reference's five re-exports are here; ``flash_attention``
+and ``wwl_route`` are left out, since here those names are the kernel
+modules (``from repro_torch.kernels import wwl_route`` is the module):
+call `ops.flash_attention` and `ops.wwl_route`.
 """
+
+from repro_torch.kernels.ops import (  # noqa: F401
+    fleet_route, maxweight_claim, ssd,
+)

@@ -46,12 +46,14 @@ LAUNCHES: Dict[str, int] = {"fleet_route": 0, "wwl_route": 0,
 
 
 def check_arg(kernel: str, name: str, x: torch.Tensor, dtype: torch.dtype,
-              shape, device=None, strided: bool = False) -> None:
-    """Raise unless `x` is a CUDA tensor of `dtype` and `shape` (and on
+              shape, device=None, strided: bool = False,
+              meta: bool = False) -> None:
+    """Raise unless `x` is a CUDA tensor (or, with `meta`, a ``meta`` one:
+    the model kernels' shape-only path) of `dtype` and `shape` (and on
     `device`, when given) that is contiguous or, with `strided`, whose
     rows are contiguous and 16-byte aligned (`rows_aligned`; the kernel
     takes the other strides)."""
-    if not x.is_cuda:
+    if not (x.is_cuda or (meta and x.is_meta)):
         raise ValueError(f"{kernel}: {name} must be a CUDA tensor, "
                          f"got device {x.device}")
     if device is not None and x.device != device:
@@ -74,11 +76,14 @@ def check_arg(kernel: str, name: str, x: torch.Tensor, dtype: torch.dtype,
 def rows_aligned(x: torch.Tensor) -> bool:
     """Whether a kernel that takes strides can read `x` 16 bytes at a
     time: a contiguous last axis, every other stride a multiple of 16
-    bytes and the first element 16-byte aligned."""
+    bytes and the first element 16-byte aligned.  A ``meta`` tensor has
+    no address: its first element's offset into its storage stands for
+    it, as the caching allocator's blocks start 512-byte aligned."""
     esize = x.element_size()
+    start = x.storage_offset() * esize if x.is_meta else x.data_ptr()
     return ((x.shape[-1] <= 1 or x.stride(-1) == 1)
             and all(s * esize % 16 == 0 for s in x.stride()[:-1])
-            and x.data_ptr() % 16 == 0)
+            and start % 16 == 0)
 
 
 def nvcc() -> str:

@@ -23,8 +23,16 @@ D) storage, which the layer's reshape to (B, Tq, Hq D) reads without a
 copy.  bf16 takes contiguous tensors (its TMA maps).
 
 Semantics contract: `ref.mha`.  `flash_attention_cuda` takes CUDA
-tensors only and raises on anything else; `ops.flash_attention` is the
-dispatching entry point.
+tensors, and ``meta`` tensors, for which it allocates the output it
+would write and launches nothing; it raises on anything else.  Each
+launch, and each ``meta`` call, reports one launch with
+`utils.roofline.attention_cost`'s flops and bytes to an active
+`utils.hlo.OpCounter`.  `ops.flash_attention` is the dispatching entry
+point.
+
+Left out: the reference's ``flash_attention`` (its Pallas call) is
+`flash_attention_cuda` here, and its ``NEG_INF`` mask value lives in
+the CUDA source.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import LAUNCHES
+from repro_torch.utils import hlo
+from repro_torch.utils.roofline import attention_cost
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # template instantiations in the .cu
 TF32_HEAD_DIMS = (8, 16, 32, 64, 128)   # float32 head dims on the tensor cores
@@ -154,13 +164,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, code: int,
     for name, x, shape in (("q", q, (b, hq, tq, d)), ("k", k, (b, hkv, tk, d)),
                            ("v", v, (b, hkv, tk, d))):
         _build.check_arg("flash_attention_cuda", name, x, dtype, shape,
-                         dev, strided=not bf16)
+                         dev, strided=not bf16, meta=True)
         if bf16 and x.data_ptr() % 16:
             raise ValueError(f"flash_attention_cuda: {name} must be 16-byte "
                              f"aligned")
     out = (torch.empty_like(q) if bf16 else
            torch.empty((b, tq, hq, d), dtype=q.dtype,
                        device=dev).transpose(1, 2))
+    cost = ("flash_attention", attention_cost, (b, hq, hkv, tq, tk, d),
+            causal, window, q.dtype)
+    if dev.type == "meta":   # shapes only: counted, nothing launched
+        hlo.record_kernel(*cost)
+        return out
     strides = (ctypes.c_longlong * 12)(*(
         s for x in (q, k, v, out) for s in x.stride()[:3]))
     fn = _kernel()
@@ -173,4 +188,5 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, code: int,
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES["flash_attention"] += 1
+    hlo.record_kernel(*cost)
     return out

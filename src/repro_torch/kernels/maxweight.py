@@ -20,6 +20,10 @@ runs the all-pairs loop, so any input gives the plain version's answer.
 Semantics contract: `ref.maxweight_claim`.  `maxweight_claim_cuda` takes
 CUDA tensors only and raises on anything else; `ops.maxweight_claim` is
 the dispatching entry point.
+
+Left out: the reference's ``maxweight_claim_pallas`` (its Pallas call)
+is `maxweight_claim_cuda` here, and its ``NEG_INF`` sentinel lives in
+the CUDA source.
 """
 
 from __future__ import annotations

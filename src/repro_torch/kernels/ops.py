@@ -3,14 +3,21 @@
 
 A CPU tensor goes to the kernel's plain PyTorch version (`ref`); a CUDA
 tensor launches the hand-written kernel or raises — there is no fallback
-from the card to the plain version.  `LAUNCHES` counts kernel launches,
-one key per kernel.  Depth 0 (K = 2) runs natively in every scheduling
-kernel: no padding and no dilated ancestor table.  `flash_attention`
-needs no padding either: the kernel masks its ragged tiles itself, and
-neither does `ssd`: its kernels stop at T (the chunked ones read zeros
-past T).  The float32 tensor-core kernels of both take the models'
-strided views as they are, so such a call on the card is one launch
-and no copy.
+from the card to the plain version.  `flash_attention` and `ssd` have a
+third branch: a ``meta`` tensor goes through the card's preparation to
+the kernel wrapper, which returns ``meta`` outputs of the kernel's
+shapes, dtypes and strides and reports one launch, with the kernel's
+cost (`utils.roofline.attention_cost`, `ssd_cost`), to an active
+`utils.hlo.OpCounter`, as a card launch does; it runs nothing, plain
+or kernel (the dry run's count of a prefill).  `LAUNCHES` counts kernel
+launches on the card, one key per kernel.  `reference` is the
+reference's alias of `ref`.  Depth 0 (K = 2) runs natively in every
+scheduling kernel: no padding and no dilated ancestor table.
+`flash_attention` needs no padding either: the kernel masks its ragged
+tiles itself, and neither does `ssd`: its kernels stop at T (the
+chunked ones read zeros past T).  The float32 tensor-core kernels of
+both take the models' strided views as they are, so such a call on the
+card is one launch and no copy.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from repro_torch.kernels.maxweight import maxweight_claim_cuda
 from repro_torch.kernels.slot_step import fleet_route_cuda
 from repro_torch.kernels.ssd_scan import ssd_cuda
 from repro_torch.kernels.wwl_route import wwl_route_cuda
+
+reference = ref  # the reference's name for the plain versions
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -105,7 +114,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     they are, and the result is a view of (B, Tq, Hq, D) storage.
     """
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return ref.mha(q, k, v, causal=causal, window=window,
                        softcap=softcap, scale=scale)
     return _attention_card(q, k, v, causal=causal, window=window,
@@ -113,8 +122,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _attention_card(q, k, v, **opts):
-    """The card's half of `flash_attention`: bf16 made contiguous, float32
-    passed as it is (`_rows`)."""
+    """The card's (and ``meta``'s) half of `flash_attention`: bf16 made
+    contiguous, float32 passed as it is (`_rows`)."""
     prep = torch.Tensor.contiguous if q.dtype == torch.bfloat16 else _rows
     return flash_attention_cuda(prep(q), prep(k), prep(v), **opts)
 
@@ -138,15 +147,15 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     maps).
     """
     del block_t  # each kernel chunks by its own fixed length: see above
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return ref.ssd(x, a, b, c, init_state)
     return _ssd_card(x, a, b, c, init_state)
 
 
 def _ssd_card(x, a, b, c, init_state):
-    """The card's half of `ssd`: inputs of the float32 tensor-core kernel
-    passed as they are (`_rows`), the other kernels' made contiguous, a
-    missing initial state as None."""
+    """The card's (and ``meta``'s) half of `ssd`: inputs of the float32
+    tensor-core kernel passed as they are (`_rows`), the other kernels'
+    made contiguous, a missing initial state as None."""
     strided = (ssd_scan.route(x.dtype, x.shape[-1], b.shape[-1])
                == ssd_scan.TENSOR_CORES_F32)
     prep = _rows if strided else torch.Tensor.contiguous

@@ -26,6 +26,10 @@ cell, the counterpart of `fleet_sweep`'s vmap over `pl.pallas_call`.
 Semantics contract: `ref.fleet_route`.  `fleet_route_cuda` takes CUDA
 tensors only and raises on anything else; `ops.fleet_route` is the
 dispatching entry point.
+
+Left out: the reference's ``fleet_route_pallas`` (its Pallas call) is
+`fleet_route_cuda` here, and its ``LARGE`` sentinel lives in the CUDA
+source (the plain version's is `ref.LARGE`).
 """
 
 from __future__ import annotations

@@ -22,8 +22,15 @@ into the convolution's output) and takes a missing initial state as
 none; the others take contiguous inputs (the bf16 tensor-core kernel's
 TMA maps).
 
-Semantics contract: `ref.ssd`.  `ssd_cuda` takes CUDA tensors only and
-raises on anything else; `ops.ssd` is the dispatching entry point.
+Semantics contract: `ref.ssd`.  `ssd_cuda` takes CUDA tensors, and
+``meta`` tensors, for which it allocates the outputs it would write and
+launches nothing; it raises on anything else.  Each launch, and each
+``meta`` call, reports one launch with `utils.roofline.ssd_cost`'s flops
+and bytes to an active `utils.hlo.OpCounter`.  `ops.ssd` is the
+dispatching entry point.
+
+Left out: the reference's ``ssd_chunked`` (its Pallas call) is
+`ssd_cuda` here.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import LAUNCHES
+from repro_torch.utils import hlo
+from repro_torch.utils.roofline import ssd_cost
 
 D_STATES = (4, 8, 16, 32, 64, 128)   # template instantiations in the .cu
 TC_CHUNK = 64   # steps a chunk of the tensor-core kernels
@@ -107,13 +116,17 @@ def ssd_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         args.append(("h0", h0, torch.float32, (bsz, h, p, n)))
     for name, arg, dtype, shape in args:
         _build.check_arg("ssd_cuda", name, arg, dtype, shape, dev,
-                         strided and name in ("x", "b", "c"))
+                         strided and name in ("x", "b", "c"), meta=True)
         if tma and dtype == x.dtype and arg.data_ptr() % 16:
             raise ValueError(f"ssd_cuda: {name} must be 16-byte aligned")
     if h0 is None and kernel in (RECURRENT_F32, RECURRENT_BF16):
         h0 = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=dev)
     y = torch.empty((bsz, t, h, p), dtype=x.dtype, device=dev)
     h_final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    cost = ("ssd", ssd_cost, (bsz, t, h, p, n), x.dtype)
+    if dev.type == "meta":   # shapes only: counted, nothing launched
+        hlo.record_kernel(*cost)
+        return y, h_final
     st = (x.stride(0), x.stride(1), x.stride(2), b.stride(0), b.stride(1),
           c.stride(0), c.stride(1))
     if max(st[1], st[4], st[6]) >= 2 ** 31:
@@ -130,4 +143,5 @@ def ssd_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     LAUNCHES["ssd"] += 1
+    hlo.record_kernel(*cost)
     return y, h_final

@@ -20,6 +20,10 @@ the last call took.
 Semantics contract: `ref.wwl_route`.  `wwl_route_cuda` takes CUDA
 tensors only and raises on anything else; `ops.wwl_route` is the
 dispatching entry point.
+
+Left out: the reference's ``wwl_route_pallas`` (its Pallas call) is
+`wwl_route_cuda` here, and its ``NEG_LARGE`` sentinel lives in the CUDA
+source.
 """
 
 from __future__ import annotations

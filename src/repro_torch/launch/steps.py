@@ -31,6 +31,15 @@ The prefill goes through the model's kernel route, as the serving
 engine's does: ``impl="pallas_ssd"`` (the SSD kernel) when the model has
 a Mamba layer, ``impl="pallas"`` (flash attention) otherwise, where the
 reference's prefill step takes its plain route.
+
+`make_ctx`, `effective_kv_heads` and `param_shardings` are the
+reference's sharding helpers, over a mesh of axis sizes
+(`launch.mesh`): on one card nothing is sharded and no cache is
+expanded, so the steps take no context; the helpers say what the
+reference would do on its meshes.  The microbatch loop runs through
+`utils.hlo.trips`, so the dry run can count one microbatch and
+multiply it, as the reference's analyzer multiplies a while body by its
+trip count.
 """
 
 from __future__ import annotations
@@ -41,10 +50,14 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import params as params_lib, transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.optim import adamw
+from repro_torch.sharding.rules import (ShardCtx, ShardingPolicy, make_rules,
+                                        tree_axes_to_shardings)
+from repro_torch.utils import hlo
 
 
 class TrainState(NamedTuple):
@@ -64,6 +77,50 @@ class RuntimePlan:
     opt: adamw.AdamWConfig = adamw.AdamWConfig()
     remat: bool = True
     max_len: int = 0  # decode cache length (shape.seq_len)
+
+
+def make_ctx(cfg: ModelConfig, mesh=None,
+             policy: ShardingPolicy = ShardingPolicy()) -> ShardCtx:
+    """The reference's sharding context for `cfg` on `mesh` (axis sizes;
+    None: `launch.mesh.single_card_mesh()`): the rule table, ``dp_size``,
+    ``kv_expand`` (store K/V at Hq heads when Hkv does not divide the
+    model axis but Hq does) and the sequence-sharded cache rule (when no
+    head count divides it).  On one card every axis has size 1: nothing
+    is sharded, ``kv_expand`` is False and the rules name axes of extent
+    1, so the port's steps take no context.  It is kept to read what the
+    reference would shard on its meshes."""
+    mesh = mesh_lib.single_card_mesh() if mesh is None else mesh
+    rules = make_rules(
+        policy,
+        num_experts=cfg.moe.num_experts if cfg.moe else 0,
+        model_axis_size=mesh_lib.model_axis_size(mesh))
+    ctx = ShardCtx(mesh, rules)
+    ctx.dp_size = mesh_lib.dp_size(mesh)
+    tp = mesh_lib.model_axis_size(mesh)
+    ctx.kv_expand = bool(
+        cfg.num_heads and cfg.num_kv_heads
+        and cfg.num_kv_heads % tp != 0 and cfg.num_heads % tp == 0)
+    heads_shardable = bool(cfg.num_heads) and (
+        cfg.num_heads % tp == 0 or cfg.num_kv_heads % tp == 0)
+    if cfg.num_heads and not heads_shardable:
+        base = tuple(policy.dp_axes) if policy.seq_shard_cache else ()
+        rules["act_cache"] = base + ("model",)
+    return ctx
+
+
+def effective_kv_heads(cfg: ModelConfig, ctx: ShardCtx):
+    """The KV head count caches are stored at when ``ctx.kv_expand`` (Hq),
+    else None (the model's own Hkv).  None on one card: the port's caches
+    always hold Hkv heads (`transformer.init_caches` has no override)."""
+    return cfg.num_heads if getattr(ctx, "kv_expand", False) else None
+
+
+def param_shardings(cfg: ModelConfig, ctx: ShardCtx):
+    """The spec of every parameter (`sharding.rules.ShardCtx.spec` of
+    `params.logical_axes` against `params.abstract_params`), a tree of
+    tuples.  On one card nothing is split."""
+    return tree_axes_to_shardings(
+        ctx, params_lib.abstract_params(cfg), params_lib.logical_axes(cfg))
 
 
 def num_microbatches(plan: RuntimePlan, global_batch: int) -> int:
@@ -128,15 +185,18 @@ def build_train_step(cfg: ModelConfig, plan: RuntimePlan, global_batch: int,
         else:
             acc = [torch.zeros(p.shape, dtype=adt, device=dev)
                    for p in leaves]
-            loss = None
-            for j in range(n_mb):
+            # every microbatch runs the same ops (the loss sum starts at
+            # 0): `hlo.trips` is `range(n_mb)`, or, under a counter that
+            # folds loops, microbatch 0 counted n_mb times
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            for j in hlo.trips(n_mb):
                 l_j, _ = loss_fn(params, {k: microbatch(v, n_mb, j)
                                           for k, v in batch.items()})
                 g_j = torch.autograd.grad(l_j, leaves)
                 for a, g in zip(acc, g_j):
                     a.add_(g.to(adt))
                 del g_j
-                loss = l_j.detach() if loss is None else loss + l_j.detach()
+                loss = loss + l_j.detach()
             for a in acc:
                 a.div_(n_mb)
             grads = acc
@@ -199,16 +259,17 @@ def build_serve_step(cfg: ModelConfig, plan: RuntimePlan, batch: int,
     (B, V) float32, caches): one `decode_step` of ``tokens`` (B, 1) at
     ``lengths`` (B,), then the argmax; the caches are written in place.
     A model with learned positions refuses a `max_len` past its table
-    (``learned_pos`` rows), where the reference would clamp the position.
-    `device` None means the card.
+    (``learned_pos`` rows), where the reference would clamp the position,
+    except on ``meta``: there nothing is read, and the dry run counts
+    the ops the reference compiles.  `device` None means the card.
     """
     from repro_torch.configs.shapes import RunShape, input_specs
 
-    if cfg.learned_pos and max_len > cfg.learned_pos:
+    dev = resolve_device(device)
+    if cfg.learned_pos and max_len > cfg.learned_pos and dev.type != "meta":
         raise ValueError(f"{cfg.name}: a cache of {max_len} positions "
                          f"passes the learned-position table of "
                          f"{cfg.learned_pos} rows")
-    dev = resolve_device(device)
     acaches = T.abstract_caches(cfg, batch, max_len,
                                 enc_len=cfg.num_audio_frames)
     abstract_batch = input_specs(

@@ -1,9 +1,9 @@
 """Parameter trees of the port (counterpart of `repro.models.params`).
 
-Every parameter is declared once as a `ParamDef` (shape + init rule), with
-the reference's keys and its stacked per-stage layout: a stage's block
-parameters carry a leading ``repeats`` axis.  A tree is a nested ``dict``
-of tensors.  Two views:
+Every parameter is declared once as a `ParamDef` (shape, logical axes,
+init rule), with the reference's keys and its stacked per-stage layout:
+a stage's block parameters carry a leading ``repeats`` axis.  A tree is
+a nested ``dict`` of tensors.  Four views:
 
   * `init_params`    — random tensors on the device, drawn with the
                        reference's rules (fan-in normal, embed x 0.02,
@@ -13,7 +13,8 @@ of tensors.  Two views:
   * `from_reference` — the JAX package's tree, handed over as numpy
                        arrays, as the port's tree (the tests use it so the
                        two models compute the same function);
-  * `abstract_params` — shapes and dtypes on the ``meta`` device.
+  * `abstract_params` — shapes and dtypes on the ``meta`` device;
+  * `logical_axes`   — each leaf's logical axes, the reference's tree.
 
 Every layer of the reference is declared: dense and cross-attention,
 Mamba-2, dense and MoE MLPs, the encoder stack (``enc_stages``,
@@ -38,38 +39,39 @@ from repro_torch.models.layers import torch_dtype
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple[str, ...]   # logical axes, read by `sharding.rules`
     init: str = "normal"  # normal | zeros | ones | embed | a_log | dt_bias
     fan_in_dims: Tuple[int, ...] = (0,)  # dims treated as fan-in for scaling
 
 
 def _norm_defs(cfg: ModelConfig, name: str) -> Dict[str, ParamDef]:
-    d = {f"{name}_scale": ParamDef((cfg.d_model,), "ones")}
+    d = {f"{name}_scale": ParamDef((cfg.d_model,), ("embed",), "ones")}
     if cfg.norm == "layernorm":
-        d[f"{name}_bias"] = ParamDef((cfg.d_model,), "zeros")
+        d[f"{name}_bias"] = ParamDef((cfg.d_model,), ("embed",), "zeros")
     return d
 
 
 def _attn_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, ParamDef]:
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     defs: Dict[str, ParamDef] = {
-        "wq": ParamDef((d, qd)),
-        "wk": ParamDef((d, kvd)),
-        "wv": ParamDef((d, kvd)),
-        "wo": ParamDef((qd, d)),
+        "wq": ParamDef((d, qd), ("embed", "q_heads")),
+        "wk": ParamDef((d, kvd), ("embed", "kv_heads")),
+        "wv": ParamDef((d, kvd), ("embed", "kv_heads")),
+        "wo": ParamDef((qd, d), ("q_heads", "embed")),
     }
     if cfg.attn_bias:
-        defs["bq"] = ParamDef((qd,), "zeros")
-        defs["bk"] = ParamDef((kvd,), "zeros")
-        defs["bv"] = ParamDef((kvd,), "zeros")
+        defs["bq"] = ParamDef((qd,), ("q_heads",), "zeros")
+        defs["bk"] = ParamDef((kvd,), ("kv_heads",), "zeros")
+        defs["bv"] = ParamDef((kvd,), ("kv_heads",), "zeros")
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((cfg.head_dim,), "ones")
-        defs["k_norm"] = ParamDef((cfg.head_dim,), "ones")
+        defs["q_norm"] = ParamDef((cfg.head_dim,), (None,), "ones")
+        defs["k_norm"] = ParamDef((cfg.head_dim,), (None,), "ones")
     if spec.cross:
         defs.update({
-            "xq": ParamDef((d, qd)),
-            "xk": ParamDef((d, kvd)),
-            "xv": ParamDef((d, kvd)),
-            "xo": ParamDef((qd, d)),
+            "xq": ParamDef((d, qd), ("embed", "q_heads")),
+            "xk": ParamDef((d, kvd), ("embed", "kv_heads")),
+            "xv": ParamDef((d, kvd), ("embed", "kv_heads")),
+            "xo": ParamDef((qd, d), ("q_heads", "embed")),
         })
     return defs
 
@@ -78,13 +80,13 @@ def _mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, ff = cfg.d_model, cfg.d_ff
     if cfg.act in ("swiglu", "geglu"):
         return {
-            "w_gate": ParamDef((d, ff)),
-            "w_up": ParamDef((d, ff)),
-            "w_down": ParamDef((ff, d)),
+            "w_gate": ParamDef((d, ff), ("embed", "mlp")),
+            "w_up": ParamDef((d, ff), ("embed", "mlp")),
+            "w_down": ParamDef((ff, d), ("mlp", "embed")),
         }
     return {
-        "w_up": ParamDef((d, ff)),
-        "w_down": ParamDef((ff, d)),
+        "w_up": ParamDef((d, ff), ("embed", "mlp")),
+        "w_down": ParamDef((ff, d), ("mlp", "embed")),
     }
 
 
@@ -92,11 +94,14 @@ def _moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     """The router (d, E) and the stacked experts (E, d, ff) / (E, ff, d),
     each expert's fan-in its own d or ff (dim 1)."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
-    defs = {"router": ParamDef((d, e))}
+    defs = {"router": ParamDef((d, e), ("embed", None))}
     if cfg.act in ("swiglu", "geglu"):
-        defs["w_gate"] = ParamDef((e, d, ff), fan_in_dims=(1,))
-    defs["w_up"] = ParamDef((e, d, ff), fan_in_dims=(1,))
-    defs["w_down"] = ParamDef((e, ff, d), fan_in_dims=(1,))
+        defs["w_gate"] = ParamDef((e, d, ff), ("experts", "embed", "mlp"),
+                                  fan_in_dims=(1,))
+    defs["w_up"] = ParamDef((e, d, ff), ("experts", "embed", "mlp"),
+                            fan_in_dims=(1,))
+    defs["w_down"] = ParamDef((e, ff, d), ("experts", "mlp", "embed"),
+                              fan_in_dims=(1,))
     return defs
 
 
@@ -108,14 +113,15 @@ def _mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     h = ssm.num_heads(d)
     conv_dim = din + 2 * gn
     return {
-        "in_proj": ParamDef((d, 2 * din + 2 * gn + h)),
-        "conv_w": ParamDef((ssm.conv_kernel, conv_dim), "normal", (0,)),
-        "conv_b": ParamDef((conv_dim,), "zeros"),
-        "a_log": ParamDef((h,), "a_log"),
-        "d_skip": ParamDef((h,), "ones"),
-        "dt_bias": ParamDef((h,), "dt_bias"),
-        "gate_norm_scale": ParamDef((din,), "ones"),
-        "out_proj": ParamDef((din, d)),
+        "in_proj": ParamDef((d, 2 * din + 2 * gn + h), ("embed", "ssm_inner")),
+        "conv_w": ParamDef((ssm.conv_kernel, conv_dim), ("conv", "ssm_inner"),
+                           "normal", (0,)),
+        "conv_b": ParamDef((conv_dim,), ("ssm_inner",), "zeros"),
+        "a_log": ParamDef((h,), (None,), "a_log"),
+        "d_skip": ParamDef((h,), (None,), "ones"),
+        "dt_bias": ParamDef((h,), (None,), "dt_bias"),
+        "gate_norm_scale": ParamDef((din,), ("ssm_inner",), "ones"),
+        "out_proj": ParamDef((din, d), ("ssm_inner", "embed")),
     }
 
 
@@ -167,7 +173,8 @@ def tree_leaves(tree) -> list:
 
 def _stack(defs: Dict[str, Any], repeats: int) -> Dict[str, Any]:
     """Add the leading stacked-layer axis."""
-    return tree_map(lambda d: ParamDef((repeats,) + d.shape, d.init,
+    return tree_map(lambda d: ParamDef((repeats,) + d.shape,
+                                       ("layers",) + d.axes, d.init,
                                        tuple(x + 1 for x in d.fan_in_dims)),
                     defs)
 
@@ -180,7 +187,8 @@ def stage_defs(cfg: ModelConfig, stage: Stage) -> Dict[str, Any]:
 def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
     check_supported(cfg)
     defs: Dict[str, Any] = {
-        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), "embed"),
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+                          "embed"),
         "stages": {f"stage{i}": stage_defs(cfg, st)
                    for i, st in enumerate(cfg.stages)},
     }
@@ -190,13 +198,23 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
                               for i, st in enumerate(cfg.enc_stages)}
         defs.update(_norm_defs(cfg, "enc_final"))
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab),
+                                   ("embed", "vocab"))
     if cfg.learned_pos:
-        defs["pos_embed"] = ParamDef((cfg.learned_pos, cfg.d_model), "embed")
+        defs["pos_embed"] = ParamDef((cfg.learned_pos, cfg.d_model),
+                                     ("pos", "embed"), "embed")
         if cfg.enc_stages:
             defs["enc_pos_embed"] = ParamDef(
-                (max(cfg.num_audio_frames, 1), cfg.d_model), "embed")
+                (max(cfg.num_audio_frames, 1), cfg.d_model),
+                ("pos", "embed"), "embed")
     return defs
+
+
+def logical_axes(cfg: ModelConfig):
+    """The tree of every parameter's logical axes (tuples of names, the
+    reference's vocabulary; ``"layers"`` leads a stacked leaf), read by
+    `sharding.rules.tree_axes_to_shardings`."""
+    return tree_map(lambda d: d.axes, model_defs(cfg))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,

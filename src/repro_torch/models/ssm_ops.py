@@ -8,12 +8,15 @@ independent of both `kernels.ref.ssd` and the CUDA kernel.
 
 Shapes: x (B, T, H, P), a_log (B, T, H) <= 0, b, c (B, T, N); returns
 (y (B, T, H, P) in x's dtype, final_state (B, H, P, N) float32).
+`ssd_chunked_jnp` is the reference's name for it.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils import hlo
 
 
 def _pad_time(v: torch.Tensor, pad: int) -> torch.Tensor:
@@ -78,12 +81,18 @@ def ssd_decode_step(x, a_log, b, c, state):
     return y.to(x.dtype), state
 
 
+ssd_chunked_jnp = ssd_chunked  # the reference's name
+
+
 def causal_conv(x, w, bias):
     """Depthwise causal conv: x (B, T, C), w (K, C), bias (C,).  K shifted
     multiply-adds in float32 (no cuDNN, whose float32 convolution runs
-    in TF32 by default on the card)."""
+    in TF32 by default on the card); an active `utils.hlo.OpCounter` is
+    told the convolution's 2 B T C K flops, which the multiply-adds do
+    not show (the reference's analyzer counts its convolution's)."""
     k = w.shape[0]
     t = x.shape[1]
+    hlo.count_flops("causal_conv", 2 * x.shape[0] * t * x.shape[2] * k)
     xp = F.pad(x.float(), (0, 0, k - 1, 0))           # K-1 zeros in front
     wf = w.float()
     out = xp[:, 0:t] * wf[0]

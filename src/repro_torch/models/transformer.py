@@ -15,6 +15,7 @@ Entry points:
   encode(...)       — the encoder stack (encoder-decoder models)
   init_caches(...)  — stacked per-stage cache dicts
   abstract_caches(...) — their shapes on the ``meta`` device
+  cache_axes(...)   — their logical axes (`sharding.rules`)
   lm_loss(...)      — next-token cross-entropy (training)
 
 ``impl`` takes the reference's values: ``"xla"`` is the plain PyTorch
@@ -50,7 +51,7 @@ before the token embeddings, one causal stream.
 
 Left out: the mesh `ctx` and the reference's ``kv_heads=`` cache
 override (GQA-expanded caches for tensor parallelism), which one card
-does not need.
+does not need: `launch.steps.effective_kv_heads` is None there.
 """
 
 from __future__ import annotations
@@ -368,6 +369,33 @@ def abstract_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     memory)."""
     return init_caches(cfg, batch, max_len, dtype, device="meta",
                        enc_len=enc_len)
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical sharding axes mirroring the `init_caches` structure (the
+    reference's tree, read by `sharding.rules.tree_axes_to_shardings`)."""
+    axes: Dict[str, Any] = {}
+    for i, st in enumerate(cfg.stages):
+        sub: Dict[str, Any] = {}
+        for j, spec in enumerate(st.block):
+            entry: Dict[str, Any] = {}
+            if spec.kind == "attn":
+                kv = ("layers", "act_batch", "kv_heads", "act_cache", None)
+                entry["kv"] = {"k": kv, "v": kv,
+                               "pos": ("layers", "act_batch", "act_cache")}
+            else:
+                entry["ssm_cache"] = {
+                    "ssm": ("layers", "act_batch", "ssm_heads", None, None),
+                    "conv": ("layers", "act_batch", None, "ssm_inner"),
+                }
+            if spec.cross:
+                entry["cross"] = {
+                    "k": ("layers", "act_batch", "kv_heads", None, None),
+                    "v": ("layers", "act_batch", "kv_heads", None, None),
+                }
+            sub[f"sub{j}"] = entry
+        axes[f"stage{i}"] = sub
+    return axes
 
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any], *,

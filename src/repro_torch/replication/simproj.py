@@ -32,7 +32,8 @@ ids, one per arrival lane, from the static Zipf(``read_skew``) law over
 chunk ids), drawn from a generator of their own, so the foreground
 arrival stream and every policy's draws keep the exact same numbers as a
 run without replication, as the reference's dedicated key fold keeps its
-bits.
+bits.  So the reference's ``READ_KEY_TAG`` (the ``fold_in`` tag of that
+key) is left out: the port's reads take no key.
 """
 
 from __future__ import annotations
