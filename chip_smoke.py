@@ -51,14 +51,14 @@ on failure:
    cell per arm unequal to `simulate` of that cell; cell-slots/s beside
    phase 5's one-cell slots/s, and a profiled window of the batched
    Balanced-PANDAS step at the 30 cells;
-6. the quickstart path (examples/quickstart.py, layers 1 and 2), counts
-   set to 0 before and read after: the paper's robustness study through
-   `run_study` for all five policies on the dense path (Topology(24, 6),
-   horizon 1000, loads 0.6/0.8/0.95, eps 0.1/0.3 both signs, 8 seeds),
-   with its fatal checks (finite delays, throughput within 2% of lam at
-   loads 0.6 and 0.8 for all but FIFO, Balanced-PANDAS at or below
-   JSQ-MaxWeight at 0.95 with exact rates), then `ops.wwl_route` at
-   M = 1024, B = 128 against its plain version (group-restricted path);
+6. the dense study, counts set to 0 before and read after (fatal if a
+   kernel launched): the paper's robustness study through `run_study`
+   for all five policies on the dense path (Topology(24, 6), horizon
+   600, loads 0.6/0.8/0.95, eps 0.1/0.3 both signs, 8 seeds), with its
+   fatal checks (finite delays, throughput within 2% of lam at loads 0.6
+   and 0.8 for all but FIFO, Balanced-PANDAS at or below JSQ-MaxWeight
+   at 0.95 with exact rates) and the headline claims (printed); the
+   quickstart's `ops.wwl_route` at M = 1024, B = 128 runs in 21a;
 7. the kernel bench path (benchmarks/bench_kernels.py at full width),
    counts set to 0 before and read after: `ops.wwl_route` and
    `ops.maxweight_claim` at M = N = 65536, B = 8192 with the legacy rack
@@ -410,6 +410,29 @@ on failure:
    the kernel's counted launches equal to the `LAUNCHES` delta,
    flash_attention 26 a gemma3-1b prefill and ssd 48 a mamba2-1.3b one.
    Counts set to 0 after.
+
+21. the examples (`repro_torch.examples`, run after 20), each through
+   its own entry point on the card, counts set to 0 before and read
+   after.  (a) `quickstart.run` at horizon 200 / 50 and `--fast`'s 12
+   training steps: fatal unless wwl_route made 1 launch and no other
+   kernel launched, its (server, tier, score) equal `ref.wwl_route`'s
+   on the example's inputs (M = 1024, B = 128, group-restricted path),
+   every delay is finite and the last logged loss is 0.2 below the
+   first.  (b) `figures.fig1_precise` and
+   `figures.fig34_under` at Topology(24, 6), horizon 100 / 25, loads
+   0.6/0.8/0.9/0.95 (high 0.9/0.95), eps 0.1/0.2/0.3, seed 0, then
+   `robustness_study.write_csv` into a temporary directory: fatal unless
+   the rows number 20 + 28, the CSV holds them, every delay is finite,
+   no kernel launched and `headline_claims` has fig1's and figs 3/4's
+   keys (printed, not gated).  (c) `serve_cluster.main([])` (4
+   schedulers x 24 requests x 6 new tokens, chatglm3-6b's smoke config,
+   float32, D 8): fatal unless every request drains with 7 tokens, every
+   logits tensor is finite and flash_attention = 4 layers x prefills
+   (96).  (d) `replay.replay_trace(fast=True, export_path=...)` (12
+   requests under the bundled diurnal_week trace), then trace_replay's
+   round-trip asserts on the export: fatal unless flash_attention = 4 x
+   prefills (12) and the export holds 12 arrivals.  Each sub-phase's
+   seconds are printed.
 
 Prints the seconds of each phase, a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1248,7 +1271,7 @@ def _check_counts(path: str, want: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The dense study (the paper's experiment) and the quickstart path
+# The dense study (the paper's experiment)
 # ---------------------------------------------------------------------------
 
 STUDY_LOADS = (0.6, 0.8, 0.95)
@@ -1256,8 +1279,11 @@ STUDY_EPS = (0.1, 0.3)
 STUDY_SEEDS = tuple(range(8))
 # examples/quickstart.py --fast runs 4000/1000; cut to 2500/600 when a
 # 4000 run took the whole script to 369 s on an H100, and to the drift
-# study's 1000/250 when phase 12 came: 2500 took the script to 500 s
-STUDY_HORIZON, STUDY_WARMUP = 1000, 250
+# study's 1000/250 when phase 12 came: 2500 took the script to 500 s;
+# to 600/150 when phase 21 came (a CPU run of this phase at 600/150 kept
+# every throughput gate and Balanced-PANDAS 7.73 below JSQ-MaxWeight
+# 8.96 slots at rho 0.95)
+STUDY_HORIZON, STUDY_WARMUP = 600, 150
 
 
 def _study_cfg():
@@ -1269,34 +1295,42 @@ def _study_cfg():
 
 
 def headline_claims(study) -> dict:
-    """The paper's headline claims on the study, computed as
-    benchmarks/figures.py computes them: (1) figs 1/2, BP's delay at most
-    JSQ-MW's (the larger over loads, exact rates); (2) figs 3-6 at the
-    figures' high loads (rho >= 0.9), BP at or below JSQ-MW at every
-    (load, eps) of one error sign, and BP's band (max - min over those
-    settings) the narrower."""
-    bp, mw = (study["delay"][a].mean(-1)
-              for a in ("balanced_pandas", "jsq_maxweight"))   # (L, E)
-    out = {"fig1_2_pandas_beats_jsq_mw": bool(bp[:, 0].max()
-                                              <= mw[:, 0].max())}
-    high = np.asarray(study["loads"]) >= 0.9
-    for fig, sign in (("fig3_4", -1), ("fig5_6", 1)):
-        cols = [0] + [e for e, (_, _, sg) in enumerate(study["est_settings"])
-                      if sg == sign]
-        b, w = bp[high][:, cols], mw[high][:, cols]
-        out[f"{fig}_pandas_dominates_jsq_mw"] = bool((b <= w).all())
-        out[f"{fig}_pandas_narrower_band"] = bool(b.max() - b.min()
-                                                  <= w.max() - w.min())
-    return out
+    """The paper's headline claims on the study, by the ported
+    `examples.figures.headline_claims` on the study's figure rows: fig1
+    every load at exact rates; figs 3/4 and 5/6 the figures' high loads
+    (rho >= 0.9) at exact rates and each error of the figure's sign.
+    (1) figs 1/2, BP's delay at most JSQ-MW's (the larger over loads);
+    (2) figs 3-6, BP at or below JSQ-MW at every (load, eps), and BP's
+    band (max - min over those settings) the narrower."""
+    from repro_torch.examples import figures
+
+    loads = [float(x) for x in study["loads"]]
+    rows = []
+    for algo, d in study["delay"].items():
+        dm = d.mean(-1)   # (L, E); E is 1 for a rate-oblivious policy
+        settings = study["est_settings"][:dm.shape[1]]
+        rows += [{"figure": "fig1", "algo": algo, "load": load, "eps": 0.0,
+                  "sign": 0, "mean_delay": float(dm[li, 0])}
+                 for li, load in enumerate(loads)]
+        for fig, sign in (("fig3_4", -1), ("fig5_6", 1)):
+            rows += [{"figure": fig, "algo": algo, "load": load,
+                      "eps": float(eps), "sign": sign,
+                      "mean_delay": float(dm[li, e])}
+                     for li, load in enumerate(loads) if load >= 0.9
+                     for e, (_, eps, sg) in enumerate(settings)
+                     if e == 0 or sg == sign]
+    claims = figures.headline_claims(rows)
+    return {"fig1_2_pandas_beats_jsq_mw": claims["fig1_pandas_beats_jsq_mw"],
+            **{f"{fig}_{k}": claims[f"{fig}_{k}"]
+               for fig in ("fig3_4", "fig5_6")
+               for k in ("pandas_dominates_jsq_mw", "pandas_narrower_band")}}
 
 
-def phase_quickstart(dev):
-    """examples/quickstart.py's two layers on the card, counts set to 0
-    before and read after: the robustness study through `run_study`
-    (every policy on the dense path) and `ops.wwl_route` at M = 1024,
-    B = 128 against its plain version."""
-    from repro_torch.core import robustness as rb, simulator as sim
-    from repro_torch.kernels import ops, ref, wwl_route
+def phase_study(dev):
+    """The robustness study through `run_study` on the card (every policy
+    on the dense path, no kernel launched), counts set to 0 before and
+    read after."""
+    from repro_torch.core import robustness as rb
 
     cfg = _study_cfg()
     _zero_counts()
@@ -1317,30 +1351,7 @@ def phase_quickstart(dev):
                            cell_slots_per_s=cells * cfg.sim.horizon / wall)
         print(f"study {algo}: {json.dumps(rates[algo])}", flush=True)
     print(rb.summarize(study), flush=True)
-
-    # layer 2: the routing kernel against its plain version
-    rng = np.random.default_rng(0)
-    m, b = M_QUICK, B_QUICK
-    wl = torch.as_tensor(rng.uniform(0, 50, m), dtype=torch.float32,
-                         device=dev)
-    er = torch.as_tensor(np.tile([0.5, 0.45, 0.25], (m, 1)),
-                         dtype=torch.float32, device=dev)
-    sr = torch.as_tensor(np.arange(m) // 32, dtype=torch.int32, device=dev)
-    tl = torch.sort(torch.as_tensor(rng.integers(0, m, (b, 3)),
-                                    dtype=torch.int32, device=dev),
-                    dim=1).values
-    out = ops.wwl_route(wl, er, sr, tl)
-    launches = _check_counts("quickstart", {"wwl_route": 1})
-    bad, err = _compare(out, ref.wwl_route(wl, er, sr, tl))
-    path = wwl_route.last_path()
-    mix = np.bincount(out[1].cpu().numpy(), minlength=3).tolist()
-    print(f"quickstart layer 2: wwl_route({b} tasks x {m} servers) "
-          f"mismatches={bad} path={path} locality mix {mix}", flush=True)
-    if bad:
-        raise AssertionError(f"quickstart wwl_route: {bad} mismatches")
-    if path != "group":
-        raise AssertionError(f"quickstart wwl_route took the {path} path "
-                             f"on a sorted rack map")
+    _check_counts("dense study", {})
 
     lam = study["lam"]
     for algo, d in study["delay"].items():
@@ -1365,7 +1376,6 @@ def phase_quickstart(dev):
                              f"{mw} at rho 0.95 with exact rates")
     claims = headline_claims(study)
     print(f"headline claims: {json.dumps(claims)}", flush=True)
-    return launches, rates, bad, err
 
 
 def phase_bench(dev, prev=None):
@@ -3567,6 +3577,29 @@ def serve_requests(cfg):
             for i in range(SERVE_REQUESTS)]
 
 
+@contextlib.contextmanager
+def _prefills(dev, impl):
+    """Counts `transformer.forward` calls through `impl` (the engine's
+    prefills) and folds each logits tensor's finiteness into one flag on
+    the card (no host read)."""
+    from repro_torch.models import transformer as T
+    forward = T.forward
+    state = {"prefills": 0,
+             "finite": torch.ones((), dtype=torch.bool, device=dev)}
+
+    def checked(*args, **kwargs):
+        state["prefills"] += kwargs.get("impl") == impl
+        out = forward(*args, **kwargs)
+        state["finite"].logical_and_(torch.isfinite(out[0]).all())
+        return out
+
+    T.forward = checked
+    try:
+        yield state
+    finally:
+        T.forward = forward
+
+
 def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None,
                 drive=None) -> dict:
     """Drives `eng` until every request of `reqs` is drained: all
@@ -3577,23 +3610,9 @@ def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None,
     logits tensor is checked finite on the card (no host read); every
     request the control plane did not shed (``finish_time == -1.0``)
     must be prefilled once and drain with SERVE_NEW + 1 tokens."""
-    from repro_torch.models import transformer as T
-
     impl, kernel = SERVE_ROUTES[arch][:2]
-    forward = T.forward
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    prefills = 0
-
-    def checked(*args, **kwargs):
-        nonlocal prefills
-        prefills += kwargs.get("impl") == impl
-        out = forward(*args, **kwargs)
-        finite.logical_and_(torch.isfinite(out[0]).all())
-        return out
-
-    T.forward = checked
     _zero_counts()
-    try:
+    with _prefills(dev, impl) as seen:
         t0 = time.perf_counter()
         if drive is not None:
             out = drive(eng)
@@ -3610,8 +3629,7 @@ def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None,
                     raise RuntimeError("engine did not drain")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        T.forward = forward
+    prefills = seen["prefills"]
     launches = _check_counts(path, {kernel: _kernel_layers(cfg, kernel)
                                     * prefills})
     kept = [r for r in out if r.finish_time != -1.0]
@@ -3623,7 +3641,7 @@ def drained_run(dev, arch, cfg, eng, reqs, path, submit_at=None,
     if short:
         raise AssertionError(f"requests {short} did not drain with "
                              f"{SERVE_NEW + 1} tokens")
-    if not bool(finite):
+    if not bool(seen["finite"]):
         raise AssertionError(f"non-finite logits in the {path} run")
     tokens = sum(len(r.generated) for r in kept)
     return dict(requests=len(out), shed=len(out) - len(kept),
@@ -5611,6 +5629,160 @@ def phase_dryrun(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the examples (repro_torch.examples) on the card
+# ---------------------------------------------------------------------------
+
+DRV_QUICK = (200, 50, 12)     # quickstart: horizon, warmup, --fast's steps
+DRV_FIG_HORIZON = (100, 25)   # figures 1 and 3/4 at a cut depth
+DRV_FIG_ROWS = 20 + 28        # fig1: 5 algos x 4 loads; fig3/4: 3 x 2 x 4 + 2 x 2
+DRV_FIG_CLAIMS = ("fig1_pandas_beats_jsq_mw",
+                  "fig3_4_pandas_dominates_jsq_mw",
+                  "fig3_4_pandas_narrower_band")
+DRV_SERVE = (4 * 24, 6)       # serve_cluster: prefills, new tokens
+DRV_REPLAY = 12               # replay_trace(fast=True): requests
+
+
+def examples_quickstart(dev) -> dict:
+    """21a: the quickstart's three layers through `quickstart.run`."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ref, wwl_route
+
+    layer_s = {}
+
+    def timed(name):
+        fn = getattr(quickstart, name)
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            layer_s[name] = time.perf_counter() - t0
+            return res
+        return mock.patch.object(quickstart, name, run)
+
+    _zero_counts()
+    with timed("queueing"), timed("routing"), timed("training"):
+        out = quickstart.run(*DRV_QUICK, device=dev)
+    launches = _check_counts("quickstart example", {"wwl_route": 1})
+    path = wwl_route.last_path()
+    if path != "group":
+        raise AssertionError(f"quickstart example's wwl_route took the "
+                             f"{path} path on a sorted rack map")
+    args = [torch.as_tensor(x, device=dev) for x in quickstart.route_inputs()]
+    bad, err = _compare([torch.as_tensor(x, device=dev)
+                         for x in out["route"]], ref.wwl_route(*args))
+    if bad:
+        raise AssertionError(f"quickstart example's wwl_route: {bad} "
+                             f"mismatches")
+    delays = {a: [float(x) for x in d] for a, d in out["delays"].items()}
+    if not np.isfinite(list(delays.values())).all():
+        raise AssertionError(f"quickstart example's delays: {delays}")
+    hist = out["history"]
+    drop = hist[0]["loss"] - hist[-1]["loss"]
+    if not drop >= 0.2:
+        raise AssertionError(f"quickstart example's loss fell {drop}")
+    return dict(launches=launches, mismatches=bad, max_abs_err=err,
+                delays=delays, loss_drop=drop,
+                losses=[h["loss"] for h in hist], layer_s=layer_s)
+
+
+def examples_figures(dev) -> dict:
+    """21b: figures 1 and 3/4 at a cut depth, their CSV and claims."""
+    import csv
+    import tempfile
+
+    from repro_torch.core import robustness as rb, simulator as sim
+    from repro_torch.examples import figures, robustness_study
+
+    horizon, warmup = DRV_FIG_HORIZON
+    cfg = rb.StudyConfig(
+        sim=sim.default_config(horizon=horizon, warmup=warmup),
+        loads=(0.6, 0.8, 0.9, 0.95), high_loads=(0.9, 0.95),
+        eps_grid=(0.1, 0.2, 0.3), seeds=(0,))
+    _zero_counts()
+    rows = (figures.fig1_precise(cfg=cfg, device=dev)
+            + figures.fig34_under(cfg=cfg, device=dev))
+    launches = _check_counts("figures", {})
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(robustness_study.write_csv(rows, tmp), newline="") as f:
+            written = list(csv.DictReader(f))
+    if len(rows) != DRV_FIG_ROWS or len(written) != DRV_FIG_ROWS:
+        raise AssertionError(f"figures: {len(rows)} rows, {len(written)} "
+                             f"in the CSV, want {DRV_FIG_ROWS}")
+    if not np.isfinite([r["mean_delay"] for r in rows]).all():
+        raise AssertionError("figures: a delay is not finite")
+    claims = figures.headline_claims(rows)
+    print(f"figures' headline claims: {json.dumps(claims)}", flush=True)
+    missing = [k for k in DRV_FIG_CLAIMS if k not in claims]
+    if missing:
+        raise AssertionError(f"figures' claims lack {missing}")
+    return dict(launches=launches, rows=len(rows), claims=claims)
+
+
+def examples_serving(dev, name: str) -> dict:
+    """21c (`serve_cluster`) and 21d (`replay`): the engine's prefills
+    counted, each logits tensor checked finite, flash_attention = layers
+    x prefills."""
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.examples import replay, serve_cluster, trace_replay
+
+    cfg = registry.get_smoke_config(SERVE_ARCH)
+    impl, kernel = SERVE_ROUTES[SERVE_ARCH][:2]
+    out = {}
+    _zero_counts()
+    with _prefills(dev, impl) as seen, \
+            tempfile.TemporaryDirectory() as tmp:
+        if name == "serve_cluster":
+            results = serve_cluster.main([], device=dev)
+            want, new = DRV_SERVE
+            short = [(s, r.rid) for s, (_, reqs) in results.items()
+                     for r in reqs
+                     if r.finish_time <= 0 or len(r.generated) != new + 1]
+            if short:
+                raise AssertionError(f"serve_cluster: {short} not drained "
+                                     f"with {new + 1} tokens")
+            out["steps"] = {s: eng.steps for s, (eng, _) in results.items()}
+        else:
+            export = os.path.join(tmp, "rerecorded.jsonl")
+            rows = replay.replay_trace(fast=True, export_path=export,
+                                       device=dev)
+            rerec, _ = trace_replay.check_round_trip(export, 64)
+            want = DRV_REPLAY
+            if int(rerec.arrivals.sum()) != want:
+                raise AssertionError(f"replay export holds "
+                                     f"{rerec.arrivals.sum()} arrivals")
+            out["steps"] = rows[0][1]
+        torch.cuda.synchronize()
+    if seen["prefills"] != want:
+        raise AssertionError(f"{name}: {seen['prefills']} prefills, want "
+                             f"{want}")
+    if not bool(seen["finite"]):
+        raise AssertionError(f"{name}: non-finite logits")
+    out["launches"] = _check_counts(
+        name, {kernel: _kernel_layers(cfg, kernel) * seen["prefills"]})
+    out["prefills"] = seen["prefills"]
+    return out
+
+
+def phase_examples(dev) -> dict:
+    """Phase 21: the examples on the card, 21a-21d."""
+    secs, out = {}, {}
+    for sub, fn in (("21a", examples_quickstart), ("21b", examples_figures),
+                    ("21c", lambda d: examples_serving(d, "serve_cluster")),
+                    ("21d", lambda d: examples_serving(d, "replay"))):
+        t0 = time.perf_counter()
+        out[sub] = fn(dev)
+        secs[sub] = time.perf_counter() - t0
+        print(f"  {sub}: {json.dumps(out[sub])}", flush=True)
+    _zero_counts()
+    out["seconds"] = secs
+    print(f"phase 21 seconds: {json.dumps(secs)}", flush=True)
+    return out
+
+
 # the keys of a float32 row in the kernels line
 F32_ROW_KEYS = ("shape", "route", "max_abs_err", "ms", "device_ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -5664,7 +5836,7 @@ def main(argv=None) -> int:
     done("5")
     study_rows = phase_fleet_study(dev, cfg, profile["slots_per_s_steady"])
     done("5b")
-    quick_launches, _, quick_bad, quick_err = phase_quickstart(dev)
+    phase_study(dev)
     done("6")
     bench_launches, bench_rows = phase_bench(dev, prev)
     done("7")
@@ -5706,10 +5878,13 @@ def main(argv=None) -> int:
     done("19")
     dry = phase_dryrun(dev)
     done("20")
+    examples = phase_examples(dev)
+    done("21")
     for name, secs in (list(train["seconds"].items())
                        + list(moe["seconds"].items())
                        + list(stack["seconds"].items())
-                       + list(dry["seconds"].items())):
+                       + list(dry["seconds"].items())
+                       + list(examples["seconds"].items())):
         seconds[f"{name} (within {name[:2]})"] = secs
     seconds["13b (within 9+12b)"] = serve_run["placement_s"]
     seconds["14b (within 9+12b)"] = serve_run["replication_s"]
@@ -5749,11 +5924,13 @@ def main(argv=None) -> int:
              "src/repro/kernels/maxweight.py:24")):
         fleet_rows = {t: r for (n, t), r in sched_rows.items() if n == name}
         bench = bench_rows[name]  # the bench path's full width
-        extra = (quick_bad, quick_err) if name == "wwl_route" else (0, 0.0)
+        quick = examples["21a"]
+        extra = ((quick["mismatches"], quick["max_abs_err"])
+                 if name == "wwl_route" else (0, 0.0))
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": quick_launches[name] + bench_launches[name],
+            "launches": quick["launches"][name] + bench_launches[name],
             "mismatches": (sum(r["mismatches"] for r in fleet_rows.values())
                            + bench["mismatches"] + extra[0]),
             "max_abs_err": max([r["max_abs_err"]
@@ -5768,6 +5945,7 @@ def main(argv=None) -> int:
             "kernels_a_call": bench["kernels_a_call"],
             "prev_ms": bench["prev_ms"],
             "prev_device_ms": bench["prev_device_ms"],
+            "example_launches": quick["launches"][name],
             "topologies": {t: {k: r[k] for k in timed + ("paths",)}
                            for t, r in fleet_rows.items()}})
     main_attn = attn_rows[max((k for k in attn_rows
@@ -5811,6 +5989,9 @@ def main(argv=None) -> int:
             for n, r in attn_rows.items() if n.startswith("stack_")},
         "hybrid_launches": stack["19d"]["forward"]["pallas"]["launches"][
             "flash_attention"],
+        "example_launches": {n: examples[sub]["launches"]["flash_attention"]
+                            for sub, n in (("21c", "serve_cluster"),
+                                           ("21d", "replay"))},
         "moe_prefill": {n: {k: r[k] for k in (
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")}

@@ -33,9 +33,9 @@ The pieces:
     intervals, so the time-average — and therefore the offered load — is
     preserved *exactly*, not approximately.
   * **Generator** — `synthesize_trace` builds deterministic reference
-    traces ("diurnal_week", "flash_day"); the copies bundled with the
-    reference package (``src/repro/workloads/traces/``, read here by path,
-    not imported) are its exact output and load by name through
+    traces ("diurnal_week", "flash_day"); the port's bundled copies
+    (``repro_torch/workloads/traces/``, byte for byte the reference
+    package's) are its exact output and load by name through
     `load_bundled`.
   * **Export hook** — `trace_from_arrivals` bins recorded arrival steps
     back into a `Trace`, so any run can be re-recorded and replayed
@@ -497,10 +497,9 @@ def trace_to_scenario(trace: Trace, max_segments: int = 64,
 # Synthetic reference traces + the bundled copies
 # ---------------------------------------------------------------------------
 
-# the reference package's bundled files, read as data (the port imports
-# nothing of `repro`)
-_TRACE_DIR = (Path(__file__).resolve().parents[2] / "repro" / "workloads"
-              / "traces")
+# the port's own copies of the bundled files, byte for byte the
+# reference's (`synthesize_trace(kind, 0)` saved)
+_TRACE_DIR = Path(__file__).resolve().parent / "traces"
 _BUNDLED_FILES = {"diurnal_week": "diurnal_week.jsonl",
                   "flash_day": "flash_day.csv"}
 
@@ -546,7 +545,8 @@ def synthesize_trace(kind: str = "diurnal_week", seed: int = 0) -> Trace:
 
 
 def bundled_traces() -> Tuple[str, ...]:
-    """Names of the example traces bundled under ``repro/workloads/traces/``."""
+    """Names of the example traces bundled under
+    ``repro_torch/workloads/traces/``."""
     return tuple(sorted(_BUNDLED_FILES))
 
 

@@ -2,10 +2,17 @@
 and dense paths), a hook that reads per-slot values out of the
 reference's compiled scan, a fixture that keeps torch to one intra-op
 thread, the TF32 rounding of the float32 tensor-core kernels' models,
-and the stub modality inputs of a model (`modality_inputs`) with the
-parameters its analytic count leaves out (`uncounted_params`)."""
+the stub modality inputs of a model (`modality_inputs`) with the
+parameters its analytic count leaves out (`uncounted_params`), and what
+the examples' tests share: one stubbed `simulator.sweep` for both
+packages (`stub_sweep`), the reference's `benchmarks` modules
+(`reference_benchmark`) and its `examples/` scripts
+(`run_reference_script`)."""
 
 import functools
+import os
+import sys
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -302,3 +309,58 @@ def uncounted_params(cfg) -> int:
         if cfg.learned_pos:
             n += max(cfg.num_audio_frames, 1) * d
     return n
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def stub_sweep(monkeypatch, seen=None):
+    """Replace `simulator.sweep` in both packages by one deterministic
+    numpy function of the grid: (L, E, S) delays, throughputs and final
+    queue lengths from a generator seeded by the policy's name and the
+    bytes of the loads, estimates and seeds.  With `seen`, each call's
+    (cfg, seeds) is appended to it."""
+    from repro.core import simulator as rsim
+    from repro_torch.core import simulator as tsim
+
+    def sweep(policy, cfg, lam_grid, est_stack, seeds, **kw):
+        lam = np.asarray(lam_grid, np.float32).reshape(-1)
+        est = np.asarray(est_stack, np.float32)
+        seeds = np.asarray(seeds).reshape(-1)
+        if seen is not None:
+            seen.append((cfg, seeds))
+        rng = np.random.default_rng([zlib.crc32(str(policy).encode()),
+                                     zlib.crc32(lam.tobytes()),
+                                     zlib.crc32(est.tobytes()),
+                                     zlib.crc32(seeds.tobytes())])
+        shape = (len(lam), len(est), len(seeds))
+        return {k: rng.uniform(lo, hi, shape).astype(np.float32)
+                for k, lo, hi in (("mean_delay", 1.0, 10.0),
+                                  ("throughput", 0.5, 20.0),
+                                  ("final_n", 0.0, 50.0))}
+
+    monkeypatch.setattr(tsim, "sweep", sweep)
+    monkeypatch.setattr(rsim, "sweep", sweep)
+
+
+def reference_benchmark(monkeypatch, name):
+    """The module ``benchmarks.<name>``, with the repo root on
+    ``sys.path``."""
+    import importlib
+    monkeypatch.syspath_prepend(ROOT)
+    return importlib.import_module(f"benchmarks.{name}")
+
+
+def run_reference_script(monkeypatch, name, argv=()):
+    """Run ``examples/<name>.py``'s ``main()`` with ``sys.argv`` set to
+    `argv`; the script's own changes to ``sys.path`` are undone after
+    the test."""
+    import importlib.util
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(sys, "argv", [f"{name}.py", *argv])
+    spec = importlib.util.spec_from_file_location(
+        f"_reference_example_{name}",
+        os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main()

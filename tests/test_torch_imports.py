@@ -1,6 +1,7 @@
 """The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports `jax` or the `repro` reference package; entry
-points run on the card unless the caller asks for the CPU."""
+`chip_smoke.py`, imports `jax`, the `repro` reference package or its
+`benchmarks`; entry points run on the card unless the caller asks for
+the CPU."""
 
 import os
 import pkgutil
@@ -51,15 +52,22 @@ def test_port_imports_neither_jax_nor_reference():
                  "configs.whisper_medium", "configs.internvl2_2b",
                  "configs.jamba15_large", "launch.dryrun", "launch.mesh",
                  "sharding.rules", "utils.cache", "utils.hlo",
-                 "utils.roofline"):
+                 "utils.roofline", "examples", "examples.figures",
+                 "examples.robustness_study", "examples.quickstart",
+                 "examples.drift_study", "examples.placement_study",
+                 "examples.replication_study",
+                 "examples.tail_latency_study",
+                 "examples.slo_control_study", "examples.replay",
+                 "examples.trace_replay", "examples.serve_cluster",
+                 "examples.train_100m", "examples.elastic_restart"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{os.path.join(ROOT, 'src')!r}, {ROOT!r}]\n"
         f"for name in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "             in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -144,3 +152,20 @@ def test_default_device_is_the_card():
         launch_train.main(["--steps", "1", "--seq-len", "8"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Checkpointer(ROOT).restore({})
+    # the examples: each raises before it runs or writes anything
+    import importlib
+    for name, argv in (("robustness_study", []), ("drift_study", []),
+                       ("placement_study", []), ("replication_study", []),
+                       ("tail_latency_study", []), ("slo_control_study", []),
+                       ("trace_replay", []), ("quickstart", ["--fast"]),
+                       ("serve_cluster", []), ("train_100m", ["--steps", "1"]),
+                       ("elastic_restart", []), ("drift_study", ["--smoke"]),
+                       ("placement_study", ["--smoke"])):
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(argv)
+    from repro_torch.examples import figures, replay
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        replay.replay_trace()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        figures.fig2_highload()

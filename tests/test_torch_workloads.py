@@ -176,10 +176,29 @@ def test_host_playback_straggler_slowdown():
 
 
 @pytest.mark.parametrize("name", ("diurnal_week", "flash_day"))
+def test_bundled_files_are_the_ports_own_copies(tmp_path, name):
+    """The port ships its own bundled files: they lie inside
+    `repro_torch`, equal the reference package's byte for byte, and are
+    what `save_trace(synthesize_trace(name, 0))` writes."""
+    from pathlib import Path
+
+    import repro_torch
+    from repro.workloads import trace as rtrace
+    from repro_torch.workloads import trace as ttrace
+    fname = ttrace._BUNDLED_FILES[name]
+    ours = ttrace._TRACE_DIR / fname
+    assert ours.resolve().is_relative_to(
+        Path(repro_torch.__file__).resolve().parent)
+    assert ours.read_bytes() == (rtrace._TRACE_DIR / fname).read_bytes()
+    wl.save_trace(wl.synthesize_trace(name, seed=0), tmp_path / fname)
+    assert (tmp_path / fname).read_bytes() == ours.read_bytes()
+
+
+@pytest.mark.parametrize("name", ("diurnal_week", "flash_day"))
 def test_bundled_traces_load_save_and_compile_as_reference(tmp_path, name):
-    """The port reads the reference package's bundled files by path; they
-    equal its own generator's output, round-trip losslessly, and compile
-    to the reference's scenario."""
+    """The port's bundled files equal its own generator's output and the
+    reference's traces, round-trip losslessly, and compile to the
+    reference's scenario."""
     assert wl.bundled_traces() == rwl.bundled_traces()
     got, want = wl.load_bundled(name), rwl.load_bundled(name)
     assert got == wl.synthesize_trace(name)
