@@ -2425,6 +2425,71 @@ CTL_MASK_FREE = ("delay_p50", "delay_p95", "delay_p99", "throughput",
                  "mean_n", "final_n", "delay_hist")
 
 
+# closed loop with the autoscaler: 24 users thinking 3.3 slots keep the
+# count at ceil(thinking x 0.81818187) <= 20 under the 24 servers; the
+# folded constant (1 / 3.3 x 1.35) x (1 / 0.5) is inexact, and the two-
+# product form differs from it (tools/xla_control_fold.py)
+CTL_PAIR = [{"name": "closed_loop", "options": {"users": 24,
+                                                "think_time": 3.3}},
+            "autoscale"]
+CTL_FOLD_USERS = 4096
+
+
+def _closed_loop_autoscale(dev, sweep, zcfg, lam, est, seeds) -> dict:
+    """Phase 16a's closed loop with the autoscaler: one sweep on
+    Balanced-PANDAS (offered = admitted, admitted - completed = final_n,
+    at most `users` in the system, ``ctl_active_mean`` under M), then the
+    autoscaler's count over thinking 0..`CTL_FOLD_USERS` on the card, on
+    the CPU and as numpy's float32 product with the folded constant,
+    bit for bit."""
+    from repro_torch import control as ctl
+    from repro_torch.core import simulator as sim
+
+    users = CTL_PAIR[0]["options"]["users"]
+    m = zcfg.topo.num_servers
+    t0 = time.perf_counter()
+    res = sweep("balanced_pandas", zcfg, lam, est, seeds, control=CTL_PAIR,
+                device=dev)
+    sec = time.perf_counter() - t0
+    done = np.rint(res["throughput"].astype(np.float64) * zcfg.horizon)
+    out = dict(wall_s=sec, active_mean=float(res["ctl_active_mean"].mean()),
+               active_min=float(res["ctl_active_min"].min()),
+               final_n_max=float(res["final_n"].max()),
+               mean_delay=float(res["mean_delay"].mean()))
+    if (res["final_n"] > users).any() or not np.array_equal(
+            res["ctl_admitted"] - done, res["final_n"]) or \
+            not np.array_equal(res["ctl_offered"], res["ctl_admitted"]) or \
+            not (res["ctl_active_mean"] < m).all() or \
+            not np.isfinite(res["mean_delay"]).all():
+        raise AssertionError(f"closed loop + autoscale: {out}, admitted "
+                             f"{res['ctl_admitted'].ravel()}, completed "
+                             f"{done.ravel()}")
+    sim_ctl = sim.build_control(CTL_PAIR, zcfg, None, dev)
+    asc = sim_ctl.plane.autoscale
+    lgen = ctl.make_controller(dict(CTL_PAIR[0], options=dict(
+        CTL_PAIR[0]["options"], users=CTL_FOLD_USERS)))
+    fold = asc.sim_scale(sim_ctl.rate0, lgen.rate_factor)
+
+    def counts(device):
+        th = torch.arange(CTL_FOLD_USERS + 1, dtype=torch.int32,
+                          device=device)
+        base, _ = lgen.sim_base(CTL_FOLD_USERS - th, None, None)
+        return asc.sim_count(base, fold, 1 << 24).cpu().numpy()
+
+    card, cpu = counts(dev), counts(torch.device("cpu"))
+    want = np.maximum(np.ceil(np.arange(CTL_FOLD_USERS + 1,
+                                        dtype=np.float32)
+                              * np.float32(fold)), 1.0).astype(np.int32)
+    out.update(fold=fold, counts=len(want),
+               card_vs_cpu=int((card != cpu).sum()),
+               card_vs_product=int((card != want).sum()))
+    if out["card_vs_cpu"] or out["card_vs_product"]:
+        raise AssertionError(f"closed loop + autoscale counts: {out}")
+    print(f"phase 16a, closed loop + autoscale: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
 def phase_control(dev) -> dict:
     """Phase 16a: `control_study` on the card, each sweep timed, launch
     counts 0 before and after (the dense path runs no kernel); its table
@@ -2433,7 +2498,10 @@ def phase_control(dev) -> dict:
     windows of 8 recorder-on Balanced-PANDAS slots under "both" and
     without control.
     Fatal: a delay not finite; offered unequal to admitted + shed in a
-    cell of a controlled arm; a shed rate other than NaN for the none
+    cell of a controlled arm; closed loop with the autoscaler unconserved,
+    over its users or keeping every server, or its count on the card off
+    the CPU's or the folded constant's product (`_closed_loop_autoscale`);
+    a shed rate other than NaN for the none
     arm; the admission arm shedding nothing at rho 0.99 or over 1% in a
     cell at 0.90, or its p99 at 0.99 not below the none arm's; the
     autoscale arm's ctl_active_min under 24 (1.35 x lam / 0.5 >= 24 at
@@ -2552,6 +2620,8 @@ def phase_control(dev) -> dict:
         raise AssertionError(f"closed loop: final_n {cl['final_n'].ravel()}"
                              f", admitted {cl['ctl_admitted'].ravel()}, "
                              f"completed {done.ravel()}")
+    checks["closed_loop+autoscale"] = _closed_loop_autoscale(
+        dev, sweep, zcfg, lam[:1], est, seeds)
     low = np.float32(0.3 * cap)
     au = sweep(bp, ccfg, [low], est, seeds, control="autoscale", device=dev)
     checks["autoscale_0.3"] = dict(

@@ -7,10 +7,21 @@ and keep the reference's float32 order operation by operation; where the
 reference divides by a Python float inside its compiled scan, XLA forms
 a product with the float32 reciprocal of the float32 divisor (folded
 with any constant factor before it), and the hooks multiply by that
-same constant (`_f32_scale`).  They draw nothing, so engaging a
-controller moves no random number: the common-random-number coupling
-across policy arms survives control.  The ``host_*`` hooks are the
-reference's Python.
+same constant (`_f32_scale`).
+
+XLA folds across hooks too.  A loadgen's offered rate is a base times a
+constant factor (`rate_factor`: open loop's ``extra_mult``, closed
+loop's ``1 / think_time``), and the autoscaler's ``headroom * lam_eff /
+float32(rate0)`` multiplies it by two more; the compiled step forms one
+product ``base * ((factor * headroom) * (1 / rate0))``, each step
+rounded to float32 (`HeadroomAutoscale.sim_scale`,
+tools/xla_control_fold.py).  So a plane with both hands the autoscaler
+the loadgen's base and that one constant (`control.simproj.SimControl`),
+never the rounded rate: two products, ``(thinking * (1 / think_time)) *
+(headroom / rate0)``, put ``ceil`` one server off wherever the count
+sits on an integer.  They draw nothing, so engaging a controller moves
+no random number: the common-random-number coupling across policy arms
+survives control.  The ``host_*`` hooks are the reference's Python.
 """
 
 from __future__ import annotations
@@ -58,8 +69,17 @@ class OpenLoopLoadGen(LoadGenController):
         if self.extra_mult < 0.0:
             raise ValueError("extra_mult must be >= 0")
 
+    @property
+    def rate_factor(self) -> float:
+        return self.extra_mult
+
+    def sim_base(self, in_flight, lam_total, knobs):
+        """(base, cap): the offered rate is ``base * rate_factor``."""
+        return lam_total * knobs.lam_mult, None
+
     def sim_offered(self, in_flight, lam_total, knobs):
-        return lam_total * knobs.lam_mult * self.extra_mult, None
+        base, cap = self.sim_base(in_flight, lam_total, knobs)
+        return base * self.extra_mult, cap
 
 
 @register_controller
@@ -108,11 +128,20 @@ class ClosedLoopLoadGen(LoadGenController):
         return int(np.max(self.users_t(users_track))) \
             if users_track is not None else self.users
 
-    def sim_offered(self, in_flight, lam_total, knobs):
+    @property
+    def rate_factor(self) -> float:
+        return _f32_scale(1.0, self.think_time)
+
+    def sim_base(self, in_flight, lam_total, knobs):
+        """(base, cap): the thinking count, as float32 and as the cap;
+        the offered rate is ``base * rate_factor``."""
         users_t = self.users_t(getattr(knobs, "users_mult", None))
         thinking = torch.clamp(users_t - in_flight, min=0)
-        lam = thinking.to(torch.float32) * _f32_scale(1.0, self.think_time)
-        return lam, thinking
+        return thinking.to(torch.float32), thinking
+
+    def sim_offered(self, in_flight, lam_total, knobs):
+        base, thinking = self.sim_base(in_flight, lam_total, knobs)
+        return base * self.rate_factor, thinking
 
     def host_clients(self, seed: int = 0):
         from repro_torch.control.host import ClosedLoopClients
@@ -259,12 +288,23 @@ class HeadroomAutoscale(AutoscaleController):
         lo = self.min_servers if self.min_servers is not None else floor
         return max(1, min(lo, num_servers))
 
-    def sim_target(self, lam_eff, num_servers: int, rate0: float):
-        # the reference's headroom * lam_eff / float32(rate0), as its
-        # compiled step forms it: one product with the folded constant
-        need = torch.ceil(lam_eff * _f32_scale(self.headroom, rate0))
+    def sim_scale(self, rate0: float, factor: float = 1.0) -> float:
+        """The one float32 constant of the reference's compiled
+        ``headroom * (base * factor) / float32(rate0)``: ``(factor *
+        headroom) * (1 / rate0)``, each product rounded to float32
+        (`factor` a loadgen's `rate_factor`; 1.0: the rate itself)."""
+        return _f32_scale(float(np.float32(factor)
+                                * np.float32(self.headroom)), rate0)
+
+    def sim_count(self, base, scale: float, num_servers: int):
+        """(N,) int32 ``clip(ceil(base * scale), min_servers, M)``: one
+        float32 product with the folded constant `scale`."""
+        need = torch.ceil(base * scale)
         lo = self._min_servers(num_servers, 1)
         return torch.clamp(need.to(torch.int32), lo, num_servers)
+
+    def sim_target(self, lam_eff, num_servers: int, rate0: float):
+        return self.sim_count(lam_eff, self.sim_scale(rate0), num_servers)
 
     def host_autoscaler(self, num_servers: int, min_servers: int):
         from repro_torch.launch.elastic import Autoscaler

@@ -83,6 +83,14 @@ class SimControl:
             self._law["users"] = (lg.max_users(users), lg.think_time)
         elif lg is not None and getattr(lg, "extra_mult", 1.0) != 1.0:
             self._law["extra_mult"] = float(lg.extra_mult)
+        # a loadgen's constant factor and the autoscaler's headroom /
+        # rate0 fold into one float32 constant in the reference's compiled
+        # step (`controllers.HeadroomAutoscale.sim_scale`): the autoscaler
+        # is then handed the loadgen's base rate and that constant
+        self._fold = None
+        scale = getattr(plane.autoscale, "sim_scale", None)
+        if scale is not None and hasattr(lg, "sim_base"):
+            self._fold = scale(self.rate0, lg.rate_factor)
 
     def count_law(self) -> dict:
         """Keyword arguments of `core.rng.DenseDeviceSource` for this
@@ -113,11 +121,15 @@ class SimControl:
         """The slot's offered rate ((N,) float32; None when no autoscaler
         reads it) and the admitted-count cap ((N,) int32, or None).  Gates
         on the policy's in-system count `n_prev`, so the closed loop stays
-        exact even for policies that drop internally (FIFO's cap)."""
+        exact even for policies that drop internally (FIFO's cap).  Where
+        the loadgen's factor folds into the autoscaler's constant, the
+        rate is the loadgen's base (`pre` multiplies it by the fold)."""
         lg = self.plane.loadgen
         if lg is None:
             lam = lam_total * knobs.lam_mult if self.has_mask else None
             return lam, None
+        if self._fold is not None:
+            return lg.sim_base(n_prev, lam_total, knobs)
         lam, cap = lg.sim_offered(n_prev, lam_total, knobs)
         return (lam if self.has_mask else None), cap
 
@@ -150,8 +162,10 @@ class SimControl:
                 shed=st.shed if n_shed is None else st.shed + n_shed)
         mask = None
         if self.has_mask:
-            count = self.plane.autoscale.sim_target(
-                lam_eff, self.num_servers, self.rate0)
+            asc = self.plane.autoscale
+            count = asc.sim_target(lam_eff, self.num_servers, self.rate0) \
+                if self._fold is None else \
+                asc.sim_count(lam_eff, self._fold, self.num_servers)
             mask = self._rank < count[:, None]
             if in_window:
                 cnt_f = count.to(torch.float32)

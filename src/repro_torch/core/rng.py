@@ -328,10 +328,14 @@ class DenseDeviceSource(DenseSource):
         self.n_pol = (m + self.n_route + self.n_claim + self.n_perm
                       + self.n_cand)
 
+    def _block(self, gens, size: int) -> torch.Tensor:
+        """(N, size) uniforms of one slot: a block from each of `gens`
+        (one a distinct seed), gathered per cell."""
+        return _cell_block(gens, self.cell_seed, size, self.device)
+
     def slot(self, t: int) -> DenseDraws:
         b, m, plan = self.batch, self.m, self.plan
-        arr = _cell_block(self.arr_gens, self.cell_seed, self.n_arr,
-                          self.device)
+        arr = self._block(self.arr_gens, self.n_arr)
         n = n_by_k = None
         if self.cdf_k is not None:
             n_by_k = (self.cdf_k <= arr[:, :1, None].double()).sum(dim=-1)
@@ -346,8 +350,7 @@ class DenseDeviceSource(DenseSource):
                   if self.n_rack else None)
         g_place = (gumbel(arr[:, off + self.n_rack:]).view(
             len(arr), self.place_blocks, b, m) if self.place_blocks else None)
-        pol = _cell_block(self.pol_gens, self.cell_seed, self.n_pol,
-                          self.device)
+        pol = self._block(self.pol_gens, self.n_pol)
         u_serve, rest = pol[:, :m], pol[:, m:]
         nc = len(u_hot)
         g = gumbel(rest[:, :self.n_route + self.n_claim])
@@ -362,7 +365,7 @@ class DenseDeviceSource(DenseSource):
             cand = torch.topk(keys, plan.cand, dim=-1).indices
         read = None
         if self.read_gens is not None:
-            u = _cell_block(self.read_gens, self.cell_seed, b, self.device)
+            u = self._block(self.read_gens, b)
             read = torch.clamp(torch.searchsorted(
                 self.read_cdf, u.double(), right=True),
                 max=len(self.read_cdf) - 1)

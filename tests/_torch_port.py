@@ -7,7 +7,8 @@ parameters its analytic count leaves out (`uncounted_params`), and what
 the examples' tests share: one stubbed `simulator.sweep` for both
 packages (`stub_sweep`), the reference's `benchmarks` modules
 (`reference_benchmark`) and its `examples/` scripts
-(`run_reference_script`)."""
+(`run_reference_script`); and the control plane's replay harness
+(`replay_control`, with the configuration and pieces its arms share)."""
 
 import functools
 import os
@@ -364,3 +365,159 @@ def run_reference_script(monkeypatch, name, argv=()):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.main()
+
+
+# -- the control plane's replay harness (tests/test_torch_control_*.py) ----
+
+CTL_BATCH = 16
+CTL_SERVERS = 12
+# a local rate whose float32 reciprocal is inexact (the autoscaler's
+# compiled division)
+CTL_RATES = (0.45, 0.35, 0.2)
+
+
+def _ctl_capacity() -> float:
+    from repro.core import locality as rloc
+    return rloc.capacity_hot_rack(rloc.Topology(CTL_SERVERS, 4),
+                                  rloc.Rates(CTL_RATES), 0.5)
+
+
+CTL_CAP = _ctl_capacity()
+CTL_BUCKET = {"name": "token_bucket",
+              "options": {"rate": 0.8 * CTL_CAP, "burst": 2.0 * CTL_CAP}}
+CTL_DEFER = {"name": "token_bucket",
+             "options": {"rate": 0.8 * CTL_CAP, "burst": 2.0 * CTL_CAP,
+                         "defer": True, "backlog_cap": 23.5}}
+CTL_CLOSED = {"name": "closed_loop", "options": {"users": 20,
+                                                 "think_time": 2.7}}
+
+
+def ctl_cfgs(horizon, warmup):
+    """The reference's and the port's `SimConfig` of the control replays:
+    Topology(`CTL_SERVERS`, 4) at `CTL_RATES`, p_hot 0.5, `CTL_BATCH`
+    lanes."""
+    from repro.core import locality as rloc, simulator as rsim
+    from repro_torch.core import locality as loc, simulator as sim
+    kw = dict(p_hot=0.5, max_arrivals=CTL_BATCH, horizon=horizon,
+              warmup=warmup)
+    return (rsim.SimConfig(rloc.Topology(CTL_SERVERS, 4),
+                           rloc.Rates(CTL_RATES), **kw),
+            sim.SimConfig(loc.Topology(CTL_SERVERS, 4), loc.Rates(CTL_RATES),
+                          **kw))
+
+
+def users_wave(pkg):
+    """A closed-loop population that grows, then shrinks (lam_mult 1);
+    `pkg` the reference's or the port's `workloads`."""
+    return pkg.Scenario("users_wave", (
+        pkg.Segment(0.0), pkg.Segment(0.35, users_mult=1.7),
+        pkg.Segment(0.7, users_mult=0.55)))
+
+
+def ctl_policy(name):
+    """The port's and the reference's `PolicyConfig` of `name`
+    (SLO-PANDAS at slo_target 2)."""
+    from repro.core.policy import PolicyConfig as RPolicyConfig
+    from repro_torch.core.policy import PolicyConfig
+    opts = {"slo_target": 2.0} if name == "slo_pandas" else {}
+    return PolicyConfig(name, opts), RPolicyConfig(name, opts)
+
+
+def ctl_replay(name, cfg, cells, ctl, lam_mult=None, rep=None):
+    """The reference's draws of `cells` under the port's plane `ctl`
+    (its count law), `lam_mult` the (horizon,) multiplier a slot, with
+    the chunk reads of the port's `SimReplication` `rep` when engaged."""
+    law = ctl.count_law()
+    return JaxDenseReplay(name, cells, CTL_BATCH, cfg.topo.num_servers,
+                          cfg.horizon, lam_mult=lam_mult,
+                          extra=law.get("extra_mult", 1.0),
+                          think=law.get("users"),
+                          reads=None if rep is None
+                          else (rep.C, rep.ctrl.read_skew))
+
+
+def replay_control(monkeypatch, name, control, rho, telemetry=None,
+                   scenario=None, replication=None, horizon=120, warmup=30,
+                   seed=2):
+    """Run `control` on policy `name` at ``rho * CTL_CAP`` in both
+    packages under the reference's draws, and hold the port's `CtlState`
+    and policy state (and with `replication`, its lifecycle state)
+    against the reference's after every slot (read out of its compiled
+    scan around `SimControl.pre`, the policy's `slot_step` and
+    `SimReplication.step`) and its final metrics against the reference's
+    `simulate` (``mean_delay`` as the two float32 divisions of the
+    reference's compiled sweep, one ulp at most from its `simulate`).
+    `scenario` is None or a function of a `workloads` package.  Returns
+    the reference's metrics and its `CtlState` after each slot (numpy)."""
+    from repro import workloads as rwl
+    from repro.control import simproj as rsimproj
+    from repro.core import balanced_pandas as rbp
+    from repro.core import simulator as rsim
+    from repro.core import slo_pandas as rslo
+    from repro.replication import simproj as rrepsim
+    from repro_torch import workloads as wl
+    from repro_torch.core import simulator as sim
+
+    rcfg, cfg = ctl_cfgs(horizon, warmup)
+    lam = np.float32(rho * CTL_CAP)
+    est = rsim.make_estimates(rcfg, "per_server", 0.2, -1, seed=1)
+    pol, rpol = ctl_policy(name)
+    r_pre, r_slot, r_rep = [], [], []
+    read_out_of_scan(monkeypatch, rsimproj.SimControl, "pre", r_pre)
+    rcls = rslo.SloPandasPolicy if name == "slo_pandas" else \
+        rbp.BalancedPandasPolicy
+    read_out_of_scan(monkeypatch, rcls, "slot_step", r_slot)
+    read_out_of_scan(monkeypatch, rrepsim.SimReplication, "step", r_rep)
+    want = rsim.simulate(rpol, rcfg, lam, est, seed=seed,
+                         telemetry=telemetry, control=control,
+                         replication=replication,
+                         scenario=None if scenario is None
+                         else scenario(rwl))
+    jax.effects_barrier()
+    assert len(r_pre) == len(r_slot) == horizon
+    assert len(r_rep) == (0 if replication is None else horizon)
+
+    sched = wl.compile_schedule(wl.make_scenario(
+        None if scenario is None else scenario(wl)), cfg.topo, horizon,
+        0.5, device="cpu")
+    ctl = sim.build_control(control, cfg, sched, "cpu")
+    lam_t = torch.tensor([lam])
+    policy, init, step, rep, tel = sim._build_dense_step(
+        pol, cfg, torch.as_tensor(est)[None], "cpu", sched, None,
+        replication, telemetry, ctl, lam_t)
+    assert (rep is None) == (replication is None)
+    i_ctl = 4 + (rep is not None)
+    track = None if sched.lam_mult is None or sched.num_segments == 1 else \
+        sched.lam_mult[sched.seg].cpu().numpy()
+    src = ctl_replay(name, cfg, [(seed, lam)], ctl, track, rep)
+    carry = init()
+    for t in range(horizon):
+        carry = step(carry, t, src.slot(t))
+        for field, got, ref in zip(carry[i_ctl]._fields, carry[i_ctl],
+                                   r_pre[t][0]):
+            np.testing.assert_array_equal(got[0].numpy(), ref,
+                                          err_msg=f"{field} at slot {t}")
+        if rep is not None:
+            for field, got, ref in zip(carry[4]._fields, carry[4],
+                                       r_rep[t][0]):
+                np.testing.assert_array_equal(got[0].numpy(), ref,
+                                              err_msg=f"{field} at slot {t}")
+        for field, got, ref in zip(carry[0]._fields, carry[0],
+                                   r_slot[t][0]):
+            np.testing.assert_array_equal(got[0].numpy(), ref,
+                                          err_msg=f"{field} at slot {t}")
+    lam_scale = wl.mean_lam_mult_over(sched, warmup, horizon)
+    got = sim._dense_metrics(policy, carry, lam_t * lam_scale, rep, tel, ctl)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if k != "mean_delay":
+            np.testing.assert_array_equal(got[k][0], v, err_msg=k)
+    # Little's law over the admitted rate, two float32 divisions as the
+    # reference's compiled sweep forms it (its compiled simulate rewrites
+    # a / (b / c) as (a * c) / b: at most one ulp apart)
+    rate = np.float32(want["ctl_admitted"]) / np.float32(horizon - warmup)
+    np.testing.assert_array_equal(got["mean_delay"][0],
+                                  np.float32(want["mean_n"]) / rate)
+    assert abs(got["mean_delay"][0] - want["mean_delay"]) <= np.spacing(
+        np.float32(want["mean_delay"]))
+    return want, [st[0] for st in r_pre]

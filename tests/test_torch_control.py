@@ -11,7 +11,8 @@ piece.
     that are not powers of two, the queue threshold, both loadgens under
     a ``users_mult`` track, and the autoscaler at local rates whose
     reciprocal is inexact (the reference's compiled step multiplies by
-    the float32 reciprocal, folded with the headroom).
+    the float32 reciprocal, folded with the headroom, and with a
+    loadgen's factor where the loadgen feeds it).
 (c) The host projection: `Autoscaler` targets over seeded p95 streams
     with NaNs, `ClosedLoopClients` poll sequences, `HostControl`
     decisions and metrics.
@@ -259,6 +260,47 @@ def test_f32_scale_is_the_compiled_division():
         xla = np.asarray(jax.jit(lambda v: h * v / jnp.float32(c))(x))
         ours = x * np.float32(cc._f32_scale(h, c))
         np.testing.assert_array_equal(ours, xla, err_msg=f"{h} / {c}")
+
+
+@pytest.mark.parametrize("loadgen,rate0", [
+    ({"name": "closed_loop", "options": {"users": 400, "think_time": 2.7}},
+     0.45),
+    ({"name": "closed_loop", "options": {"users": 400, "think_time": 3.3}},
+     0.3),
+    ({"name": "open_loop", "options": {"extra_mult": 0.8}}, 0.45),
+    ({"name": "open_loop", "options": {"extra_mult": 1.7}}, 0.3),
+], ids=["closed-2.7", "closed-3.3", "open-0.8", "open-1.7"])
+def test_loadgen_rate_folds_into_the_autoscaler(loadgen, rate0):
+    """A loadgen's rate through the autoscaler, against the reference's
+    compiled chain ``sim_target(sim_offered(...))``: XLA folds the
+    loadgen's factor, the headroom and 1 / rate0 into one float32
+    constant, and the port's `sim_count` of `sim_base` times
+    `sim_scale(rate0, rate_factor)` equals it at every thinking count
+    0..400, or at open-loop rates around each step of the count; the
+    two-product form (the rate rounded first) does not."""
+    m = 1 << 24
+    port, ref = ctl.make_controller(loadgen), rctl.make_controller(loadgen)
+    asc, ref_as = ctl.make_controller("autoscale"), \
+        rctl.make_controller("autoscale")
+    scale = asc.sim_scale(rate0, port.rate_factor)
+    if port.name == "closed_loop":
+        x = np.arange(port.users + 1, dtype=np.int32)
+        want = jax.jit(jax.vmap(lambda v: ref_as.sim_target(ref.sim_offered(
+            ref.users - v, jnp.float32(0.0), _Knobs(jnp.float32(1.0)))[0],
+            m, rate0)))(jnp.asarray(x))
+        base, _ = port.sim_base(port.users - torch.from_numpy(x), None, None)
+    else:
+        steps = (np.arange(1, 65) / scale).astype(np.float32)
+        x = np.concatenate([np.nextafter(steps, np.float32(d))
+                            for d in (0.0, np.inf)] + [steps])
+        want = jax.jit(jax.vmap(lambda v: ref_as.sim_target(ref.sim_offered(
+            0, v, _Knobs(jnp.float32(1.0)))[0], m, rate0)))(jnp.asarray(x))
+        base, _ = port.sim_base(None, torch.from_numpy(x),
+                                _Knobs(torch.tensor(1.0)))
+    np.testing.assert_array_equal(asc.sim_count(base, scale, m).numpy(),
+                                  np.asarray(want))
+    two = asc.sim_target(base * port.rate_factor, m, rate0).numpy()
+    assert (two != np.asarray(want)).any()
 
 
 # -- the host projection ----------------------------------------------------

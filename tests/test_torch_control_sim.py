@@ -1,8 +1,9 @@
 """The control plane in the port's dense simulator, against the JAX
 reference's.
 
-(a) Under the replayed draws (`_torch_port.JaxDenseReplay`, with closed
-    loop's ``n_by_k`` table and open loop's ``extra``), the port's
+(a) Under the replayed draws (`_torch_port.replay_control`: its
+    `JaxDenseReplay` with closed loop's ``n_by_k`` table and open loop's
+    ``extra``), the port's
     `CtlState` and the policy state equal the reference's after every
     slot, for the token bucket with and without defer, the queue
     threshold, open loop at ``extra_mult`` 0.8, closed loop (static and
@@ -20,52 +21,17 @@ reference's.
     on a policy without mask support raises the reference's error.
 """
 
-import numpy as np
 import pytest
-import torch
 
-import jax
-
-from repro import workloads as rwl
-from repro.control import simproj as rsimproj
-from repro.core import balanced_pandas as rbp
-from repro.core import locality as rloc
 from repro.core import simulator as rsim
-from repro.core import slo_pandas as rslo
-from repro.core.policy import PolicyConfig as RPolicyConfig
-from repro_torch import workloads as wl
-from repro_torch.core import locality as loc, simulator as sim
+from repro_torch.core import simulator as sim
 from repro_torch.core.policy import PolicyConfig, available_policies
-from _torch_port import JaxDenseReplay, read_out_of_scan
+from _torch_port import (CTL_BUCKET as BUCKET, CTL_CAP as CAP,
+                         CTL_CLOSED as CLOSED, CTL_DEFER as DEFER,
+                         CTL_RATES as RATES, CTL_SERVERS,
+                         ctl_cfgs as _cfgs, replay_control, users_wave)
 from _torch_port import single_torch_thread  # noqa: F401
 
-BATCH = 16
-# a local rate whose float32 reciprocal is inexact (the autoscaler's
-# compiled division)
-RATES = (0.45, 0.35, 0.2)
-CAP = rloc.capacity_hot_rack(rloc.Topology(12, 4), rloc.Rates(RATES), 0.5)
-
-
-def _cfgs(horizon, warmup):
-    kw = dict(p_hot=0.5, max_arrivals=BATCH, horizon=horizon, warmup=warmup)
-    return (rsim.SimConfig(rloc.Topology(12, 4), rloc.Rates(RATES), **kw),
-            sim.SimConfig(loc.Topology(12, 4), loc.Rates(RATES), **kw))
-
-
-def _users_wave(pkg):
-    """A closed-loop population that grows, then shrinks (lam_mult 1)."""
-    return pkg.Scenario("users_wave", (
-        pkg.Segment(0.0), pkg.Segment(0.35, users_mult=1.7),
-        pkg.Segment(0.7, users_mult=0.55)))
-
-
-BUCKET = {"name": "token_bucket",
-          "options": {"rate": 0.8 * CAP, "burst": 2.0 * CAP}}
-DEFER = {"name": "token_bucket",
-         "options": {"rate": 0.8 * CAP, "burst": 2.0 * CAP, "defer": True,
-                     "backlog_cap": 23.5}}
-CLOSED = {"name": "closed_loop", "options": {"users": 20,
-                                             "think_time": 2.7}}
 # (id, policy, control, rho, telemetry, scenario)
 ARMS = [
     ("bucket", "balanced_pandas", BUCKET, 1.3, None, False),
@@ -84,82 +50,18 @@ ARMS = [
 ]
 
 
-def _policy(name):
-    opts = {"slo_target": 2.0} if name == "slo_pandas" else {}
-    return PolicyConfig(name, opts), RPolicyConfig(name, opts)
-
-
-def _replay(name, cfg, cells, ctl):
-    """The reference's draws of `cells` under the plane `ctl`."""
-    law = ctl.count_law()
-    return JaxDenseReplay(name, cells, BATCH, cfg.topo.num_servers,
-                          cfg.horizon, extra=law.get("extra_mult", 1.0),
-                          think=law.get("users"))
-
-
 @pytest.mark.parametrize("arm,name,control,rho,telemetry,wave", ARMS,
                          ids=[a[0] for a in ARMS])
 def test_state_equals_reference_after_every_slot(monkeypatch, arm, name,
                                                  control, rho, telemetry,
                                                  wave):
-    horizon, warmup, seed = 120, 30, 2
-    rcfg, cfg = _cfgs(horizon, warmup)
-    lam = np.float32(rho * CAP)
-    est = rsim.make_estimates(rcfg, "per_server", 0.2, -1, seed=1)
-    pol, rpol = _policy(name)
-    r_pre, r_slot = [], []
-    read_out_of_scan(monkeypatch, rsimproj.SimControl, "pre", r_pre)
-    rcls = rslo.SloPandasPolicy if name == "slo_pandas" else \
-        rbp.BalancedPandasPolicy
-    read_out_of_scan(monkeypatch, rcls, "slot_step", r_slot)
-    want = rsim.simulate(rpol, rcfg, lam, est, seed=seed,
-                         telemetry=telemetry, control=control,
-                         scenario=_users_wave(rwl) if wave else None)
-    jax.effects_barrier()
-    assert len(r_pre) == len(r_slot) == horizon
-
-    sched = wl.compile_schedule(wl.make_scenario(
-        _users_wave(wl) if wave else None), cfg.topo, horizon, 0.5,
-        device="cpu")
-    ctl = sim.build_control(control, cfg, sched, "cpu")
-    lam_t = torch.tensor([lam])
-    policy, init, step, rep, tel = sim._build_dense_step(
-        pol, cfg, torch.as_tensor(est)[None], "cpu", sched, None, None,
-        telemetry, ctl, lam_t)
-    i_ctl = 4
-    src = _replay(name, cfg, [(seed, lam)], ctl)
-    carry = init()
-    for t in range(horizon):
-        carry = step(carry, t, src.slot(t))
-        r_state = r_pre[t][0]
-        for field, got, ref in zip(carry[i_ctl]._fields, carry[i_ctl],
-                                   r_state):
-            np.testing.assert_array_equal(got[0].numpy(), ref,
-                                          err_msg=f"{field} at slot {t}")
-        for field, got, ref in zip(carry[0]._fields, carry[0],
-                                   r_slot[t][0]):
-            np.testing.assert_array_equal(got[0].numpy(), ref,
-                                          err_msg=f"{field} at slot {t}")
-    lam_scale = wl.mean_lam_mult_over(sched, warmup, horizon)
-    got = sim._dense_metrics(policy, carry, lam_t * lam_scale, rep, tel, ctl)
-    assert set(got) == set(want)
-    for k, v in want.items():
-        if k != "mean_delay":
-            np.testing.assert_array_equal(got[k][0], v, err_msg=k)
-    # Little's law over the admitted rate, two float32 divisions as the
-    # reference's compiled sweep forms it (its compiled simulate rewrites
-    # a / (b / c) as (a * c) / b: at most one ulp apart)
-    rate = np.float32(want["ctl_admitted"]) / np.float32(horizon - warmup)
-    np.testing.assert_array_equal(got["mean_delay"][0],
-                                  np.float32(want["mean_n"]) / rate)
-    assert abs(got["mean_delay"][0] - want["mean_delay"]) <= np.spacing(
-        np.float32(want["mean_delay"]))
+    want, _ = replay_control(monkeypatch, name, control, rho, telemetry,
+                          users_wave if wave else None)
     # the arm did what it is for
     if arm.startswith(("bucket", "threshold")):
         assert want["ctl_shed"] > 0
     if "autoscale" in arm:
-        assert want["ctl_active_min"] < rcfg.topo.num_servers \
-            or arm.startswith("slo")
+        assert want["ctl_active_min"] < CTL_SERVERS or arm.startswith("slo")
 
 
 # -- on the port's own draws ------------------------------------------------
