@@ -93,6 +93,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.telemetry import span
+
 
 def poisson_cdf(lam: float, batch: int) -> np.ndarray:
     """(batch,) float64 P(N <= k), k = 0..batch-1, of Poisson(lam): a
@@ -189,13 +191,15 @@ class DeviceSource(DrawSource):
     distinct seed on `device`.  Per slot each generator draws one block
     [u_n | u_hot (B) | r (B*3) | u_serve (M) | u_cand (B*cand)], which is
     gathered per cell; a cell's count is the inverse CDF of its load at
-    u_n.  `cand` is power-of-d's d (0: no candidates)."""
+    u_n.  `cand` is power-of-d's d (0: no candidates).  The CDFs are
+    built in the span ``fleet.setup.cdf``."""
 
     def __init__(self, cells: Sequence[Tuple[int, float]], batch: int,
                  num_servers: int, device, cand: int = 0):
         dev = self.device = torch.device(device)
         self.gens, self.cell_seed = _seed_generators(cells, dev, 1, 0)
-        self.cdf = _cell_cdf(cells, batch, dev)
+        with span("fleet.setup.cdf"):
+            self.cdf = _cell_cdf(cells, batch, dev)
         self.batch, self.m, self.cand = batch, num_servers, cand
         self.size = 1 + 4 * batch + num_servers + batch * cand
 

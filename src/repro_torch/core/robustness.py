@@ -53,6 +53,7 @@ import numpy as np
 from repro_torch.core import locality as loc, simulator as sim
 from repro_torch.core.policy import PolicyConfig, PolicyLike
 from repro_torch.placement import placement_capacity
+from repro_torch.telemetry import span
 from repro_torch.workloads import Scenario, ScenarioConfig, ScenarioLike
 
 EPS_GRID = (0.05, 0.10, 0.15, 0.20, 0.25, 0.30)
@@ -116,41 +117,44 @@ def run_study(cfg: StudyConfig, algos: Optional[Sequence[str]] = None,
     enabled (True / TelemetryConfig) the result grows
     delay_p50/delay_p95/delay_p99[algo] arrays of the same shape, the
     FCFS-coupled sojourn percentiles.  ``device=None`` runs on the
-    card."""
-    algos = list(algos or (RATE_AWARE + RATE_OBLIVIOUS))
-    cap = loc.capacity_hot_rack(cfg.sim.topo, cfg.sim.true_rates,
-                                cfg.sim.p_hot)
-    lam = np.asarray(cfg.loads, np.float32) * cap
-    seeds = np.asarray(cfg.seeds)
+    card.  The call is the span ``study``, its estimates
+    ``study.estimates`` (`repro_torch.telemetry.span`)."""
+    with span("study"):
+        algos = list(algos or (RATE_AWARE + RATE_OBLIVIOUS))
+        cap = loc.capacity_hot_rack(cfg.sim.topo, cfg.sim.true_rates,
+                                    cfg.sim.p_hot)
+        lam = np.asarray(cfg.loads, np.float32) * cap
+        seeds = np.asarray(cfg.seeds)
 
-    est_settings = [("exact", 0.0, 0)]
-    ests = [sim.make_estimates(cfg.sim, "network", 0.0, -1)]
-    for sign in signs:
-        for eps in cfg.eps_grid:
-            est_settings.append((cfg.error_mode, eps, sign))
-            ests.append(sim.make_estimates(cfg.sim, cfg.error_mode, eps,
-                                           sign))
-    est_stack = np.stack(ests)
+        with span("study.estimates"):
+            est_settings = [("exact", 0.0, 0)]
+            ests = [sim.make_estimates(cfg.sim, "network", 0.0, -1)]
+            for sign in signs:
+                for eps in cfg.eps_grid:
+                    est_settings.append((cfg.error_mode, eps, sign))
+                    ests.append(sim.make_estimates(cfg.sim, cfg.error_mode,
+                                                   eps, sign))
+            est_stack = np.stack(ests)
 
-    out: Dict = {"capacity": cap, "loads": np.asarray(cfg.loads),
-                 "lam": lam, "est_settings": est_settings,
-                 "delay": {}, "throughput": {}, "final_n": {}}
-    pct_keys = ("delay_p50", "delay_p95", "delay_p99")
-    if telemetry is not None:
-        for k in pct_keys:
-            out[k] = {}
-    for algo in algos:
-        stack = est_stack if algo in RATE_AWARE else est_stack[:1]
-        res = sim.sweep(algo, cfg.sim, lam, stack, seeds, scenario=scenario,
-                        placement=placement, telemetry=telemetry,
-                        fleet=fleet, device=device)
-        out["delay"][algo] = res["mean_delay"]
-        out["throughput"][algo] = res["throughput"]
-        out["final_n"][algo] = res["final_n"]
+        out: Dict = {"capacity": cap, "loads": np.asarray(cfg.loads),
+                     "lam": lam, "est_settings": est_settings,
+                     "delay": {}, "throughput": {}, "final_n": {}}
+        pct_keys = ("delay_p50", "delay_p95", "delay_p99")
         if telemetry is not None:
             for k in pct_keys:
-                out[k][algo] = res[k]
-    return out
+                out[k] = {}
+        for algo in algos:
+            stack = est_stack if algo in RATE_AWARE else est_stack[:1]
+            res = sim.sweep(algo, cfg.sim, lam, stack, seeds,
+                            scenario=scenario, placement=placement,
+                            telemetry=telemetry, fleet=fleet, device=device)
+            out["delay"][algo] = res["mean_delay"]
+            out["throughput"][algo] = res["throughput"]
+            out["final_n"][algo] = res["final_n"]
+            if telemetry is not None:
+                for k in pct_keys:
+                    out[k][algo] = res[k]
+        return out
 
 
 def sensitivity(delay_les: np.ndarray) -> np.ndarray:

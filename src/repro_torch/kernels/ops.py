@@ -22,6 +22,8 @@ card is one launch and no copy.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import _build, ref, ssd_scan
@@ -31,6 +33,7 @@ from repro_torch.kernels.maxweight import maxweight_claim_cuda
 from repro_torch.kernels.slot_step import fleet_route_cuda
 from repro_torch.kernels.ssd_scan import ssd_cuda
 from repro_torch.kernels.wwl_route import wwl_route_cuda
+from repro_torch.telemetry import count, counting
 
 reference = ref  # the reference's name for the plain versions
 
@@ -70,8 +73,13 @@ def fleet_route(q: torch.Tensor, serving: torch.Tensor, est: torch.Tensor,
     gives after its tier collapse.  On the card q and serving must be
     int32 (the simulator state's type) and est float32.  A leading cell
     axis on q, serving, est and task_locals routes N cells in one launch.
+    A call adds its launch grid, the N x B task slots it scans, to the
+    counter ``fleet_route.tasks_scanned`` (`repro_torch.telemetry.count`).
     """
     anc = ref._as_anc(server_anc)
+    if counting():
+        count("fleet_route.tasks_scanned",
+              math.prod(q.shape[:-2]) * task_locals.shape[-2])
     if not q.is_cuda:
         return ref.fleet_route(q, serving, est, anc, task_locals)
     return fleet_route_cuda(q, serving, est, _i32(anc), _i32(task_locals))

@@ -34,6 +34,16 @@ read of a device value inside it (no `.item()`, no Python branch on a
 tensor), so chunks of slots can later be captured in CUDA graphs.
 Supported: Balanced-PANDAS and power-of-d, static scenario, uniform
 placement, static replication, no telemetry.
+
+Spans and counters (`repro_torch.telemetry.span` / `count`, live only
+while a profiler runs or a recorder is installed): ``fleet.setup``
+(``.estimates``, ``.step``, ``.cdf``), ``fleet.loop``, a slot's
+``fleet.draws``, ``fleet.arrivals``, ``fleet.route`` (Balanced-PANDAS:
+a pass's ``.private`` and ``.rank_clamp``, a ``fleet.route.water_level``
+a bisection, ``fleet.route.pool_fill``) and ``fleet.serve``, then
+``fleet.finalize``.  A run counts inside its own `collecting` block: the
+counter ``fleet.tasks_arrived`` keeps the slots' device counts, summed
+once the carry is on the host.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from repro_torch.core.rng import DeviceSource, DrawSource, SlotDraws
 from repro_torch.core.simulator import _as_numpy
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.slot_step import check_anc_ranges
+from repro_torch.telemetry import collecting, count, flush_counts, span
 
 # Auto-engagement floor for core.simulator's ``fleet=None``: paper-scale
 # configurations stay on the dense path; fleet-sized topologies switch.
@@ -268,16 +279,17 @@ def _water_level(p, d, demand_fn, hi0, batch: int, iters: int):
     (N, 1) levels to (N, 1) demands and must be non-increasing in y; hi0
     is (N, 1).  Returns the (N, 1) upper ends (capacity >= demand
     guaranteed there).  All on the device: no host read per iteration."""
-    lo = torch.amin(p, dim=-1, keepdim=True)
-    hi = (torch.maximum(torch.amax(p, dim=-1, keepdim=True), hi0)
-          + batch * torch.amax(d, dim=-1, keepdim=True))
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        cap = torch.clamp(torch.ceil((mid - p) / d), 0.0, float(batch)
-                          ).sum(dim=-1, keepdim=True)
-        ok = cap >= demand_fn(mid)
-        lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
-    return hi
+    with span("fleet.route.water_level"):
+        lo = torch.amin(p, dim=-1, keepdim=True)
+        hi = (torch.maximum(torch.amax(p, dim=-1, keepdim=True), hi0)
+              + batch * torch.amax(d, dim=-1, keepdim=True))
+        for _ in range(iters):
+            mid = 0.5 * (lo + hi)
+            cap = torch.clamp(torch.ceil((mid - p) / d), 0.0, float(batch)
+                              ).sum(dim=-1, keepdim=True)
+            ok = cap >= demand_fn(mid)
+            lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
+        return hi
 
 
 def _add_at(q: torch.Tensor, srv: torch.Tensor, tier: torch.Tensor,
@@ -304,11 +316,13 @@ def _route_batch_pandas(s: bp.PandasState, est, ctx: FleetCtx, locs, active,
     pending = active
     for r in range(fc.rounds):
         w = bp.workload(s, est)
-        if use_kernel:
-            best_i, best_t, best_v = kops.fleet_route(s.q, s.serving, est,
-                                                      ctx.anc, locs)
-        else:
-            best_i, best_t, best_v = _private_route_segmin(w, est, ctx, locs)
+        with span("fleet.route.private"):
+            if use_kernel:
+                best_i, best_t, best_v = kops.fleet_route(
+                    s.q, s.serving, est, ctx.anc, locs)
+            else:
+                best_i, best_t, best_v = _private_route_segmin(w, est, ctx,
+                                                               locs)
 
         # pool (remote tier) water-fill parameters from the same snapshot
         pr = est[..., k - 1]
@@ -326,17 +340,18 @@ def _route_batch_pandas(s: bp.PandasState, est, ctx: FleetCtx, locs, active,
         # private rank clamp: the r-th claimant of a server stays private
         # only while its filled score is still under the water level; one
         # stable sort of the flat server ids ranks every cell's claimants
-        go_raw = pending & (best_v <= y1)
-        flat_i = best_i.long() + cell_m
-        key_m = torch.where(go_raw, flat_i, nc * m).reshape(-1)
-        order = torch.argsort(key_m, stable=True)
-        sk = key_m[order]
-        first = torch.searchsorted(sk, sk, side="left")
-        rank = torch.empty_like(ar).index_put_((order,), ar - first
-                                               ).view(nc, batch)
-        e_at = est2[flat_i, best_t.long()]
-        stay = go_raw & (best_v + rank.to(torch.int32) / (e_at * e_at)
-                         <= y1)
+        with span("fleet.route.rank_clamp"):
+            go_raw = pending & (best_v <= y1)
+            flat_i = best_i.long() + cell_m
+            key_m = torch.where(go_raw, flat_i, nc * m).reshape(-1)
+            order = torch.argsort(key_m, stable=True)
+            sk = key_m[order]
+            first = torch.searchsorted(sk, sk, side="left")
+            rank = torch.empty_like(ar).index_put_((order,), ar - first
+                                                   ).view(nc, batch)
+            e_at = est2[flat_i, best_t.long()]
+            stay = go_raw & (best_v + rank.to(torch.int32)
+                             / (e_at * e_at) <= y1)
 
         if r < fc.rounds - 1:
             # commit this pass's winners; losers retry against updated W
@@ -345,20 +360,21 @@ def _route_batch_pandas(s: bp.PandasState, est, ctx: FleetCtx, locs, active,
             pending = pending & ~stay
 
     # final pass: pool assignment at the re-raised level
-    pool = pending & ~stay
-    n_pool = pool.to(torch.float32).sum(dim=-1, keepdim=True)
-    y2 = _water_level(p, d, lambda y: n_pool, hi0, batch, fc.fill_iters)
-    caps = torch.clamp(torch.ceil((y2 - p) / d), 0.0, float(batch)
-                       ).to(torch.int64)
-    cum = torch.cumsum(caps, dim=-1)
-    pool_rank = torch.cumsum(pool.to(torch.int64), dim=-1) - 1
-    pool_srv = torch.clamp(torch.searchsorted(cum, pool_rank, side="right"),
-                           0, m - 1)
+    with span("fleet.route.pool_fill"):
+        pool = pending & ~stay
+        n_pool = pool.to(torch.float32).sum(dim=-1, keepdim=True)
+        y2 = _water_level(p, d, lambda y: n_pool, hi0, batch, fc.fill_iters)
+        caps = torch.clamp(torch.ceil((y2 - p) / d), 0.0, float(batch)
+                           ).to(torch.int64)
+        cum = torch.cumsum(caps, dim=-1)
+        pool_rank = torch.cumsum(pool.to(torch.int64), dim=-1) - 1
+        pool_srv = torch.clamp(torch.searchsorted(cum, pool_rank,
+                                                  side="right"), 0, m - 1)
 
-    srv = torch.where(stay, flat_i, pool_srv + cell_m)
-    tier = torch.where(stay, best_t.long(), k - 1)
-    return bp.PandasState(q=_add_at(s.q, srv, tier, pending),
-                          serving=s.serving)
+        srv = torch.where(stay, flat_i, pool_srv + cell_m)
+        tier = torch.where(stay, best_t.long(), k - 1)
+        return bp.PandasState(q=_add_at(s.q, srv, tier, pending),
+                              serving=s.serving)
 
 
 def _route_batch_po2(s: bp.PandasState, est, ctx: FleetCtx, locs, active,
@@ -434,19 +450,23 @@ def _build_fleet_step(policy_like: PolicyLike, cfg, fc: FleetConfig,
              draws: SlotDraws) -> Carry:
         q, serving, mean_n, n_meas, compl = carry
         s = bp.PandasState(q, serving)
-        types, active = _sample_arrivals(draws, ctx, p_hot, batch)
-        if name == "pandas_po2":
-            s = _route_batch_po2(s, est, ctx, types, active, draws.u_cand)
-        else:
-            s = _route_batch_pandas(s, est, ctx, types, active, fc,
-                                    use_kernel)
-        s, compl_t = bp.serve_and_schedule(s, draws.u_serve, true_k)
-        n = bp.num_in_system(s).to(torch.float32)
-        in_w = float(t >= warmup)
-        n_meas2 = n_meas + in_w
-        mean_n2 = mean_n + in_w * (n - mean_n) / torch.clamp(n_meas2,
-                                                             min=1.0)
-        compl2 = compl + compl_t * int(t >= warmup)
+        with span("fleet.arrivals"):
+            types, active = _sample_arrivals(draws, ctx, p_hot, batch)
+        with span("fleet.route"):
+            if name == "pandas_po2":
+                s = _route_batch_po2(s, est, ctx, types, active,
+                                     draws.u_cand)
+            else:
+                s = _route_batch_pandas(s, est, ctx, types, active, fc,
+                                        use_kernel)
+        with span("fleet.serve"):
+            s, compl_t = bp.serve_and_schedule(s, draws.u_serve, true_k)
+            n = bp.num_in_system(s).to(torch.float32)
+            in_w = float(t >= warmup)
+            n_meas2 = n_meas + in_w
+            mean_n2 = mean_n + in_w * (n - mean_n) / torch.clamp(n_meas2,
+                                                                 min=1.0)
+            compl2 = compl + compl_t * int(t >= warmup)
         return (s.q, s.serving, mean_n2, n_meas2, compl2)
 
     return init, step
@@ -492,21 +512,37 @@ def _finalize(carry_np, lam_total) -> Dict[str, Any]:
 
 
 def _fleet_run(policy: PolicyLike, cfg, cells: Sequence[Tuple[int, float]],
-               est_cells: np.ndarray, fleet: FleetLike, device,
+               est_stack: np.ndarray, est_index: Sequence[int],
+               fleet: FleetLike, device,
                rng: Optional[DrawSource]) -> Dict[str, np.ndarray]:
-    """Runs the cells ``[(seed, lam), ...]`` with (N, M, K) estimates as
-    one batch; returns (N,) metric arrays."""
+    """Runs the cells ``[(seed, lam), ...]`` as one batch, cell i at the
+    (M, K) estimates ``est_stack[est_index[i]]``; returns (N,) metric
+    arrays."""
     dev = resolve_device(device)
-    init, step = _build_fleet_step(policy, cfg, as_fleet_config(fleet), dev)
-    est_t = torch.as_tensor(est_cells, device=dev).contiguous()
-    if rng is None:
-        rng = DeviceSource(cells, cfg.max_arrivals, cfg.topo.num_servers,
-                           dev, candidates(policy))
-    carry = init(len(cells))
-    for t in range(cfg.horizon):
-        carry = step(carry, t, est_t, rng.slot(t))
-    lam = np.asarray([lam for _, lam in cells], np.float32)
-    return _finalize(tuple(x.cpu().numpy() for x in carry), lam)
+    with collecting():
+        with span("fleet.setup"):
+            with span("fleet.setup.estimates"):
+                est_t = torch.as_tensor(est_stack[est_index],
+                                        device=dev).contiguous()
+            with span("fleet.setup.step"):
+                init, step = _build_fleet_step(policy, cfg,
+                                               as_fleet_config(fleet), dev)
+            if rng is None:
+                rng = DeviceSource(cells, cfg.max_arrivals,
+                                   cfg.topo.num_servers, dev,
+                                   candidates(policy))
+            carry = init(len(cells))
+        with span("fleet.loop"):
+            for t in range(cfg.horizon):
+                with span("fleet.draws"):
+                    draws = rng.slot(t)
+                    count("fleet.tasks_arrived", draws.n)
+                carry = step(carry, t, est_t, draws)
+        with span("fleet.finalize"):
+            carry_np = tuple(x.cpu().numpy() for x in carry)
+            flush_counts()
+            lam = np.asarray([lam for _, lam in cells], np.float32)
+            return _finalize(carry_np, lam)
 
 
 def fleet_simulate(policy: PolicyLike, cfg, lam_total: float, est,
@@ -521,7 +557,7 @@ def fleet_simulate(policy: PolicyLike, cfg, lam_total: float, est,
     if lam_total < 0:
         raise ValueError(f"lam_total must be >= 0, got {lam_total}")
     out = _fleet_run(policy, cfg, [(int(seed), np.float32(lam_total))],
-                     _as_numpy(est)[None], fleet, device, rng)
+                     _as_numpy(est)[None], [0], fleet, device, rng)
     return {k: float(v[0]) for k, v in out.items()}
 
 
@@ -544,5 +580,5 @@ def fleet_sweep(policy: PolicyLike, cfg, lam_grid, est_stack, seeds,
     grid = [(lam, e, s) for lam in lam_grid
             for e in range(shape[1]) for s in seeds]
     out = _fleet_run(policy, cfg, [(s, lam) for lam, _, s in grid],
-                     est_stack[[e for _, e, _ in grid]], fleet, device, rng)
+                     est_stack, [e for _, e, _ in grid], fleet, device, rng)
     return {k: np.asarray(v).reshape(shape) for k, v in out.items()}

@@ -13,11 +13,18 @@ subsystem, two projections.
 2. **Host-side event tracing** (`events.py`) — a ring-buffered
    `EventRecorder` the serving engine and the host replication lifecycle
    emit typed events into, with a Chrome trace-event JSON exporter
-   viewable in Perfetto and a span hook for host-time attribution.
+   viewable in Perfetto, and the program's spans and counters
+   (`span`, `count`, `collecting`, `recording`): the fleet study path
+   marks its phases and counts its work with them, on
+   `torch.profiler`'s timeline and the installed recorder's, and at no
+   cost while tracing is off.
 """
 
-from repro_torch.telemetry.events import (CLOCK_UNIT_US, EventRecorder,
-                                          load_trace, maybe_span,
+from repro_torch.telemetry.events import (CLOCK_UNIT_US, COUNTS,
+                                          EventRecorder, collecting,
+                                          count, counting,
+                                          flush_counts, load_trace,
+                                          maybe_span, recording, span,
                                           validate_chrome_trace)
 from repro_torch.telemetry.recorder import (OVERFLOW_WARN_FRAC,
                                             TELEMETRY_METRIC_KEYS,
@@ -29,7 +36,9 @@ from repro_torch.telemetry.recorder import (OVERFLOW_WARN_FRAC,
                                             percentiles_from_hist)
 
 __all__ = [
-    "CLOCK_UNIT_US", "EventRecorder", "load_trace", "maybe_span",
+    "CLOCK_UNIT_US", "COUNTS", "EventRecorder", "collecting", "count",
+    "counting", "flush_counts", "load_trace", "maybe_span", "recording",
+    "span",
     "validate_chrome_trace", "OVERFLOW_WARN_FRAC", "TELEMETRY_METRIC_KEYS",
     "SimTelemetry", "TelemetryConfig", "TelemetryLike", "TelState",
     "as_telemetry_config", "fcfs_sojourns", "maybe_warn_overflow",
